@@ -1,0 +1,167 @@
+"""Where the time of one C48 x 63 dycore dt goes on the GPU.
+
+Run on the GPU machine from the repository root:
+
+    python -m fv3net_tpu_torch.step_profile [--out DIR]
+
+Builds the benchmark configuration (bench.py ``_build_config``: C48 x 63,
+k_split=1, n_split=6, hord=5, kord=9, f32), warms up one dt, then:
+  * times 5 dts with the host clock (synchronized), the step time a user
+    sees;
+  * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
+    the device-busy time per dt (sum of kernel times), hence the device
+    idle share, the number of kernel launches per dt, the kernels by
+    device time, and the host time of the dycore's stages (each stage
+    wrapped in a record_function label for the traced dts only).
+Writes ``step_profile_c48.json`` and ``step_profile_c48.txt`` under
+--out and prints the JSON summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from .dycore import hydro
+from .grid import CubedSphereGrid
+
+N, NZ, DT_ATMOS, PTOP = 48, 63, 900.0, 300.0
+# module-level callables of dycore.hydro labelled in the traced dts
+STAGES = (
+    "_c_sw_half_3d", "_substep_core", "remap_step", "fv_tp_2d",
+    "scalar_filter", "div_damp", "vort_damp", "corner_div_damp",
+    "sim1_solve", "column_pressures", "halo_exchange",
+    "halo_exchange_dgrid", "average_dgrid_boundary", "padded_cgrid_winds",
+    "ppm_remap",
+)
+
+
+def _labelled(name, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with record_function(f"stage::{name}"):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def _us(event):
+    """Duration of a profiler event in microseconds."""
+    return event.time_range.elapsed_us()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("step_profile needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+    run, _, _ = hydro.make_dycore_stepper(
+        CubedSphereGrid.make(N, halo=3), NZ, DT_ATMOS, k_split=1,
+        n_split=6, hord=5, kord=9, ptop=PTOP, dtype=torch.float32,
+        device="cuda",
+    )
+    state = hydro.benchmark_state(N, NZ, PTOP, "cuda")
+    phis = torch.zeros((6, N, N), device="cuda")
+    state = run(state, phis, 1)  # warm-up
+    torch.cuda.synchronize()
+
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state = run(state, phis, 1)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+
+    originals = {name: getattr(hydro, name) for name in STAGES}
+    traced_dts = 2
+    try:
+        for name, fn in originals.items():
+            setattr(hydro, name, _labelled(name, fn))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(traced_dts):
+                state = run(state, phis, 1)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / traced_dts
+    finally:
+        for name, fn in originals.items():
+            setattr(hydro, name, fn)
+
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device activity: kernels and copies, not the GPU-side spans of the
+    # stage labels (those are reported separately as stage spans)
+    kernels = [
+        e for e in events
+        if e.device_type == cuda and not e.name.startswith("stage::")
+    ]
+    busy_ms = sum(_us(e) for e in kernels) / 1e3 / traced_dts
+    by_kernel = {}
+    for e in kernels:
+        k = by_kernel.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += _us(e) / 1e3 / traced_dts
+    stages = {}  # name -> [calls, host ms, device span ms] per dt
+    for e in events:
+        if e.name.startswith("stage::"):
+            s = stages.setdefault(e.name[7:], [0, 0.0, 0.0])
+            if e.device_type == cuda:
+                s[2] += _us(e) / 1e3 / traced_dts
+            else:
+                s[0] += 1
+                s[1] += _us(e) / 1e3 / traced_dts
+    host_med = sorted(host_ms)[len(host_ms) // 2]
+    summary = {
+        "config": f"C{N}x{NZ} k_split=1 n_split=6 hord=5 kord=9 f32",
+        "card": card,
+        "host_ms_per_dt": host_ms,
+        "host_ms_per_dt_median": host_med,
+        "traced_ms_per_dt": traced_ms,
+        "device_busy_ms_per_dt": busy_ms,
+        # idle share against the untraced step (the profiler slows the
+        # host, not the kernels), and against the traced one
+        "device_idle_share": 1.0 - busy_ms / host_med,
+        "device_idle_share_traced": 1.0 - busy_ms / traced_ms,
+        # kernels plus memcpy/memset activities
+        "device_ops_per_dt": len(kernels) / traced_dts,
+        "top_kernels_ms_per_dt": sorted(
+            ([k[:120], c / traced_dts, ms]
+             for k, (c, ms) in by_kernel.items()),
+            key=lambda r: -r[2],
+        )[:25],
+        # per stage: calls, host ms (inclusive, traced) and the span
+        # from its first to its last kernel on the device, per dt
+        "stages_per_dt": sorted(
+            ([k, c / traced_dts, host, span]
+             for k, (c, host, span) in stages.items()),
+            key=lambda r: -r[2],
+        ),
+    }
+    os.makedirs(args.out, exist_ok=True)
+    stem = os.path.join(args.out, f"step_profile_c{N}")
+    with open(stem + ".json", "w") as f:
+        json.dump(summary, f, indent=1)
+    with open(stem + ".txt", "w") as f:
+        f.write(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=60
+        ))
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()
