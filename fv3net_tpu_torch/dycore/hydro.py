@@ -18,10 +18,12 @@ Prognostic state (all [6, nz, ...] with D-grid staggering):
     w     [6, nz, n, n]     vertical wind (m/s)
     delz  [6, nz, n, n]     layer thickness (m, < 0)
 
-On CUDA tensors the four hand-written kernels run: the transports
-(ops/cuda_tp.py), the vertical solve (ops/cuda_sim1.py), the del-4
-filters (ops/cuda_filter.py) and the column pressure chains
-(ops/cuda_column.py).  On CPU tensors every piece runs its plain torch
+On CUDA tensors the hand-written kernels run: the transports
+(ops/cuda_tp.py; the five D-stage transports as one fused kernel when
+``ops.advection.set_fused_transport(True)``), the vertical solve
+(ops/cuda_sim1.py), the del-4 filters (ops/cuda_filter.py), the column
+pressure chains (ops/cuda_column.py) and the vertical remap
+(ops/cuda_remap.py).  On CPU tensors every piece runs its plain torch
 form.
 """
 
@@ -46,9 +48,15 @@ from ..grid.halo import (
     halo_exchange,
     halo_exchange_dgrid,
 )
-from ..ops.advection import fv_tp_2d, ppm_flux
+from ..ops.advection import (
+    _fused5_enabled,
+    fv_tp_2d,
+    fv_tp_2d_multi5,
+    ppm_flux,
+    transports5,
+)
 from ..ops.cuda_column import column_pressures
-from ..ops.remap import ppm_remap
+from ..ops.remap import remap_levels
 from .riemann import hydrostatic_dz, sim1_solve
 from .sw import (
     CORNER_DAMP_COEF,
@@ -347,22 +355,19 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
     sfx = uc * dt * m.sina_u[:, None]
     sfy = vc * dt * m.sina_v[:, None]
 
-    # the five transports: delp; pt and w mass-weighted with the delp
-    # fluxes (the Lin-Rood inner update divides by the transversely
-    # updated AIR MASS area * delp); vorticity; delz volume-weighted
-    apx, apy = m.area_px[:, None], m.area_py[:, None]
-    fx, fy = fv_tp_2d(dpx, dpy, crx, cry, xfx, yfx, apx, apy, hord)
-    adpx, adpy = apx * dpx, apy * dpy
-    fxt, fyt = fv_tp_2d(ptx, pty, crx, cry, fx, fy, adpx, adpy, hord)
-    fxo, fyo = fv_tp_2d(
-        omega_x, omega_y, crx, cry, sfx, sfy, apx, apy, hord
-    )
+    # the five transports (ops.advection.transports5): fused into one
+    # call when the switch is on (the JAX package's fused branch, without
+    # its 128-lane gate), else five fv_tp_2d calls
     wx = halo_exchange(base.w, h, fill="x")
     wy = halo_exchange(base.w, h, fill="y")
-    fxw, fyw = fv_tp_2d(wx, wy, crx, cry, fx, fy, adpx, adpy, hord)
     dzx = halo_exchange(base.delz, h, fill="x")
     dzy = halo_exchange(base.delz, h, fill="y")
-    fxz, fyz = fv_tp_2d(dzx, dzy, crx, cry, xfx, yfx, apx, apy, hord)
+    args = (dpx, dpy, ptx, pty, wx, wy, dzx, dzy, omega_x, omega_y, crx,
+            cry, xfx, yfx, sfx, sfy, m.area_px, m.area_py, hord)
+    (fx, fy, fxt, fyt, fxw, fyw, fxz, fyz, fxo, fyo) = (
+        fv_tp_2d_multi5(*args) if _fused5_enabled()
+        else transports5(fv_tp_2d, *args)
+    )
 
     def flux_div(fx_, fy_):
         d = (fx_ - _shx(fx_, 1)) + (fy_ - _shy(fy_, 1))
@@ -517,20 +522,21 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
     return new, (fx, fy, crx, cry)
 
 
-def remap_step(state: DycoreState, ak, bk, ptop, kord=9):
-    """Lagrangian -> Eulerian vertical remap to the ak/bk coordinate."""
+def remap_step(state: DycoreState, ak, bk, ptop, kord_tm=9, kord_mt=9,
+               kord_tr=9, kord_wz=9):
+    """Lagrangian -> Eulerian vertical remap to the ak/bk coordinate.
+
+    Every field is remapped on its native [6, nz, Y, X] layout by
+    ``ops.remap.remap_levels`` (the K5 kernel for CUDA tensors whose
+    kord it covers); the tracers go as one [ntracer * 6, nz, n, n] stack.
+    """
     delp, pt, u, v, q, w, delz = state
     pe1 = _interface_pressures(delp, ptop)  # source interface pressures
     ps = pe1[:, -1:]
     pe2 = ak.reshape(1, -1, 1, 1) + bk.reshape(1, -1, 1, 1) * ps
+    rmp = remap_levels
 
-    def rmp(qq, p1, p2, iv, kord):
-        return ppm_remap(
-            qq.movedim(1, 0), p1.movedim(1, 0), p2.movedim(1, 0),
-            iv=iv, kord=kord, exact_boundaries=True,
-        ).movedim(0, 1)
-
-    pt_new = rmp(pt, pe1, pe2, 1, kord)
+    pt_new = rmp(pt, pe1, pe2, 1, kord_tm)
     delp_new = pe2[:, 1:] - pe2[:, :-1]
 
     # winds: average interface pressures to the staggered positions (the
@@ -544,16 +550,16 @@ def remap_step(state: DycoreState, ak, bk, ptop, kord=9):
         ext = extend_cells_one(p)
         return 0.5 * (ext[:, :, 1:-1, :-1] + ext[:, :, 1:-1, 1:])
 
-    u_new = rmp(u, stag_u(pe1), stag_u(pe2), -1, kord)
-    v_new = rmp(v, stag_v(pe1), stag_v(pe2), -1, kord)
+    u_new = rmp(u, stag_u(pe1), stag_u(pe2), -1, kord_mt)
+    v_new = rmp(v, stag_v(pe1), stag_v(pe2), -1, kord_mt)
     q_new = (
-        torch.stack([rmp(qq, pe1, pe2, 0, kord) for qq in q])
+        rmp(q.flatten(0, 1), pe1, pe2, 0, kord_tr).reshape(q.shape)
         if q is not None else None
     )
-    # w like a wind, delz via the specific volume -dz/dp
+    # w like a wind (kord_wz), delz via the specific volume -dz/dp
     # (mass-weighted, so total column height is conserved)
-    w_new = rmp(w, pe1, pe2, -1, kord)
-    sv_new = rmp(-delz / delp, pe1, pe2, 1, kord)
+    w_new = rmp(w, pe1, pe2, -1, kord_wz)
+    sv_new = rmp(-delz / delp, pe1, pe2, 1, kord_wz)
     delz_new = -sv_new * delp_new
     return DycoreState(
         delp_new, pt_new, u_new, v_new, q_new, w_new, delz_new
@@ -643,7 +649,7 @@ def build_one_dt(m, ak, bk, nz, dt_atmos, k_split, n_split, hord, kord,
                     ) / st2.delp
 
                 st2 = st2._replace(q=torch.stack([tr(qq) for qq in st2.q]))
-            state = remap_step(st2, ak, bk, ptop, kord)
+            state = remap_step(st2, ak, bk, ptop, kord, kord, kord, kord)
         return state
 
     return one_dt

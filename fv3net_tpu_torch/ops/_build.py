@@ -3,8 +3,9 @@
 At first use every ``.cu`` file is compiled by ``nvcc`` for ``sm_90a``
 into ONE shared library with a plain C interface, which is loaded with
 ``ctypes``.  The library lives under ``build/kernels/`` at the repository
-root, named by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Nothing here runs at import
+root, named by a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc`` or a
 GPU.  There is no fallback: a CUDA tensor that reaches a kernel whose
 library cannot be built raises.
@@ -33,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 
 # argtypes of every C entry point in csrc/ (each returns an int error code)
 SIGNATURES = {
@@ -40,6 +42,10 @@ SIGNATURES = {
     "fv3_sim1": [_P] * 12 + [_I] * 3 + [_F] * 6 + [_P],
     "fv3_column": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
     "fv3_del4": [_P] * 6 + [_I] * 4 + [_F] + [_P],
+    "fv3_remap": [_P] * 6 + [_I] * 7 + [_P],
+    "fv3_tp2d_multi5": [_PP] * 3 + [_I] * 4 + [_P],
+    "fv3_probe_affine": [_P] * 2 + [_L] + [_P],
+    "fv3_probe_stencil": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 _lib = None
@@ -65,7 +71,7 @@ def build() -> Path:
     build exists; returns its path."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libfv3kernels_{digest.hexdigest()[:16]}.so"

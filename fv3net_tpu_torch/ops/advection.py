@@ -16,12 +16,29 @@ All operators work on fully padded cube tensors [6, ..., n+2h, n+2h]
 fill, and return fluxes on the padded face lattice so the Lin-Rood inner
 stage can consume halo-row fluxes.  ``fv_tp_2d`` runs the CUDA kernel
 (ops/cuda_tp.py) for CUDA tensors and the plain torch form below for CPU
-tensors.
+tensors.  ``fv_tp_2d_multi5`` is the D stage's five transports in one
+call (the fused kernel of ops/cuda_tp.py for CUDA tensors), taken by the
+dycore substep when ``set_fused_transport(True)``.
 """
 
 from __future__ import annotations
 
 import torch
+
+# The JAX package's switch for the fused 5-field substep transport
+# (its ops/advection.py:51-68), with the same default: off.
+_USE_FUSED5 = False
+
+
+def set_fused_transport(flag):
+    """Enable (True) / disable (False) the fused 5-field transport in the
+    dycore substep (``fv_tp_2d_multi5``)."""
+    global _USE_FUSED5
+    _USE_FUSED5 = bool(flag)
+
+
+def _fused5_enabled() -> bool:
+    return _USE_FUSED5
 
 
 def _ppm_edges(q, axis: int, hord: int):
@@ -166,3 +183,63 @@ def fv_tp_2d_plain(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
     fx = ppm_flux(q_y, crx, -1, hord) * xfx
     fy = ppm_flux(q_x, cry, -2, hord) * yfx
     return fx, fy
+
+
+def fv_tp_2d_multi5(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+                    crx, cry, xfx, yfx, sfx, sfy, area_px, area_py,
+                    hord: int):
+    """The D stage's five transports in one call.
+
+    Returns (fxd, fyd, fxt, fyt, fxw, fyw, fxz, fyz, fxo, fyo): fv_tp_2d
+    of delp and delz with (xfx, yfx, area), of pt and w with the delp
+    fluxes (fxd, fyd) and the air mass area * delp, and of the vorticity
+    with (sfx, sfy, area).  Fields are padded [F, nz, N, N]; areas
+    [F, N, N] or [F, 1, N, N].  CUDA tensors go to the fused kernel
+    (ops/cuda_tp.py), CPU tensors to the plain form.
+    """
+    args = (dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+            crx, cry, xfx, yfx, sfx, sfy)
+    F, N = dpx.shape[0], dpx.shape[-1]
+    if dpx.is_cuda:
+        from .cuda_tp import fv_tp_2d_multi5_cuda
+
+        return fv_tp_2d_multi5_cuda(
+            *(a.contiguous() for a in args),
+            area_px.reshape(F, N, N).contiguous(),
+            area_py.reshape(F, N, N).contiguous(), hord,
+        )
+    return fv_tp_2d_multi5_plain(*args, area_px, area_py, hord)
+
+
+def fv_tp_2d_multi5_plain(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+                          crx, cry, xfx, yfx, sfx, sfy, area_px, area_py,
+                          hord: int):
+    """The plain form of fv_tp_2d_multi5: five fv_tp_2d_plain calls in
+    the fused wiring."""
+    return transports5(
+        fv_tp_2d_plain, dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+        crx, cry, xfx, yfx, sfx, sfy, area_px, area_py, hord,
+    )
+
+
+def transports5(tp, dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+                crx, cry, xfx, yfx, sfx, sfy, area_px, area_py, hord: int):
+    """The D stage's five transports as five calls of the transport `tp`
+    (fv_tp_2d or one of its implementations), wired as the JAX package's
+    dycore/hydro.py:423-452 wires them: delp and delz with (xfx, yfx,
+    area); pt and w mass-weighted with the delp fluxes -- the Lin-Rood
+    inner update divides by the transversely updated AIR MASS area * delp
+    -- and the vorticity with (sfx, sfy, area).  Returns the fluxes in
+    fv_tp_2d_multi5's order."""
+    F, N = dpx.shape[0], dpx.shape[-1]
+    apx = area_px.reshape(F, 1, N, N)
+    apy = area_py.reshape(F, 1, N, N)
+    fxd, fyd = tp(dpx, dpy, crx, cry, xfx, yfx, apx, apy, hord)
+    adpx, adpy = apx * dpx, apy * dpy
+    return (
+        fxd, fyd,
+        *tp(ptx, pty, crx, cry, fxd, fyd, adpx, adpy, hord),
+        *tp(wx, wy, crx, cry, fxd, fyd, adpx, adpy, hord),
+        *tp(dzx, dzy, crx, cry, xfx, yfx, apx, apy, hord),
+        *tp(ox, oy, crx, cry, sfx, sfy, apx, apy, hord),
+    )

@@ -1,11 +1,18 @@
-"""K1 wrapper: the Lin-Rood 2D transport kernel (``csrc/tp2d.cu``).
+"""K1 and K6 wrappers: the Lin-Rood 2D transport kernels.
 
-Replaces the TPU kernel ``fv3net_tpu/ops/pallas_tp.py::fv_tp_2d_pallas``.
-The plain version is ``ops/advection.py::fv_tp_2d``, which dispatches here
-for CUDA tensors.
+K1 (``csrc/tp2d.cu``) replaces the TPU kernel
+``fv3net_tpu/ops/pallas_tp.py::fv_tp_2d_pallas``; its plain version is
+``ops/advection.py::fv_tp_2d_plain`` and ``advection.fv_tp_2d``
+dispatches here for CUDA tensors.  K6 (``csrc/tp2d_multi5.cu``) replaces
+``fv3net_tpu/ops/pallas_tp.py::fv_tp_2d_multi5``, the D stage's five
+transports fused; its plain version is
+``ops/advection.py::fv_tp_2d_multi5_plain`` and
+``advection.fv_tp_2d_multi5`` dispatches here for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -56,3 +63,48 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
 
 
 fv_tp_2d_cuda.launches = 0
+
+
+MULTI5_IN = ("dpx", "dpy", "ptx", "pty", "wx", "wy", "dzx", "dzy", "ox",
+             "oy", "crx", "cry", "xfx", "yfx", "sfx", "sfy")
+
+
+def fv_tp_2d_multi5_cuda(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+                         crx, cry, xfx, yfx, sfx, sfy, area_px, area_py,
+                         hord: int):
+    """(fxd, fyd, fxt, fyt, fxw, fyw, fxz, fyz, fxo, fyo) of
+    ``fv_tp_2d_multi5`` from the CUDA kernel.
+
+    The 16 fields: [F, nz, N, N]; area_px, area_py: [F, N, N]; float32 on
+    one CUDA device.
+    """
+    if hord not in (1, 5, 6, 8):
+        raise ValueError(f"unsupported hord {hord}")
+    dev = dpx.device
+    if dev.type != "cuda":
+        raise ValueError("fv_tp_2d_multi5_cuda takes CUDA tensors")
+    F, nz, N, _ = dpx.shape
+    field = (F, nz, N, N)
+    fields = (dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
+              crx, cry, xfx, yfx, sfx, sfy)
+    ptrs = [_build.check(t, name, field, dev)
+            for t, name in zip(fields, MULTI5_IN)]
+    ptrs += [_build.check(area_px, "area_px", (F, N, N), dev),
+             _build.check(area_py, "area_py", (F, N, N), dev)]
+    out = [torch.empty(field, dtype=torch.float32, device=dev)
+           for _ in range(10)]
+    scratch = [torch.empty_like(out[0]) for _ in range(6)]
+
+    def array(ts):
+        return (ctypes.c_void_p * len(ts))(*ts)
+
+    _build.call(
+        "fv3_tp2d_multi5", array(ptrs), array([t.data_ptr() for t in out]),
+        array([t.data_ptr() for t in scratch]), F, nz, N, hord,
+        _build.stream(),
+    )
+    fv_tp_2d_multi5_cuda.launches += 1
+    return tuple(out)
+
+
+fv_tp_2d_multi5_cuda.launches = 0

@@ -1,11 +1,15 @@
-"""Where the time of one C48 x 63 dycore dt goes on the GPU.
+"""Where the time of one C48 (or C192) x 63 dycore dt goes on the GPU.
 
 Run on the GPU machine from the repository root:
 
-    python -m fv3net_tpu_torch.step_profile [--out DIR]
+    python -m fv3net_tpu_torch.step_profile [--n 48|192] [--fused]
+                                            [--out DIR]
 
-Builds the benchmark configuration (bench.py ``_build_config``: C48 x 63,
-k_split=1, n_split=6, hord=5, kord=9, f32), warms up one dt, then:
+Builds the benchmark configuration (bench.py ``_build_config``: C<n> x 63,
+k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
+225 s at C192, bench.py's rung 2), with the fused 5-field transport
+(``ops.advection.set_fused_transport``) on if --fused, warms up one dt,
+then:
   * times 5 dts with the host clock (synchronized), the step time a user
     sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
@@ -13,8 +17,8 @@ k_split=1, n_split=6, hord=5, kord=9, f32), warms up one dt, then:
     idle share, the number of kernel launches per dt, the kernels by
     device time, and the host time of the dycore's stages (each stage
     wrapped in a record_function label for the traced dts only).
-Writes ``step_profile_c48.json`` and ``step_profile_c48.txt`` under
---out and prints the JSON summary.
+Writes ``step_profile_c<n>[_fused].json`` and ``.txt`` under --out and
+prints the JSON summary.
 """
 
 from __future__ import annotations
@@ -31,15 +35,17 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from .dycore import hydro
 from .grid import CubedSphereGrid
+from .ops import advection
 
-N, NZ, DT_ATMOS, PTOP = 48, 63, 900.0, 300.0
+NZ, PTOP = 63, 300.0
+DT_ATMOS = {48: 900.0, 192: 225.0}
 # module-level callables of dycore.hydro labelled in the traced dts
 STAGES = (
     "_c_sw_half_3d", "_substep_core", "remap_step", "fv_tp_2d",
     "scalar_filter", "div_damp", "vort_damp", "corner_div_damp",
     "sim1_solve", "column_pressures", "halo_exchange",
     "halo_exchange_dgrid", "average_dgrid_boundary", "padded_cgrid_winds",
-    "ppm_remap",
+    "remap_levels", "fv_tp_2d_multi5",
 )
 
 
@@ -59,8 +65,12 @@ def _us(event):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=48, choices=sorted(DT_ATMOS))
+    ap.add_argument("--fused", action="store_true",
+                    help="fused 5-field transport on")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
+    N = args.n
     if not torch.cuda.is_available():
         raise RuntimeError("step_profile needs a CUDA device")
     card = subprocess.run(
@@ -69,8 +79,9 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
+    advection.set_fused_transport(args.fused)
     run, _, _ = hydro.make_dycore_stepper(
-        CubedSphereGrid.make(N, halo=3), NZ, DT_ATMOS, k_split=1,
+        CubedSphereGrid.make(N, halo=3), NZ, DT_ATMOS[N], k_split=1,
         n_split=6, hord=5, kord=9, ptop=PTOP, dtype=torch.float32,
         device="cuda",
     )
@@ -127,7 +138,8 @@ def main(argv=None):
                 s[1] += _us(e) / 1e3 / traced_dts
     host_med = sorted(host_ms)[len(host_ms) // 2]
     summary = {
-        "config": f"C{N}x{NZ} k_split=1 n_split=6 hord=5 kord=9 f32",
+        "config": f"C{N}x{NZ} dt_atmos={DT_ATMOS[N]} k_split=1 n_split=6 "
+                  f"hord=5 kord=9 f32 fused_transport={args.fused}",
         "card": card,
         "host_ms_per_dt": host_ms,
         "host_ms_per_dt_median": host_med,
@@ -153,7 +165,9 @@ def main(argv=None):
         ),
     }
     os.makedirs(args.out, exist_ok=True)
-    stem = os.path.join(args.out, f"step_profile_c{N}")
+    stem = os.path.join(
+        args.out, f"step_profile_c{N}" + ("_fused" if args.fused else "")
+    )
     with open(stem + ".json", "w") as f:
         json.dump(summary, f, indent=1)
     with open(stem + ".txt", "w") as f:

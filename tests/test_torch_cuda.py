@@ -7,11 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from fv3net_tpu_torch import probe
 from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.grid import halo_exchange
-from fv3net_tpu_torch.ops import advection, cuda_column
+from fv3net_tpu_torch.ops import advection, cuda_column, remap
+from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
-from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda
+from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +90,65 @@ def test_filter_and_column_kernels(dev):
     want = cuda_column.column_pressures_plain(dp, 300.0)
     for g, w, rtol in zip(got, want, (1e-6, 1e-5, 1e-5)):
         torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)
+
+
+@pytest.mark.parametrize("stag", [(0, 0), (1, 0), (0, 1)])
+@pytest.mark.parametrize("iv,kord", [(1, 9), (0, 9), (-1, 9), (1, 10),
+                                     (1, 17)])
+def test_remap_kernel(dev, iv, kord, stag):
+    rng = np.random.RandomState(kord + iv)
+    ny, nx = n + stag[0], n + stag[1]
+
+    def edges():  # monotone, with positive spacings (chip_smoke.py)
+        w = np.cumsum(0.2 + rng.rand(6, NZ + 1, ny, nx), axis=1)
+        return 300.0 + (w - w[:, :1]) / (w[:, -1:] - w[:, :1]) * 9.97e4
+
+    pe1, pe2 = edges(), edges()
+    q, pe1, pe2 = (_t(a, dev) for a in (1.0 + rng.randn(6, NZ, ny, nx),
+                                        pe1, pe2))
+    got = remap.remap_levels(q, pe1, pe2, iv, kord)
+    want = remap.remap_levels_plain(q, pe1, pe2, iv, kord)
+    # the JAX kernel test's tolerance (test_pallas_kernels.py:228)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    m1 = (q.double() * (pe1[:, 1:] - pe1[:, :-1]).double()).sum(1)
+    m2 = (got.double() * (pe2[:, 1:] - pe2[:, :-1]).double()).sum(1)
+    mp = (want.double() * (pe2[:, 1:] - pe2[:, :-1]).double()).sum(1)
+    rel = float((m2 / m1 - 1.0).abs().max())
+    assert rel <= 2e-4 + 2.0 * float((mp / m1 - 1.0).abs().max())
+    # a tracer stack against one pressure grid is one launch
+    stack = torch.cat([q, 2.0 * q])
+    ppm_remap_cuda.launches = 0
+    got2 = remap.remap_levels(stack, pe1, pe2, iv, kord)
+    assert ppm_remap_cuda.launches == 1
+    assert torch.equal(got2[:6], got)
+
+
+@pytest.mark.parametrize("hord", [1, 5, 6, 8])
+def test_multi5_kernel(dev, hord):
+    rng = np.random.RandomState(hord)
+    sh = (6, NZ, N, N)
+    area = 1.0 + 0.1 * rng.rand(6, N, N)
+    fields = [100.0 + np.abs(rng.randn(*sh)), 100.0 + np.abs(rng.randn(*sh)),
+              300.0 + 10.0 * rng.randn(*sh), 300.0 + 10.0 * rng.randn(*sh),
+              rng.randn(*sh), rng.randn(*sh),
+              -100.0 + 5.0 * rng.randn(*sh), -100.0 + 5.0 * rng.randn(*sh),
+              1e-4 * rng.randn(*sh), 1e-4 * rng.randn(*sh),
+              0.2 * rng.randn(*sh), 0.2 * rng.randn(*sh)]
+    fields += [0.05 * area[:, None] * rng.randn(*sh) for _ in range(4)]
+    args = [_t(a, dev) for a in fields + [area, area + 0.01]]
+    got = advection.fv_tp_2d_multi5(*args, hord)
+    want = advection.fv_tp_2d_multi5_plain(*args, hord)
+    sl = np.s_[:, :, 2 : N - 2, 2 : N - 2]
+    for g, w in zip(got, want):  # K1's tolerance
+        torch.testing.assert_close(g[sl], w[sl], rtol=1e-4, atol=1e-3)
+    # against five K1 calls in the unfused wiring
+    five = advection.transports5(fv_tp_2d_cuda, *args, hord)
+    for g, f in zip(got, five):
+        assert float((g - f).abs().max()) <= 1e-6 * float(f.abs().max())
+    assert fv_tp_2d_multi5_cuda.launches > 0
+
+
+def test_probe_kernels(dev):
+    x = _t(np.random.RandomState(0).randn(*probe.SHAPE), dev)
+    assert torch.equal(probe.affine(x), probe.affine_plain(x))
+    assert torch.equal(probe.stencil(x), probe.stencil_plain(x))

@@ -108,10 +108,9 @@ def test_other_substep_schemes_raise():
 DATA = os.path.join(os.path.dirname(__file__), "data", "c12_trajectory.npz")
 
 
-def test_c12_trajectory_matches_stored():
-    """The port alone reproduces the JAX package's stored trajectory
-    (C12 x 63, 2 steps of 900 s, float64), with the stored test's
-    tolerances (test_regression_trajectory.py:88-91)."""
+def _c12x63_trajectory():
+    """2 steps of 900 s of the port at C12 x 63, float64, from the stored
+    trajectory's initial state (numpy arrays)."""
     nz = 63
     delp, pt, u, v, q = benchmark_like_state(12, nz, seed=0)
     run, _, _ = thydro.make_dycore_stepper(
@@ -122,8 +121,12 @@ def test_c12_trajectory_matches_stored():
         thydro.DycoreState(*(torch.as_tensor(a) for a in (delp, pt, u, v, q))),
         PTOP,
     )
-    got = state_to_numpy(run(st, torch.zeros(6, 12, 12, dtype=torch.float64),
-                             2))
+    return state_to_numpy(
+        run(st, torch.zeros(6, 12, 12, dtype=torch.float64), 2)
+    )
+
+
+def _assert_matches_stored(got):
     want = np.load(DATA)
     for k in ("delp", "pt", "u", "v", "q", "w", "delz"):
         scale = np.abs(want[k]).max()
@@ -131,3 +134,103 @@ def test_c12_trajectory_matches_stored():
             got[k].astype(np.float32), want[k], rtol=2e-5,
             atol=2e-5 * max(scale, 1e-30), err_msg=f"trajectory drift in {k}",
         )
+
+
+def test_c12_trajectory_matches_stored():
+    """The port alone reproduces the JAX package's stored trajectory
+    (C12 x 63, 2 steps of 900 s, float64), with the stored test's
+    tolerances (test_regression_trajectory.py:88-91)."""
+    _assert_matches_stored(_c12x63_trajectory())
+
+
+def test_c12x63_fused_transport_equals_unfused_and_stored():
+    """At C12 x 63 the steps with set_fused_transport(True) equal the
+    unfused steps bit for bit on the CPU, and so reproduce the stored JAX
+    trajectory."""
+    from fv3net_tpu_torch.ops import advection
+
+    off = _c12x63_trajectory()
+    advection.set_fused_transport(True)
+    try:
+        on = _c12x63_trajectory()
+    finally:
+        advection.set_fused_transport(False)
+    for k in off:
+        np.testing.assert_array_equal(on[k], off[k], err_msg=k)
+    _assert_matches_stored(on)
+
+
+def test_fused_transport_dt_equals_unfused_and_jax(jax_run):
+    """One dt with set_fused_transport(True) equals the dt with it off,
+    bit for bit on the CPU (the plain fused form is the five plain
+    transports), and the JAX dt (which never fuses on the CPU)."""
+    from fv3net_tpu_torch.ops import advection
+
+    state, phis, metrics, want = jax_run
+    m = metrics_from_numpy(metrics)
+    ak, bk = thydro.hybrid_coefficients(NZ, PTOP)
+    one_dt = thydro.build_one_dt(
+        m, ak, bk, NZ, DT, 1, 6, 5, 9, 0.12, PTOP, torch.float64
+    )
+    off = one_dt(state_from_numpy(state), torch.as_tensor(phis))
+    advection.set_fused_transport(True)
+    try:
+        on = one_dt(state_from_numpy(state), torch.as_tensor(phis))
+    finally:
+        advection.set_fused_transport(False)
+    for k in off._fields:
+        assert torch.equal(getattr(on, k), getattr(off, k)), k
+    _compare(on, want)
+
+
+def _smooth_lagrangian_state(n, nz, seed):
+    """Smooth fields on Lagrangian layers that have drifted from the
+    hybrid coordinate (numpy float64): the remap has work to do and no
+    limiter sits on a rounding tie."""
+    from fv3net_tpu.dycore.hydro import hybrid_coefficients
+
+    ak, bk = (np.asarray(c) for c in hybrid_coefficients(nz, PTOP))
+    pe = ak[:, None, None] + bk[:, None, None] * 1e5
+    k = np.arange(nz)[None, :, None, None]
+    rng = np.random.RandomState(seed)
+    y, x = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n),
+                       indexing="ij")
+    ph = rng.rand(6)[:, None, None, None]
+    delp = (pe[1:] - pe[:-1])[None] * (
+        1.0 + 0.05 * np.sin(0.3 * k + 2.0 * x + ph)
+    )
+    pt = 250.0 + 2.0 * k + 5.0 * np.cos(0.2 * k + 3.0 * y + ph)
+    u = 10.0 * np.sin(0.25 * k + 2.0 * np.linspace(0, 1, n + 1)[:, None]
+                      + ph)
+    v = 8.0 * np.cos(0.15 * k + 2.0 * np.linspace(0, 1, n + 1)[None, :]
+                     + ph)
+    q = 1e-3 * (1.5 + np.sin(0.1 * k + x + y + ph))[None]
+    w = 0.5 * np.sin(0.4 * k + 4.0 * y + ph)
+    delz = -(50.0 + 2.0 * k + np.cos(x + y + ph)) * np.ones_like(delp)
+    b = lambda a, s: np.broadcast_to(a, s).copy()  # noqa: E731
+    return (b(delp, (6, nz, n, n)), b(pt, (6, nz, n, n)),
+            b(u, (6, nz, n + 1, n)), b(v, (6, nz, n, n + 1)),
+            b(q, (1, 6, nz, n, n)), b(w, (6, nz, n, n)),
+            b(delz, (6, nz, n, n)))
+
+
+def test_remap_step_four_kords_matches_jax():
+    """remap_step with four distinct kords (pt 9, winds 10, tracers 17,
+    w/delz 7 through ppm_profile) against the JAX package's remap_step."""
+    from fv3net_tpu.dycore.hydro import hybrid_coefficients
+
+    arrays = _smooth_lagrangian_state(n, NZ, seed=5)
+    ak, bk = hybrid_coefficients(NZ, PTOP)
+    kords = dict(kord_tm=9, kord_mt=10, kord_tr=17, kord_wz=7)
+    want = jhydro.remap_step(
+        jhydro.DycoreState(*(jnp.asarray(a) for a in arrays)), ak, bk, PTOP,
+        **kords,
+    )
+    got = thydro.remap_step(
+        thydro.DycoreState(*(torch.as_tensor(a) for a in arrays)),
+        torch.as_tensor(np.array(ak)), torch.as_tensor(np.array(bk)),
+        PTOP, **kords,
+    )
+    for k in got._fields:
+        assert_close_scaled(getattr(got, k).numpy(),
+                            np.asarray(getattr(want, k)), 1e-12, name=k)

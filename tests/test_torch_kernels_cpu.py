@@ -9,18 +9,21 @@ import numpy as np
 import pytest
 import torch
 
+from fv3net_tpu_torch import probe
 from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.grid import halo_exchange
-from fv3net_tpu_torch.ops import _build, advection, cuda_column
+from fv3net_tpu_torch.ops import _build, advection, cuda_column, remap
 from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
+from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
-from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda
+from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
 
 torch.set_num_threads(1)
 
 WRAPPERS = (
     fv_tp_2d_cuda, sim1_solver_cuda, del4_filter_cuda,
-    cuda_column.column_pressures_cuda,
+    cuda_column.column_pressures_cuda, ppm_remap_cuda, fv_tp_2d_multi5_cuda,
+    probe.affine_cuda, probe.stencil_cuda,
 )
 n, H, NZ = 6, 3, 4
 N = n + 2 * H
@@ -31,8 +34,13 @@ def test_kernel_modules_import_without_toolchain():
     assert _build._lib is None  # nothing was built or loaded at import
     assert _build.CSRC.is_dir()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "column.cu", "filter.cu", "sim1.cu", "tp2d.cu",
+        "column.cu", "filter.cu", "probe.cu", "remap.cu", "sim1.cu",
+        "tp2d.cu", "tp2d_multi5.cu",
     ]
+    # every C entry point the wrappers call has its argument types
+    sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name in _build.SIGNATURES:
+        assert f'extern "C" int {name}(' in sources, name
 
 
 def _rand(*shape, seed=0, lo=0.0, scale=1.0):
@@ -72,7 +80,20 @@ def test_cpu_dispatch_is_plain_and_counts_nothing():
     q = _rand(6, NZ, n, n, seed=11)
     assert torch.equal(sw.scalar_filter(q, m, 0.02),
                        sw.scalar_filter_plain(q, m, 0.02))
-    assert [w.launches for w in WRAPPERS] == [0, 0, 0, 0]
+
+    pe = torch.cumsum(_rand(6, NZ + 1, n, n, lo=1e3, seed=12), dim=1)
+    assert torch.equal(remap.remap_levels(q, pe, pe.flip(1).neg(), 1, 9),
+                       remap.remap_levels_plain(q, pe, pe.flip(1).neg(), 1,
+                                                9))
+    fields = [_rand(6, NZ, N, N, lo=1.0, seed=s) for s in range(16)]
+    areas = [_rand(6, N, N, lo=1.0, seed=20), _rand(6, N, N, lo=1.0, seed=21)]
+    for a, b in zip(advection.fv_tp_2d_multi5(*fields, *areas, 5),
+                    advection.fv_tp_2d_multi5_plain(*fields, *areas, 5)):
+        assert torch.equal(a, b)
+    x = _rand(8, 8, seed=22)
+    assert torch.equal(probe.affine(x), probe.affine_plain(x))
+    assert torch.equal(probe.stencil(x), probe.stencil_plain(x))
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
     assert _build._lib is None
 
 
@@ -91,6 +112,13 @@ def test_wrappers_refuse_cpu_tensors():
                          torch.zeros(6, n, n))
     with pytest.raises(ValueError, match="hord"):
         fv_tp_2d_cuda(f, f, f, f, f, f, a, a, 3)
+    pe = torch.zeros(6, NZ + 1, N, N)
+    with pytest.raises(ValueError, match="CUDA"):
+        ppm_remap_cuda(f, pe, pe, 1, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        fv_tp_2d_multi5_cuda(*[f] * 16, a[:, 0], a[:, 0], 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        probe.affine_cuda(f[0, 0])
 
 
 def test_operand_checks():
