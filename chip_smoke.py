@@ -32,12 +32,33 @@ Phases (any failure raises and the script exits non-zero):
      reference dt at C192 is out of reach (memory and hours of CPU), so
      this path is held to the unfused card dt, which phases 3-5 hold to
      the CPU.
+  7. exchange transposes: at the widths of C48 and C192 (nz = 63, f32),
+     the vjp of each staggered halo exchange (D grid; C grid, fill x and
+     y) through its gather-form transpose (grid/halo_transpose.py)
+     against torch.func.vjp of the plain gather (autograd's scatter-add):
+     max error and CUDA-event ms of each;
+  8. coupled parity: one coupled step (runtime.compiled_loop: dycore +
+     gray radiation + GFS physics + the dense ML corrector, bench.py rung
+     3's configuration, runtime.coupled_bench) at C12 x 63 from a
+     perturbed state moist enough to rain (seeded relative humidity up
+     to 1.1), on CUDA in f32 against the CPU in f32 and float64,
+     every state field and total_precip by phase 4's rule; columns where
+     a physics threshold decided differently in the two f32 runs are
+     counted, masked and bounded (FLIP_BOUND);
+  9. coupled path: bench.py rung 3 at C48 x 63 (the dense model written
+     from a seed in the JAX package's dump format, read back through
+     fit.load): per-step kernel launches, ms per step and simulated
+     years per day (CUDA events), ms per stage (dynamics, physics,
+     postphysics), finite state, mass gates of each stage and the ML
+     fill fractions.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path, K6 on the C192 path.  The last two lines are the kernels'
-JSON summary and {"ok": true, "device": {...}}.
+C48 main path and on the coupled C48 path, K6 on the C192 path.  The
+last two lines are the kernels' JSON summary and {"ok": true,
+"device": {...}}.
 """
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -47,16 +68,19 @@ import types
 import numpy as np
 import torch
 
-from fv3net_tpu_torch import probe
+from fv3net_tpu_torch import probe, wrapper
 from fv3net_tpu_torch.constants import GRAV
 from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.dycore.hydro import benchmark_state, make_dycore_stepper
 from fv3net_tpu_torch.grid import CubedSphereGrid, halo_exchange
+from fv3net_tpu_torch.grid import halo as halo_mod
 from fv3net_tpu_torch.ops import _build, advection, cuda_column, remap
 from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
 from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
+from fv3net_tpu_torch.physics import gfs
+from fv3net_tpu_torch.runtime import compiled_loop, coupled_bench
 
 H, NZ, DT_ATMOS, PTOP = 3, 63, 900.0, 300.0
 DT_C192 = 225.0  # bench.py rung 2
@@ -84,9 +108,9 @@ META = {
     "fv_tp_2d_multi5": ("fv3net_tpu_torch/csrc/tp2d_multi5.cu",
                         "fv3net_tpu/ops/pallas_tp.py:213"),
     "probe_affine": ("fv3net_tpu_torch/csrc/probe.cu",
-                     "tools/probe_pallas.py:12"),
+                     "tools/probe_pallas.py:13"),
     "probe_stencil": ("fv3net_tpu_torch/csrc/probe.cu",
-                      "tools/probe_pallas.py:33"),
+                      "tools/probe_pallas.py:34"),
 }
 # launches per dt on the C48 main path (fused transport off): 5 transports
 # x 6 substeps + 1 tracer, 1 vertical solve, 4 filters and 2 column chains
@@ -122,6 +146,18 @@ MASS_BOUND = 1e-5  # |relative change of global dry mass| over the run
 # magnitude is that bound.
 FUSED_BOUND = 1e-5
 FUSED_RTOL = 1e-6  # K6 vs five K1 calls: max|diff| <= FUSED_RTOL * max|K1|
+# ... on the coupled path: the dycore's launches with two tracers (the
+# wrapper's specific humidity and cloud water), so one more transport
+LAUNCHES_COUPLED = dict(LAUNCHES_PER_DT, fv_tp_2d=32)
+# exchange transposes against autograd's: each adjoint entry is a sum of
+# up to 5 signed O(1) cotangents, added in another order
+TRANSPOSE_RTOL, TRANSPOSE_ATOL = 1e-6, 1e-5
+# coupled parity: at most this share of the columns may take another
+# branch of a physics threshold in the card's f32 step than in the CPU's
+FLIP_BOUND = 1e-3
+# postphysics: relative change of global dry mass sum(delp (1 - qv) area)
+DRY_MASS_BOUND = 1e-6
+DENSE_DIR = "build/coupled_dense"
 
 
 def say(*args):
@@ -653,17 +689,245 @@ def phase_c192_path():
     return launches
 
 
+# --- phase 7 ----------------------------------------------------------------
+
+
+def phase_transposes():
+    """Gather-form exchange transposes against autograd's scatter-add
+    transpose of the plain gather, at C48 and C192 widths."""
+    rng = np.random.RandomState(7)
+    for n in (48, 192):
+        for kind, fill in (("dgrid", ""), ("cgrid", "x"), ("cgrid", "y")):
+            sa, sb = (
+                ((n + 1, n), (n, n + 1)) if kind == "dgrid"
+                else ((n, n + 1), (n + 1, n))
+            )
+            a, b = (torch.as_tensor(rng.randn(6, NZ, *s).astype(np.float32),
+                                    device="cuda") for s in (sa, sb))
+            public = (
+                (lambda x, y: halo_mod.halo_exchange_dgrid(x, y, H))
+                if kind == "dgrid" else
+                (lambda x, y, f=fill: halo_mod.halo_exchange_cgrid(x, y, H, f))
+            )
+            out, vjp_new = torch.func.vjp(public, a, b)
+            _, vjp_old = torch.func.vjp(
+                lambda x, y, k=kind, f=fill:
+                    halo_mod._staggered_exchange(x, y, k, H, f), a, b
+            )
+            ct = tuple(torch.randn_like(o) for o in out)
+            got, want = vjp_new(ct), vjp_old(ct)
+            tag = f"transpose C{n} {kind}{fill and '-' + fill}"
+            err = max(
+                check_close(f"{tag} {w}", g, r, TRANSPOSE_RTOL,
+                            TRANSPOSE_ATOL)
+                for w, g, r in zip("ab", got, want)
+            )
+            ms = cuda_ms(lambda: vjp_new(ct))
+            plain = cuda_ms(lambda: vjp_old(ct))
+            say(f"{tag}: max_abs_err={err:.3e} gather transpose {ms:.4f} ms "
+                f"autograd (scatter-add) {plain:.4f} ms")
+            del a, b, out, ct, got, want, vjp_new, vjp_old
+        torch.cuda.empty_cache()
+
+
+# --- phases 8 and 9 ---------------------------------------------------------
+
+
+def coupled_step(n, device, dtype, state=None):
+    """One coupled step of bench.py rung 3 at C<n> x 63 through the
+    wrapper and CompiledTimeLoop; from `state` (a DycoreState) if given.
+    Returns (state, total_precip, diagnostics) on the CPU in float64."""
+    wm, model = coupled_bench.initialize(n, device, DENSE_DIR, dtype)
+    mdl = wm.get_model()
+    if state is not None:
+        mdl.state = type(state)(
+            *(x.to(device=device, dtype=mdl.dtype) for x in state)
+        )
+    loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
+    t0 = time.perf_counter()
+    diags = loop.step()
+    loop.block()
+    say(f"C{n}x{NZ} coupled step {device} {dtype}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    cpu = type(mdl.state)(*(x.double().cpu() for x in mdl.state))
+    return (cpu, mdl.total_precip.double().cpu(),
+            {k: q.data.double().cpu() for k, q in diags.items()})
+
+
+def flipped_columns(d_a, d_b):
+    """Columns [6, n, n] in which a physics threshold decided differently
+    in two runs, read from their diagnostics: the shallow-convection
+    trigger, Betts-Miller's precip > 0, and the PBL contiguity cumprod
+    (a flip moves the PBL top by a whole layer; 1 m is far above f32
+    roundoff of the heights).  The surface layer's rib < 0 switch is
+    continuous (both branches give the neutral coefficient at rib = 0)
+    and needs no mask."""
+    return (
+        (d_a["shallow_convection_active"] != d_b["shallow_convection_active"])
+        | ((d_a["convective_precipitation"] > 0)
+           != (d_b["convective_precipitation"] > 0))
+        | ((d_a["planetary_boundary_layer_height"]
+            - d_b["planetary_boundary_layer_height"]).abs() > 1.0)
+    )
+
+
+def _column_mask(mask, x):
+    """The [6, n, n] column mask broadcast onto a field's layout (its
+    last two axes cell-centred or D-grid staggered)."""
+    m = mask
+    if x.shape[-2] == m.shape[-2] + 1:  # u: edges j and j + 1 of cell j
+        m = torch.nn.functional.pad(m, (0, 0, 0, 1)) | \
+            torch.nn.functional.pad(m, (0, 0, 1, 0))
+    if x.shape[-1] == m.shape[-1] + 1:  # v
+        m = torch.nn.functional.pad(m, (0, 1)) | \
+            torch.nn.functional.pad(m, (1, 0))
+    if x.ndim == 4:
+        m = m[:, None]
+    if x.ndim == 5:
+        m = m[None, :, None]
+    return m.expand(x.shape)
+
+
+def phase_coupled_parity():
+    """One coupled C12 step on the card in f32 against the CPU in f32 and
+    float64, from the same perturbed f32 state (module docstring, 8)."""
+    n = 12
+    wm, _ = coupled_bench.initialize(n, "cpu", DENSE_DIR, "float32")
+    st = wm.get_model().state
+    rng = np.random.RandomState(8)
+    pt = st.pt + torch.as_tensor(rng.randn(*st.pt.shape).astype(np.float32))
+    # humidity at a seeded relative humidity per column, up to 10%
+    # supersaturated, so that the step condenses, rains and convects;
+    # at most 20 g/kg (near the top the saturation value is not small)
+    _, p = gfs.pressure_fields(st.delp, PTOP)
+    rh = rng.uniform(0.5, 1.1, size=(6, 1, n, n)).astype(np.float32)
+    q = st.q.clone()
+    q[0] = (torch.as_tensor(rh) * gfs.qsat(
+        wrapper.temperature_from_pt(st.delp, pt, st.q[0], PTOP), p
+    )).clamp_max(0.02)
+    st = st._replace(pt=pt, q=q)
+    ref64 = coupled_step(n, "cpu", "float64", st)
+    plain32 = coupled_step(n, "cpu", "float32", st)
+    got = coupled_step(n, "cuda", "float32", st)
+    flips = flipped_columns(got[2], plain32[2])
+    nflip, ncol = int(flips.sum()), flips.numel()
+    say(f"C12x63 coupled: {nflip} of {ncol} columns took another physics "
+        f"branch on the card than on the CPU in f32 (bound {FLIP_BOUND})")
+    if nflip > FLIP_BOUND * ncol:
+        raise AssertionError(f"C12x63 coupled: {nflip} flipped columns")
+    fields = dict(zip(got[0]._fields, zip(got[0], plain32[0], ref64[0])))
+    fields["total_precip"] = (got[1], plain32[1], ref64[1])
+    for k, arrays in fields.items():
+        keep = ~_column_mask(flips, arrays[0])
+        a, p, r = (torch.where(keep, x, 0.0) for x in arrays)
+        scale = float(r.abs().max())
+        e_cuda = float((a - r).abs().max())
+        e_plain = float((p - r).abs().max())
+        say(f"C12x63 coupled {k:12s} max|f64| {scale:.3e} max|cuda-f64| "
+            f"{e_cuda:.3e} max|cpu32-f64| {e_plain:.3e}")
+        bound = F32_FACTOR * e_plain + 1e-7 * scale
+        if not bool(torch.isfinite(arrays[0]).all()) or e_cuda > bound:
+            raise AssertionError(f"C12x63 coupled {k}: {e_cuda:.3e} > "
+                                 f"{bound:.3e}")
+
+
+def global_sum(x, area):
+    """sum(x * area) over [6, nz, n, n] in float64."""
+    return float((x.double() * area[:, None]).sum())
+
+
+def phase_coupled_path():
+    """bench.py rung 3 at C48 x 63 (module docstring, 9)."""
+    n = 48
+    wm, model = coupled_bench.initialize(n, "cuda", DENSE_DIR)
+    mdl = wm.get_model()
+    loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
+    area = torch.as_tensor(mdl.area, dtype=torch.float64, device="cuda")
+
+    reset_counts()
+    diags = loop.step()  # the counted step (and warm-up)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts("C48x63 coupled one step", launches, LAUNCHES_COUPLED)
+    for k, q in diags.items():
+        if k.endswith("_filled_frac") and float(q.data) != 0.0:
+            raise AssertionError(f"C48x63 coupled: {k} = {float(q.data)}")
+    times = []
+    for _ in range(6):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        loop.step()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    ms = statistics.median(times)
+    dt = mdl.config.dt_atmos
+    say(f"C48x63 coupled ms/step {ms:.3f} (median of {len(times)}: "
+        f"{[round(t, 3) for t in times]}) simulated years/day "
+        f"{dt / (ms / 1e3) / 365.25:.4f}")
+
+    _, stages = compiled_loop.build_compiled_step(mdl, model, split=True)
+    stage_ms = {k: [] for k in stages}
+
+    def timed(name, *args):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = stages[name](*args)
+        t1.record()
+        torch.cuda.synchronize()
+        stage_ms[name].append(t0.elapsed_time(t1))
+        return out
+
+    st, tp = mdl.state, loop._on_device(mdl.total_precip)
+    for _ in range(5):
+        cosz, solcon = loop._astronomy()
+        st1, _ = timed("dynamics", st, mdl.phis)
+        st2, tp, _, _ = timed("physics", st1, loop._tsfc, tp, cosz, solcon)
+        st3, d3 = timed("postphysics", st2)
+        m0, m1 = global_sum(st.delp, area), global_sum(st1.delp, area)
+        if not abs(m1 / m0 - 1.0) <= MASS_BOUND:
+            raise AssertionError(f"dynamics stage mass {m1 / m0 - 1.0:.3e}")
+        if not torch.equal(st2.delp, st1.delp):
+            raise AssertionError("physics stage changed delp")
+        d0 = global_sum(st2.delp * (1.0 - st2.q[0].double()), area)
+        d1 = global_sum(st3.delp * (1.0 - st3.q[0].double()), area)
+        if not abs(d1 / d0 - 1.0) <= DRY_MASS_BOUND:
+            raise AssertionError(f"postphysics dry mass {d1 / d0 - 1.0:.3e}")
+        if any(float(v) != 0.0 for k, v in d3.items()
+               if k.endswith("_filled_frac")):
+            raise AssertionError("postphysics filled NaN predictions")
+        st = st3
+    say(f"C48x63 coupled stages: dynamics mass {m1 / m0 - 1.0:.3e} "
+        f"(bound {MASS_BOUND}), physics delp bit for bit, postphysics dry "
+        f"mass {d1 / d0 - 1.0:.3e} (bound {DRY_MASS_BOUND}), filled 0")
+    for k, v in stage_ms.items():
+        say(f"C48x63 coupled stage {k:11s} ms {statistics.median(v):.3f} "
+            f"(median of {len(v)}: {[round(t, 3) for t in v]})")
+    for k, x in st._asdict().items():
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"C48x63 coupled: non-finite {k}")
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
     probe_launches, stats = phase_probe()
     stats.update(phase_kernels())
     phase_slice_parity()
-    launches = phase_main_path()
+    phase_main_path()
     fused_launches = phase_c192_path()
-    # each kernel's launches from the path that runs it; times and errors
-    # at the C48 main path's shapes (the probes at theirs)
-    counted = dict(launches, fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
+    phase_transposes()
+    os.makedirs(os.path.dirname(DENSE_DIR), exist_ok=True)
+    phase_coupled_parity()
+    coupled_launches = phase_coupled_path()
+    # each kernel's launches from the path that runs it (K1-K5 from this
+    # slice's coupled path); times and errors at the C48 main path's
+    # shapes (the probes at theirs)
+    counted = dict(coupled_launches,
+                   fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
                    probe_affine=probe_launches["probe_affine"],
                    probe_stencil=probe_launches["probe_stencil"])
     kernels = []

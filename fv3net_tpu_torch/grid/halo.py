@@ -584,6 +584,10 @@ def halo_exchange(field, h: int, fill: str = "none"):
 
 
 def _staggered_exchange(a, b, kind, h, fill):
+    """The plain staggered exchange (one signed gather per output).  Its
+    autograd transpose is a scatter-add; the public exchanges route
+    through halo_transpose.staggered_exchange, whose transpose is
+    gathers."""
     n = a.shape[-1] if kind == "dgrid" else a.shape[-2]
     pool = _pool(a, b)
     outs = []
@@ -604,9 +608,12 @@ def halo_exchange_dgrid(u, v, h: int):
     Returns padded (u [6,...,n+2h+1,n+2h], v [6,...,n+2h,n+2h+1]); the halo
     holds the neighbor's u or v value on the same physical edge with the
     correct sign.  Positions with no well-defined source (cube corners)
-    are zero.
+    are zero.  Reverse-mode autodiff transposes it by gathers
+    (halo_transpose.py), not by a scatter-add.
     """
-    return _staggered_exchange(u, v, "dgrid", h, "")
+    from .halo_transpose import staggered_exchange
+
+    return staggered_exchange(u, v, "dgrid", h, "")
 
 
 def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
@@ -615,9 +622,12 @@ def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
     uc: [6, ..., n, n+1] x-component at x-faces; vc: [6, ..., n+1, n].
     Returns padded (uc [6,...,N,N+1], vc [6,...,N+1,N]), N = n+2h, with
     halo AND cube-corner slots holding the neighbors' stored values
-    rotated into this face's frame (see _cgrid_tables).
+    rotated into this face's frame (see _cgrid_tables).  Transposed by
+    gathers, as halo_exchange_dgrid.
     """
-    return _staggered_exchange(uc, vc, "cgrid", h, fill)
+    from .halo_transpose import staggered_exchange
+
+    return staggered_exchange(uc, vc, "cgrid", h, fill)
 
 
 def _boundary_partner(a, b, kind):

@@ -1,15 +1,18 @@
-"""Where the time of one C48 (or C192) x 63 dycore dt goes on the GPU.
+"""Where the time of one C48 (or C192) x 63 dycore dt, or of one coupled
+C48 step, goes on the GPU.
 
 Run on the GPU machine from the repository root:
 
     python -m fv3net_tpu_torch.step_profile [--n 48|192] [--fused]
-                                            [--out DIR]
+                                            [--coupled] [--out DIR]
 
 Builds the benchmark configuration (bench.py ``_build_config``: C<n> x 63,
 k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
 225 s at C192, bench.py's rung 2), with the fused 5-field transport
-(``ops.advection.set_fused_transport``) on if --fused, warms up one dt,
-then:
+(``ops.advection.set_fused_transport``) on if --fused; or with --coupled
+the coupled step of bench.py rung 3 (``runtime.coupled_bench``: the
+dycore + radiation + GFS physics + dense ML corrector, C48 only, its
+three stages labelled in the traced steps).  Warms up one dt, then:
   * times 5 dts with the host clock (synchronized), the step time a user
     sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
@@ -17,8 +20,8 @@ then:
     idle share, the number of kernel launches per dt, the kernels by
     device time, and the host time of the dycore's stages (each stage
     wrapped in a record_function label for the traced dts only).
-Writes ``step_profile_c<n>[_fused].json`` and ``.txt`` under --out and
-prints the JSON summary.
+Writes ``step_profile_c<n>[_fused|_coupled].json`` and ``.txt`` under
+--out and prints the JSON summary.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from .dycore import hydro
 from .grid import CubedSphereGrid
 from .ops import advection
+from .runtime import compiled_loop, coupled_bench
 
 NZ, PTOP = 63, 300.0
 DT_ATMOS = {48: 900.0, 192: 225.0}
@@ -63,37 +67,79 @@ def _us(event):
     return event.time_range.elapsed_us()
 
 
+def _dycore_steps(N, fused):
+    """(step, traced step) of the dycore benchmark configuration."""
+    advection.set_fused_transport(fused)
+    run, _, _ = hydro.make_dycore_stepper(
+        CubedSphereGrid.make(N, halo=3), NZ, DT_ATMOS[N], k_split=1,
+        n_split=6, hord=5, kord=9, ptop=PTOP, dtype=torch.float32,
+        device="cuda",
+    )
+    state = [hydro.benchmark_state(N, NZ, PTOP, "cuda")]
+    phis = torch.zeros((6, N, N), device="cuda")
+
+    def step():
+        state[0] = run(state[0], phis, 1)
+
+    return step, step
+
+
+def _coupled_steps(N, out):
+    """(step, traced step) of the coupled configuration: the fused step
+    through CompiledTimeLoop, and its three stages in turn, labelled."""
+    wm, model = coupled_bench.initialize(
+        N, "cuda", os.path.join(out, f"dense_c{N}")
+    )
+    loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
+    mdl = loop.mdl
+    _, stages = compiled_loop.build_compiled_step(mdl, model, split=True)
+    dyn, phys, post = (
+        _labelled(f"coupled_{k}", stages[k])
+        for k in ("dynamics", "physics", "postphysics")
+    )
+
+    def traced_step():
+        cosz, solcon = loop._astronomy()
+        st, _ = dyn(mdl.state, mdl.phis)
+        st, tp, _, _ = phys(st, loop._tsfc, loop._on_device(mdl.total_precip),
+                            cosz, solcon)
+        mdl.state, _ = post(st)
+        mdl.total_precip = tp
+
+    return loop.step, traced_step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=48, choices=sorted(DT_ATMOS))
     ap.add_argument("--fused", action="store_true",
                     help="fused 5-field transport on")
+    ap.add_argument("--coupled", action="store_true",
+                    help="the coupled step of bench.py rung 3 (C48)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     N = args.n
     if not torch.cuda.is_available():
         raise RuntimeError("step_profile needs a CUDA device")
+    if args.coupled and (N != 48 or args.fused):
+        raise ValueError("--coupled runs bench.py rung 3: C48, unfused")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
-    advection.set_fused_transport(args.fused)
-    run, _, _ = hydro.make_dycore_stepper(
-        CubedSphereGrid.make(N, halo=3), NZ, DT_ATMOS[N], k_split=1,
-        n_split=6, hord=5, kord=9, ptop=PTOP, dtype=torch.float32,
-        device="cuda",
+    step, traced_step = (
+        _coupled_steps(N, args.out) if args.coupled
+        else _dycore_steps(N, args.fused)
     )
-    state = hydro.benchmark_state(N, NZ, PTOP, "cuda")
-    phis = torch.zeros((6, N, N), device="cuda")
-    state = run(state, phis, 1)  # warm-up
+    step()  # warm-up
     torch.cuda.synchronize()
 
     host_ms = []
     for _ in range(5):
         t0 = time.perf_counter()
-        state = run(state, phis, 1)
+        step()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -106,7 +152,7 @@ def main(argv=None):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(traced_dts):
-                state = run(state, phis, 1)
+                traced_step()
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3 / traced_dts
     finally:
@@ -137,9 +183,13 @@ def main(argv=None):
                 s[0] += 1
                 s[1] += _us(e) / 1e3 / traced_dts
     host_med = sorted(host_ms)[len(host_ms) // 2]
+    # autograd's scatter-add transposes (index_put_ with accumulate)
+    scatter = [(c, ms) for k, (c, ms) in by_kernel.items()
+               if "indexing_backward" in k]
     summary = {
         "config": f"C{N}x{NZ} dt_atmos={DT_ATMOS[N]} k_split=1 n_split=6 "
-                  f"hord=5 kord=9 f32 fused_transport={args.fused}",
+                  f"hord=5 kord=9 f32 fused_transport={args.fused}"
+                  + (" coupled (bench.py rung 3)" if args.coupled else ""),
         "card": card,
         "host_ms_per_dt": host_ms,
         "host_ms_per_dt_median": host_med,
@@ -151,6 +201,9 @@ def main(argv=None):
         "device_idle_share_traced": 1.0 - busy_ms / traced_ms,
         # kernels plus memcpy/memset activities
         "device_ops_per_dt": len(kernels) / traced_dts,
+        "indexing_backward_calls_per_dt":
+            sum(c for c, _ in scatter) / traced_dts,
+        "indexing_backward_ms_per_dt": sum(ms for _, ms in scatter),
         "top_kernels_ms_per_dt": sorted(
             ([k[:120], c / traced_dts, ms]
              for k, (c, ms) in by_kernel.items()),
@@ -166,7 +219,8 @@ def main(argv=None):
     }
     os.makedirs(args.out, exist_ok=True)
     stem = os.path.join(
-        args.out, f"step_profile_c{N}" + ("_fused" if args.fused else "")
+        args.out, f"step_profile_c{N}"
+        + ("_fused" if args.fused else "_coupled" if args.coupled else "")
     )
     with open(stem + ".json", "w") as f:
         json.dump(summary, f, indent=1)

@@ -81,6 +81,12 @@ def test_port_import_leaves_jax_out():
         "import sys\n"
         "import fv3net_tpu_torch.dycore.hydro, fv3net_tpu_torch.convert\n"
         "import fv3net_tpu_torch.ops.cuda_tp, fv3net_tpu_torch.ops._build\n"
+        "import fv3net_tpu_torch.wrapper, fv3net_tpu_torch.fit\n"
+        "import fv3net_tpu_torch.runtime.compiled_loop\n"
+        "import fv3net_tpu_torch.runtime.coupled_bench\n"
+        "import fv3net_tpu_torch.grid.halo_transpose\n"
+        "import fv3net_tpu_torch.physics.radiation\n"
+        "import fv3net_tpu_torch.step_profile\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fv3net_tpu' or m.startswith('fv3net_tpu.')]\n"
         "assert not bad, bad\n"
