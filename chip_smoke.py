@@ -14,8 +14,12 @@ Phases (any failure raises and the script exits non-zero):
      card, f32, nz = 63, seeded inputs, at the widths of C12, C48 and
      C192 (padded N = 18, 54, 198; the remap at n = 12, 48, 192 in its
      cell-centred, u- and v-staggered shapes); max error and CUDA-event
-     times (median of 20 calls) of kernel and plain version; K6 also
-     against five K1 calls;
+     times (median of 20 calls) of each kernel's wrapper alone on
+     pre-built inputs (K3 on its pre-exchanged pair, beside the time of
+     scalar_filter with its two exchanges) and of its plain version,
+     each beside its bound (BOUND_NOTE) and, for K7, beside one PyTorch
+     call that computes the same function; K6 also against five K1
+     calls;
   4. slice parity: one dt at C12 x 63 f32 on CUDA (kernels) against the
      same dt on the CPU (plain torch) in f32 and float64, every state
      field (see F32_FACTOR), with the fused transport off and on;
@@ -52,9 +56,11 @@ Phases (any failure raises and the script exits non-zero):
      postphysics), finite state, mass gates of each stage and the ML
      fill fractions.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path and on the coupled C48 path, K6 on the C192 path.  The
-last two lines are the kernels' JSON summary and {"ok": true,
-"device": {...}}.
+C48 main path and on the coupled C48 path, K6 on the C192 path.  Each
+kernel's JSON entry holds its launches and its phase-3 numbers at the
+shapes of the path its launches come from (K1-K5 C48, K6 C192, K7/K8
+[256, 256]).  The last two lines are the kernels' JSON summary and
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -158,6 +164,26 @@ FLIP_BOUND = 1e-3
 # postphysics: relative change of global dry mass sum(delp (1 - qv) area)
 DRY_MASS_BOUND = 1e-6
 DENSE_DIR = "build/coupled_dense"
+# BOUND_NOTE: a kernel's bound is the least time the card could take for
+# the call: the larger of the bytes it must move (each input read once,
+# each output written once) over the device memory rate and of its
+# operations over the f32 rate outside the tensor cores (NVIDIA H100 SXM
+# data sheet, at the full 700 W power limit; the card's own limit is
+# printed beside).  Operations are counted from the kernels' sources, each
+# add, multiply, divide, min/max, compare-select, power and logarithm as
+# one, per cell (or column level) of the call's shapes (OPS_*); the
+# remap's integration counts the (source, target) layer pairs that overlap
+# in the call's own data.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_TP2D_CELL = 154  # hord 5: 2 inner half-updates of 54, 2 outer of 23
+OPS_MULTI5_CELL = 5 * OPS_TP2D_CELL + 2  # + the air mass area * delp
+OPS_SIM1_LEVEL = 60  # three level recurrences (csrc/sim1.cu)
+OPS_DEL4_CELL = 30  # two flux-form Laplacians and the update
+OPS_COLUMN_LEVEL = 12  # prefix sum, pow and log at the interface, pi, pm
+OPS_REMAP_LEVEL = 74  # edge spline sweeps (14) and limiter walk (60)
+OPS_REMAP_PAIR = 27  # one overlapping (source, target) layer pair
+OPS_REMAP_TARGET = 8  # constant extensions and the division
 
 
 def say(*args):
@@ -209,6 +235,26 @@ def check_close(name, got, want, rtol, atol, sl=np.s_[...]):
             f"rtol={rtol} atol={atol}, max abs err {max_err:.3e}"
         )
     return max_err
+
+
+def bound(ins, outs, ops):
+    """(ms, "bytes" or "operations"): the call's bound (BOUND_NOTE)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(stats, name, N, err, fn, plain, ins, outs, ops, library=None):
+    """Time a kernel's wrapper alone (fn), its plain version and, where
+    one PyTorch call computes the same function, that call; with the
+    bound of the call, into stats[(name, N)]."""
+    b_ms, b_by = bound(ins, outs, ops)
+    stats[(name, N)] = dict(
+        max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=None if library is None else cuda_ms(library),
+    )
 
 
 # --- phase 1 ----------------------------------------------------------------
@@ -266,6 +312,10 @@ def phase_probe():
     launches = read_counts()
     check_counts("probe", launches, LAUNCHES_PROBE)
     stats = {}
+    # x * 2 + 1 in one PyTorch call (1 + x * 2); no single call computes
+    # the periodic stencil
+    one, two = (torch.tensor(v, device="cuda") for v in (1.0, 2.0))
+    library = {"probe_affine": lambda: torch.addcmul(one, x, two)}
     for name, fn, plain in (
         ("probe_affine", probe.affine_cuda, probe.affine_plain),
         ("probe_stencil", probe.stencil_cuda, probe.stencil_plain),
@@ -274,8 +324,8 @@ def phase_probe():
         if not torch.equal(ys[name], want):
             raise AssertionError(f"{name}: differs from its plain version")
         err = float((ys[name] - want).abs().max())
-        stats[(name, 256)] = (err, cuda_ms(lambda: fn(x)),
-                              cuda_ms(lambda: plain(x)))
+        record(stats, name, 256, err, lambda: fn(x), lambda: plain(x),
+               [x], [want], 2 * x.numel(), library=library.get(name))
         say(f"{name} [256, 256]: bit for bit equal to plain")
     return launches, stats
 
@@ -322,9 +372,11 @@ def check_tp(rng, N, dev, stats):
                     1e-4, 1e-3, sl,
                 ))
             if hord == 5 and form == "area":
-                ms = cuda_ms(lambda: fv_tp_2d_cuda(*args))
-                plain = cuda_ms(lambda: advection.fv_tp_2d_plain(*args))
-    stats[("fv_tp_2d", N)] = (max(errs), ms, plain)
+                timed = args, got
+    args, got = timed
+    record(stats, "fv_tp_2d", N, max(errs), lambda: fv_tp_2d_cuda(*args),
+           lambda: advection.fv_tp_2d_plain(*args), args[:8], got,
+           OPS_TP2D_CELL * got[0].numel())
 
 
 def _sim1_inputs(rng, n, dev):
@@ -362,9 +414,10 @@ def check_sim1(rng, n, dev, stats):
         check_close(f"sim1 n={n} ppe", got[2], want[2], 1e-4,
                     float(want[2].abs().max()) * 1e-4),
     ]
-    ms = cuda_ms(lambda: sim1_solver_cuda(dt, *args))
-    plain = cuda_ms(lambda: riemann.sim1_solver(dt, *args))
-    stats[("sim1_solver", n + 2 * H)] = (max(errs), ms, plain)
+    record(stats, "sim1_solver", n + 2 * H, max(errs),
+           lambda: sim1_solver_cuda(dt, *args),
+           lambda: riemann.sim1_solver(dt, *args), args, got,
+           OPS_SIM1_LEVEL * got[0].numel())
 
 
 def check_filter(rng, n, dev, stats):
@@ -382,9 +435,15 @@ def check_filter(rng, n, dev, stats):
     want = sw.scalar_filter_plain(q, m, c)
     # tolerance of the JAX kernel test (test_pallas_kernels.py:372)
     err = check_close(f"del4 n={n}", got, want, 1e-4, 1e-5)
-    ms = cuda_ms(lambda: sw.scalar_filter(q, m, c))
-    plain = cuda_ms(lambda: sw.scalar_filter_plain(q, m, c))
-    stats[("del4_filter", n + 2 * H)] = (err, ms, plain)
+    # the kernel alone, on the pre-exchanged pair scalar_filter gives it
+    args = (halo_exchange(q, H, fill="x"), halo_exchange(q, H, fill="y"),
+            m.area_px, m.area_py, c, H)
+    N = n + 2 * H
+    record(stats, "del4_filter", N, err, lambda: del4_filter_cuda(*args),
+           lambda: sw.scalar_filter_plain(q, m, c), args[:4], [got],
+           OPS_DEL4_CELL * got.numel())
+    say(f"del4 n={n}: scalar_filter (2 exchanges + kernel) "
+        f"{cuda_ms(lambda: sw.scalar_filter(q, m, c)):.4f} ms")
 
 
 def check_column(rng, N, dev, stats):
@@ -400,9 +459,10 @@ def check_column(rng, N, dev, stats):
         check_close(f"column N={N} pi", got[1], want[1], 1e-5, 0.0),
         check_close(f"column N={N} pm", got[2], want[2], 1e-5, 0.0),
     ]
-    ms = cuda_ms(lambda: cuda_column.column_pressures_cuda(dp, PTOP))
-    plain = cuda_ms(lambda: cuda_column.column_pressures_plain(dp, PTOP))
-    stats[("column_pressures", N)] = (max(errs), ms, plain)
+    record(stats, "column_pressures", N, max(errs),
+           lambda: cuda_column.column_pressures_cuda(dp, PTOP),
+           lambda: cuda_column.column_pressures_plain(dp, PTOP), [dp], got,
+           OPS_COLUMN_LEVEL * dp.numel())
 
 
 def _remap_inputs(rng, n, stag, dev):
@@ -434,6 +494,19 @@ def column_mass_error(q, pe1, pe2, *outs):
             for o in outs]
 
 
+def overlap_pairs(pe1, pe2):
+    """The number of (source, target) layer pairs that overlap (ov > 0,
+    csrc/remap.cu) in these columns."""
+    top, bot = pe1[:, :1], pe1[:, -1:]
+    pc = torch.minimum(torch.maximum(pe2, top), bot)
+    pairs = 0
+    for k in range(pe1.shape[1] - 1):
+        ov = (torch.minimum(pc[:, 1:], pe1[:, k + 1 : k + 2])
+              - torch.maximum(pc[:, :-1], pe1[:, k : k + 1]))
+        pairs += int((ov > 0).sum())
+    return pairs
+
+
 def check_remap(rng, n, dev, stats):
     """K5 against remap_levels_plain: cell-centred, u- and v-staggered
     shapes, iv 1/0/-1 at kord 9 and kord 10/17 at iv 1; column mass."""
@@ -458,11 +531,16 @@ def check_remap(rng, n, dev, stats):
             del want
             if stag == (0, 0) and (iv, kord) == (1, 9):
                 args = (q, pe1, pe2, iv, kord)
-                ms = cuda_ms(lambda: ppm_remap_cuda(*args))
-                plain = cuda_ms(lambda: remap.remap_levels_plain(*args))
+                ops = (OPS_REMAP_LEVEL * q.numel()
+                       + OPS_REMAP_TARGET * got.numel()
+                       + OPS_REMAP_PAIR * overlap_pairs(pe1, pe2))
+                record(stats, "ppm_remap", n + 2 * H, 0.0,
+                       lambda: ppm_remap_cuda(*args),
+                       lambda: remap.remap_levels_plain(*args),
+                       args[:3], [got], ops)
         del q, pe1, pe2
         torch.cuda.empty_cache()
-    stats[("ppm_remap", n + 2 * H)] = (max(errs), ms, plain)
+    stats[("ppm_remap", n + 2 * H)]["max_abs_err"] = max(errs)
 
 
 def _multi5_inputs(rng, N, dev):
@@ -515,11 +593,12 @@ def check_multi5(rng, N, dev, stats):
                 )
     say(f"multi5 N={N}: max|K6 - five K1 calls| = {k1_err:.3e} "
         f"(bound {FUSED_RTOL} x max|field|)")
-    ms = cuda_ms(lambda: fv_tp_2d_multi5_cuda(*args, 5))
-    plain = cuda_ms(lambda: advection.fv_tp_2d_multi5_plain(*args, 5))
+    record(stats, "fv_tp_2d_multi5", N, max(errs),
+           lambda: fv_tp_2d_multi5_cuda(*args, 5),
+           lambda: advection.fv_tp_2d_multi5_plain(*args, 5), args, got,
+           OPS_MULTI5_CELL * got[0].numel())
     k1_ms = cuda_ms(lambda: five_k1(*args, 5))
     say(f"multi5 N={N}: five K1 calls {k1_ms:.4f} ms")
-    stats[("fv_tp_2d_multi5", N)] = (max(errs), ms, plain)
 
 
 def phase_kernels():
@@ -534,10 +613,17 @@ def phase_kernels():
         check_remap(rng, n, "cuda", stats)
         check_multi5(rng, N, "cuda", stats)
         torch.cuda.empty_cache()
-    for (name, N), (err, ms, plain) in sorted(stats.items()):
-        say(f"kernel {name:17s} N={N:3d} max_abs_err={err:.3e} "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms")
     return stats
+
+
+def report_kernels(stats):
+    for (name, N), r in sorted(stats.items()):
+        lib = r["library_ms"]
+        say(f"kernel {name:17s} N={N:3d} max_abs_err={r['max_abs_err']:.3e} "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it) library "
+            + ("none" if lib is None else f"{lib:.4f} ms"))
 
 
 # --- phases 4 and 5 ---------------------------------------------------------
@@ -911,11 +997,45 @@ def phase_coupled_path():
     return launches
 
 
+def kernel_summary(stats, probe_launches, fused_launches,
+                   coupled_launches):
+    """The kernels' JSON entries: each kernel's launches from the path
+    that runs it (K1-K5 from the coupled C48 path, K6 from the C192 path)
+    and its phase-3 numbers at that path's shapes (the probes at theirs);
+    prints launches x (time - bound) of each kernel on each path."""
+    counted = dict(coupled_launches,
+                   fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
+                   probe_affine=probe_launches["probe_affine"],
+                   probe_stencil=probe_launches["probe_stencil"])
+    shape = dict({k: 54 for k in META}, fv_tp_2d_multi5=198,
+                 probe_affine=256, probe_stencil=256)
+    kernels = []
+    for name, (source, replaces) in META.items():
+        r = stats[(name, shape[name])]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counted[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    for tag, launches, N in (("C48", LAUNCHES_PER_DT, 54),
+                             ("coupled C48", coupled_launches, 54),
+                             ("C192 fused", fused_launches, 198)):
+        loss = {
+            k: round(n * (stats[(k, N)]["ms"] - stats[(k, N)]["bound_ms"]), 4)
+            for k, n in launches.items() if n and (k, N) in stats
+        }
+        say(f"{tag}: launches x (kernel ms - bound ms) per step {loss}")
+    return kernels
+
+
 def main():
     phase_device()
     phase_build()
     probe_launches, stats = phase_probe()
     stats.update(phase_kernels())
+    report_kernels(stats)
     phase_slice_parity()
     phase_main_path()
     fused_launches = phase_c192_path()
@@ -923,21 +1043,8 @@ def main():
     os.makedirs(os.path.dirname(DENSE_DIR), exist_ok=True)
     phase_coupled_parity()
     coupled_launches = phase_coupled_path()
-    # each kernel's launches from the path that runs it (K1-K5 from this
-    # slice's coupled path); times and errors at the C48 main path's
-    # shapes (the probes at theirs)
-    counted = dict(coupled_launches,
-                   fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
-                   probe_affine=probe_launches["probe_affine"],
-                   probe_stencil=probe_launches["probe_stencil"])
-    kernels = []
-    for name, (source, replaces) in META.items():
-        err, ms, plain = stats[(name, 256 if name.startswith("probe") else 54)]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counted[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-        })
+    kernels = kernel_summary(stats, probe_launches, fused_launches,
+                             coupled_launches)
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -17,16 +17,20 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .device import default_device
 from .dycore.hydro import DycoreState
 from .dycore.sw import SWMetrics
 
 
-def metrics_from_numpy(arrays: Mapping, device="cpu",
+def metrics_from_numpy(arrays: Mapping, device=None,
                        dtype=None) -> SWMetrics:
     """SWMetrics from a mapping holding every tensor field of SWMetrics
-    as an array, plus `n`, `halo` and `divdamp_scale`.  Keys the port
-    has no field for (None-valued tiling fields, scheme switches) are
-    ignored.  dtype: cast the arrays (default: keep theirs)."""
+    as an array, plus `n`, `halo` and `divdamp_scale`, on `device` (the
+    CUDA device unless the caller names one).  Keys the port has no
+    field for (None-valued tiling fields, scheme switches) are ignored.
+    dtype: cast the arrays (default: keep theirs)."""
+    if device is None:
+        device = default_device("metrics_from_numpy")
     kw = {}
     for f in dataclasses.fields(SWMetrics):
         if f.name in ("n", "halo"):
@@ -40,9 +44,12 @@ def metrics_from_numpy(arrays: Mapping, device="cpu",
     return SWMetrics(**kw)
 
 
-def state_from_numpy(arrays: Mapping, device="cpu",
+def state_from_numpy(arrays: Mapping, device=None,
                      dtype=None) -> DycoreState:
-    """DycoreState from a mapping of field name -> array (or None)."""
+    """DycoreState from a mapping of field name -> array (or None), on
+    `device` (the CUDA device unless the caller names one)."""
+    if device is None:
+        device = default_device("state_from_numpy")
     return DycoreState(**{
         k: None if arrays.get(k) is None else torch.as_tensor(
             np.array(arrays[k]), dtype=dtype, device=device

@@ -13,24 +13,30 @@
 // of tracers is one launch against one pressure grid).
 //
 // Bound on the card: latency and occupancy, not bytes.  At C192 (Y, X =
-// 192..193) one call moves ~56 MB per operand (4 operands, ~70 us at
+// 192..193) one call moves ~56 MB per operand (4 operands, ~67 us at
 // 3.35 TB/s), but each column is a chain of dependent level steps (two
-// spline sweeps, the limiter walk) and a dense km x kn overlap test
-// (63 x 63 per column over ~221k columns).  The Pallas kernel held a
-// (face, 8-row) block in VMEM; here one thread owns one column
-// (neighbouring threads take neighbouring x, so every per-level access is
-// one coalesced row):
+// spline sweeps, the limiter walk, the integration).  A design with one
+// warp per block and the column's profile in shared memory (32 KB a
+// block) fits 7 warps on an SM, too few to hide those chains, and a
+// dense km x kn overlap test does 63 x 63 tests per column where only
+// O(km + kn) pairs overlap.  The Pallas kernel held a (face, 8-row) block
+// in VMEM; here one thread owns one column (neighbouring threads take
+// neighbouring x, so every per-level access is one coalesced row), 128
+// threads a block (blockIdx: column block, field), no shared memory:
 //   1. forward sweep of the edge spline, its values and factors into a
 //      wrapper-allocated global scratch (qe, gam) laid out like the
 //      fields, then the back substitution in place;
-//   2. one walk down the column with a sliding window of three cells'
-//      pre-limiter state (a, al, ar, extremum flags) applying the edge
-//      constraints, the kord 9/10 interior constraint and the boundary
-//      limiters, writing (al, ar-al, a6) to shared memory;
-//   3. for every target layer, the dense walk over all source layers of
-//      the TPU kernel, from shared memory (per-thread columns, level-major,
-//      so bank-conflict free); a layer without overlap adds nothing and
-//      is skipped.  One read of pe2 and one write of q2.
+//   2. a merge walk down the column: the source layers advance one at a
+//      time and a pointer into the target layers follows them (pe1 and
+//      pe2 are monotone in a column), so each source layer meets only the
+//      target layers that can overlap it -- O(km + kn) steps in all;
+//   3. the profile (al, ar-al, a6) of source layer k is computed when the
+//      walk reaches k, from the sliding window of three cells' pre-limiter
+//      state (a, al, ar, extremum flags) that the limiter walk keeps, so
+//      no per-column profile array is stored anywhere.
+// Each target layer adds the same terms (ov > 0 only, the dp > 0 guard)
+// in the same order (k ascending) as a dense walk over all source
+// layers, so the result equals the dense form's.
 // Every product is rounded on its own (mul() below, never fused into an
 // FMA), in the plain torch form's order of operations: the limiters then
 // take the same branches as the plain version on the card (they compare
@@ -38,13 +44,12 @@
 // terms are the plain version's -- without a limiter (kord > 16) the
 // parabolas of a noisy column reach ~1e4 times the layer means, and any
 // other rounding of their cancelling terms shows in the result.
-// Tiling for occupancy and an O(km+kn) merge walk are later work.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 128;
 constexpr int kUnlimited = 17;  // kord > 16: no constraints at all
 // ops/remap.py::THIRD
 constexpr float kThird = 1.f / 3.f;
@@ -79,6 +84,12 @@ struct Col {
   int ncol;
   __device__ __forceinline__ float a(int k) const {
     return q[(long long)k * ncol];
+  }
+  __device__ __forceinline__ float pe1(int k) const {
+    return p1[(long long)k * ncol];
+  }
+  __device__ __forceinline__ float pe2(int k) const {
+    return p2[(long long)k * ncol];
   }
 };
 
@@ -220,41 +231,92 @@ __device__ Par interior(const Col& c, int k, const Cell& m, const Cell& s,
   return {l, r, a6_of(a, l, r)};
 }
 
+// The profile (al, ar - al, a6) of one source layer.
+struct Prof {
+  float al, dal, a6;
+};
+
+// The profiles of a column's source layers in order, layer by layer: the
+// limiter walk of ops/remap.py::cs_profile over a sliding window of three
+// cells (cm, c0, cp), or the unlimited parabolas of kord > 16.
 template <int IV, int KORD>
-__global__ void remap_kernel(Args g) {
-  extern __shared__ float sm[];
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= g.F * g.ncol) return;
-  const int km = g.km, kn = g.kn, B = blockDim.x, tid = threadIdx.x;
-  const int f = t / g.ncol, col = t % g.ncol, fp = f % g.Fp;
+struct ProfileWalk {
+  Col c;
+  int km;
+  int k = -1;  // the layer of the last profile
+  Cell cm, c0, cp;
+
+  __device__ ProfileWalk(const Col& col, int km_) : c(col), km(km_) {
+    if (KORD != kUnlimited) {
+      c0 = cell<IV>(c, 0, km);
+      cp = cell<IV>(c, 1, km);
+    }
+  }
+
+  // The profile of layer k + 1.
+  __device__ Prof next() {
+    ++k;
+    if (KORD == kUnlimited) {
+      const float al = c.qe[(long long)k * c.ncol];
+      const float ar = c.qe[(long long)(k + 1) * c.ncol];
+      return {al, ar - al, a6_of(c.a(k), al, ar)};
+    }
+    if (k > 0) {
+      cm = c0;
+      c0 = cp;
+      if (k + 1 < km) cp = cell<IV>(c, k + 1, km);
+    }
+    const float a = c0.a;
+    Par p;
+    if (k == 0) {
+      float al = c0.al;
+      if (IV == 0) al = fmaxf(al, 0.f);
+      if (IV == -1 && mul(al, a) <= 0.f) al = 0.f;
+      p = cs_limiters<1>(a, Par{al, c0.ar, a6_of(a, al, c0.ar)}, c0.extm);
+    } else if (k == 1 || k == km - 2) {
+      p = cs_limiters<2>(a, Par{c0.al, c0.ar, a6_of(a, c0.al, c0.ar)},
+                         c0.extm);
+    } else if (k == km - 1) {
+      float ar = c0.ar;
+      if (IV == 0) ar = fmaxf(ar, 0.f);
+      if (IV == -1 && mul(ar, a) <= 0.f) ar = 0.f;
+      p = cs_limiters<1>(a, Par{c0.al, ar, a6_of(a, c0.al, ar)}, c0.extm);
+    } else {
+      p = interior<KORD>(c, k, cm, c0, cp);
+      if (IV == 0) p = cs_limiters<0>(a, p, c0.extm);
+    }
+    return {p.al, p.ar - p.al, p.a6};
+  }
+};
+
+template <int IV, int KORD>
+__global__ void __launch_bounds__(kThreads) remap_kernel(Args g) {
+  const int col = blockIdx.x * kThreads + threadIdx.x;
+  if (col >= g.ncol) return;
+  const int km = g.km, kn = g.kn, f = blockIdx.y, fp = f % g.Fp;
   const long long nc = g.ncol;
-  Col c{g.q1 + (long long)f * km * nc + col,
-        g.pe1 + (long long)fp * (km + 1) * nc + col,
-        g.pe2 + (long long)fp * (kn + 1) * nc + col,
-        g.q2 + (long long)f * kn * nc + col,
-        g.qe + (long long)f * (km + 1) * nc + col,
-        g.gam + (long long)f * km * nc + col,
-        g.ncol};
-  // per-thread shared columns: pe1 [km+1], al [km], ar-al [km], a6 [km]
-  float* s_pe = sm + tid;
-  float* s_al = sm + (km + 1) * B + tid;
-  float* s_dal = s_al + km * B;
-  float* s_a6 = s_dal + km * B;
-#define SPE(k) s_pe[(k) * B]
+  const Col c{g.q1 + (long long)f * km * nc + col,
+              g.pe1 + (long long)fp * (km + 1) * nc + col,
+              g.pe2 + (long long)fp * (kn + 1) * nc + col,
+              g.q2 + (long long)f * kn * nc + col,
+              g.qe + (long long)f * (km + 1) * nc + col,
+              g.gam + (long long)f * km * nc + col,
+              g.ncol};
 
   // --- 1. edge spline (ops/remap.py::_edge_spline, standard variant) --
-  for (int k = 0; k <= km; ++k) SPE(k) = c.p1[(long long)k * nc];
   {
-    const float dp0 = SPE(1) - SPE(0), dp1 = SPE(2) - SPE(1);
+    const float p0 = c.pe1(0), p1 = c.pe1(1), p2 = c.pe1(2);
+    const float dp0 = p1 - p0, dp1 = p2 - p1;
     const float grat = dp1 / dp0;
     const float bet0 = mul(grat, grat + 0.5f);
     float q = (mul(mul(grat + grat, grat + 1.f), c.a(0)) + c.a(1)) / bet0;
     float gm = (1.f + mul(grat, grat + 1.5f)) / bet0;
     c.qe[0] = q;
     c.gam[0] = gm;
-    float dp_prev = dp0, a_prev = c.a(0);
+    float dp_prev = dp0, dp_prev2 = 0.f, a_prev = c.a(0), pe = p1;
     for (int e = 1; e < km; ++e) {
-      const float dpe = SPE(e + 1) - SPE(e);
+      const float pe_next = c.pe1(e + 1);
+      const float dpe = pe_next - pe;
       const float ae = c.a(e);
       const float d4 = dp_prev / dpe;
       const float bet = 2.f + d4 + d4 - gm;
@@ -262,10 +324,13 @@ __global__ void remap_kernel(Args g) {
       gm = d4 / bet;
       c.qe[(long long)e * nc] = q;
       c.gam[(long long)e * nc] = gm;
+      dp_prev2 = dp_prev;
       dp_prev = dpe;
       a_prev = ae;
+      pe = pe_next;
     }
-    const float d4b = (SPE(km - 1) - SPE(km - 2)) / (SPE(km) - SPE(km - 1));
+    // dp_prev2, dp_prev: the thicknesses of layers km-2 and km-1
+    const float d4b = dp_prev2 / dp_prev;
     const float a_bot = 1.f + mul(d4b, d4b + 1.5f);
     float qn = (mul(mul(mul(2.f, d4b), d4b + 1.f), c.a(km - 1)) +
                 c.a(km - 2) - mul(a_bot, q)) /
@@ -277,93 +342,59 @@ __global__ void remap_kernel(Args g) {
     }
   }
 
-  // --- 2. cs_profile (ops/remap.py::cs_profile) ------------------------
-  if (KORD == kUnlimited) {
-    for (int k = 0; k < km; ++k) {
-      const float al = c.qe[(long long)k * nc];
-      const float ar = c.qe[(long long)(k + 1) * nc];
-      s_al[k * B] = al;
-      s_dal[k * B] = ar - al;
-      s_a6[k * B] = a6_of(c.a(k), al, ar);
-    }
-  } else {
-    Cell cm, c0 = cell<IV>(c, 0, km), cp = cell<IV>(c, 1, km);
-    for (int k = 0; k < km; ++k) {
-      if (k > 0) {
-        cm = c0;
-        c0 = cp;
-        if (k + 1 < km) cp = cell<IV>(c, k + 1, km);
-      }
-      const float a = c0.a;
-      Par p;
-      if (k == 0) {
-        float al = c0.al;
-        if (IV == 0) al = fmaxf(al, 0.f);
-        if (IV == -1 && mul(al, a) <= 0.f) al = 0.f;
-        p = cs_limiters<1>(a, Par{al, c0.ar, a6_of(a, al, c0.ar)}, c0.extm);
-      } else if (k == 1 || k == km - 2) {
-        p = cs_limiters<2>(a, Par{c0.al, c0.ar, a6_of(a, c0.al, c0.ar)},
-                           c0.extm);
-      } else if (k == km - 1) {
-        float ar = c0.ar;
-        if (IV == 0) ar = fmaxf(ar, 0.f);
-        if (IV == -1 && mul(ar, a) <= 0.f) ar = 0.f;
-        p = cs_limiters<1>(a, Par{c0.al, ar, a6_of(a, c0.al, ar)}, c0.extm);
-      } else {
-        p = interior<KORD>(c, k, cm, c0, cp);
-        if (IV == 0) p = cs_limiters<0>(a, p, c0.extm);
-      }
-      s_al[k * B] = p.al;
-      s_dal[k * B] = p.ar - p.al;
-      s_a6[k * B] = p.a6;
-    }
-  }
-
-  // --- 3. the parabolas integrated over every layer overlap ------------
+  // --- 2./3. merge walk with the streamed profile ---------------------
   // (ops/remap.py::ppm_remap; s at both edges of the overlap, and the
-  // constant extensions above top and below bot)
-  const float top = SPE(0), bot = SPE(km);
+  // constant extensions above top and below bot).  The walk advances
+  // through the source layers in order; at layer k it takes k's profile
+  // and then every target layer that can overlap k: the current one, and
+  // the ones that start inside k, each finished (written) when its
+  // bottom edge is at or above k's.  A target's terms come in k order.
+  ProfileWalk<IV, KORD> walk(c, km);
+  const float top = c.pe1(0), bot = c.pe1(km);
   const float q_top = c.a(0), q_bot = c.a(km - 1);
-  float pa = c.p2[0];
-  float pca = clampf(pa, top, bot);
-  for (int j = 0; j < kn; ++j) {
-    const float pb = c.p2[(long long)(j + 1) * nc];
-    const float pcb = clampf(pb, top, bot);
-    float m = 0.f;
-    for (int k = 0; k < km; ++k) {
-      const float pk = SPE(k), pk1 = SPE(k + 1);
+  float pa = c.pe2(0), pb = c.pe2(1), pb_next = kn > 1 ? c.pe2(2) : 0.f;
+  float pca = clampf(pa, top, bot), pcb = clampf(pb, top, bot);
+  float m = 0.f;
+  int j = 0;
+  float pk = top;
+  for (int k = 0; k < km && j < kn; ++k) {
+    const float pk1 = c.pe1(k + 1);
+    const Prof pr = walk.next();
+    const float dp = pk1 - pk;
+    const float dps = dp > 0.f ? dp : 1.f;
+    for (;;) {
       const float ov = fminf(pcb, pk1) - fmaxf(pca, pk);
-      if (!(ov > 0.f)) continue;  // no overlap: the plain form adds 0
-      const float dp = pk1 - pk;
-      const float dps = dp > 0.f ? dp : 1.f;
-      const float sa = clampf((pca - pk) / dps, 0.f, 1.f);
-      const float sb = clampf((pcb - pk) / dps, 0.f, 1.f);
-      const float ss = sa + sb;
-      const float sq = mul(sa, sa) + mul(sa, sb) + mul(sb, sb);
-      const float mean =
-          s_al[k * B] + mul(mul(0.5f, s_dal[k * B]), ss) +
-          mul(s_a6[k * B], mul(0.5f, ss) - mul(sq, kThird));
-      m += mul(ov, mean);
+      if (ov > 0.f) {  // no overlap: the plain form adds 0
+        const float sa = clampf((pca - pk) / dps, 0.f, 1.f);
+        const float sb = clampf((pcb - pk) / dps, 0.f, 1.f);
+        const float ss = sa + sb;
+        const float sq = mul(sa, sa) + mul(sa, sb) + mul(sb, sb);
+        const float mean = pr.al + mul(mul(0.5f, pr.dal), ss) +
+                           mul(pr.a6, mul(0.5f, ss) - mul(sq, kThird));
+        m += mul(ov, mean);
+      }
+      // target j reaches below layer k (and the source column goes on):
+      // its next terms come from layer k + 1
+      if (pcb > pk1 && k < km - 1) break;
+      m += mul(q_top, fminf(pb, top) - fminf(pa, top));
+      m += mul(q_bot, fmaxf(pb, bot) - fmaxf(pa, bot));
+      c.out[(long long)j * nc] = m / (pb - pa);
+      if (++j == kn) break;
+      m = 0.f;
+      pa = pb;
+      pca = pcb;
+      pb = pb_next;
+      pcb = clampf(pb, top, bot);
+      if (j + 2 <= kn) pb_next = c.pe2(j + 2);
     }
-    m += mul(q_top, fminf(pb, top) - fminf(pa, top));
-    m += mul(q_bot, fmaxf(pb, bot) - fmaxf(pa, bot));
-    c.out[(long long)j * nc] = m / (pb - pa);
-    pa = pb;
-    pca = pcb;
+    pk = pk1;
   }
-#undef SPE
 }
 
 template <int IV, int KORD>
 int launch(const Args& g, cudaStream_t stream) {
-  const size_t smem = (size_t)(4 * g.km + 1) * kThreads * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      remap_kernel<IV, KORD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)g.F * g.ncol;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  remap_kernel<IV, KORD><<<blocks, kThreads, smem, stream>>>(g);
+  const dim3 grid((g.ncol + kThreads - 1) / kThreads, g.F);
+  remap_kernel<IV, KORD><<<grid, kThreads, 0, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -378,12 +409,13 @@ int launch_kord(const Args& g, int kord, cudaStream_t s) {
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success); -1 for an
-// unsupported (iv, kord) or fewer than 4 source levels.
+// unsupported (iv, kord), fewer than 4 source levels or more than 65535
+// fields.
 extern "C" int fv3_remap(const float* q1, const float* pe1, const float* pe2,
                          float* q2, float* qe, float* gam, int F, int Fp,
                          int km, int kn, int ncol, int iv, int kord,
                          void* stream) {
-  if (km < 4) return -1;
+  if (km < 4 || F < 1 || F > 65535) return -1;
   Args g{q1, pe1, pe2, q2, qe, gam, F, Fp, km, kn, ncol};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (iv) {

@@ -40,6 +40,7 @@ from ..constants import (
     KAPPA,
     REFERENCE_SURFACE_PRESSURE,
 )
+from ..device import default_device
 from ..grid.geometry import CubedSphereGrid
 from ..grid.halo import (
     average_dgrid_boundary,
@@ -127,11 +128,14 @@ def _interface_pressures(delp, ptop: float):
 
 
 def rest_state(n: int, nz: int, ptop: float = 300.0, dtype=torch.float32,
-               device="cpu") -> DycoreState:
+               device=None) -> DycoreState:
     """Hydrostatic rest state on the hybrid coordinate: surface pressure
     1e5 Pa, theta from a 285 K isothermal-Exner profile, zero winds and
     one zero tracer (the JAX package's benchmark state,
-    ``__graft_entry__._rest_state``; w and delz not attached)."""
+    ``__graft_entry__._rest_state``; w and delz not attached).  On the
+    CUDA device unless `device` says otherwise."""
+    if device is None:
+        device = default_device("rest_state")
     ak, bk = (c.numpy() for c in hybrid_coefficients(nz, ptop))
     pe = ak[:, None, None] + bk[:, None, None] * 1e5
     pik = (pe / REFERENCE_SURFACE_PRESSURE) ** KAPPA
@@ -152,12 +156,14 @@ def rest_state(n: int, nz: int, ptop: float = 300.0, dtype=torch.float32,
     )
 
 
-def benchmark_state(n: int, nz: int, ptop: float = 300.0, device="cpu",
+def benchmark_state(n: int, nz: int, ptop: float = 300.0, device=None,
                     seed: int = 0) -> DycoreState:
     """The JAX package benchmark's initial state (bench.py
     ``_build_config``): the f32 rest state plus a seeded unit-normal pt
     perturbation, with w = 0 and hydrostatic delz, built on the CPU and
-    moved to `device`."""
+    moved to `device` (the CUDA device unless the caller names one)."""
+    if device is None:
+        device = default_device("benchmark_state")
     st = rest_state(n, nz, ptop, torch.float32, "cpu")
     noise = np.random.RandomState(seed).randn(*st.pt.shape)
     st = st._replace(pt=st.pt + torch.as_tensor(noise.astype(np.float32)))
@@ -577,15 +583,18 @@ def make_dycore_stepper(
     d2_damp: float = 0.12,
     ptop: float = 300.0,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ):
     """Build the full dycore step (dynamics + vertical remap).
 
     Mirrors the reference namelist structure (k_split outer loops each
     ending in a remap, n_split substeps inside).  The metrics are built
-    on the CPU and moved to `device` once.  Returns (run, m, (ak, bk))
-    with run(state, phis, nsteps) -> state.
+    on the CPU and moved to `device` once: the CUDA device unless the
+    caller passes another (``device="cpu"`` for the plain path).
+    Returns (run, m, (ak, bk)) with run(state, phis, nsteps) -> state.
     """
+    if device is None:
+        device = default_device("make_dycore_stepper")
     m = SWMetrics.make(g, dtype, device=device)
     ak, bk = hybrid_coefficients(nz, ptop)
     ak = ak.to(dtype=dtype, device=device)

@@ -28,6 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import default_device
 from ..grid.geometry import CubedSphereGrid
 from ..grid.halo import (
     canonicalize_cgrid_boundary,
@@ -113,10 +114,12 @@ class SWMetrics:
 
     @classmethod
     def make(cls, g: CubedSphereGrid, dtype=torch.float32,
-             device="cpu") -> "SWMetrics":
+             device=None) -> "SWMetrics":
         """Build the metrics on the CPU (numpy geometry, torch gathers,
         the divergence-damper power iteration), then move them to
-        `device`."""
+        `device` (the CUDA device unless the caller names one)."""
+        if device is None:
+            device = default_device("SWMetrics.make")
         h, n = g.halo, g.n
         N = n + 2 * h
         f64 = torch.float64

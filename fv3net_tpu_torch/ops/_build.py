@@ -1,14 +1,15 @@
 """Build, load and call the package's CUDA kernels (``csrc/*.cu``).
 
-At first use every ``.cu`` file is compiled by ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface, which is loaded with
-``ctypes``.  The library lives under ``build/kernels/`` at the repository
-root, named by a hash of the sources, the headers they share
-(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing here runs at import
-time: the CPU tests import every module on machines without ``nvcc`` or a
-GPU.  There is no fallback: a CUDA tensor that reaches a kernel whose
-library cannot be built raises.
+At first use every ``.cu`` file is compiled by ``nvcc`` for ``sm_90a``,
+one ``nvcc`` process per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, which is
+loaded with ``ctypes``.  The library lives under ``build/kernels/`` at
+the repository root, named by a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is reused.  Nothing here runs at import time: the CPU
+tests import every module on machines without ``nvcc`` or a GPU.  There
+is no fallback: a CUDA tensor that reaches a kernel whose library cannot
+be built raises.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,7 +44,7 @@ SIGNATURES = {
     "fv3_column": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
     "fv3_del4": [_P] * 6 + [_I] * 4 + [_F] + [_P],
     "fv3_remap": [_P] * 6 + [_I] * 7 + [_P],
-    "fv3_tp2d_multi5": [_PP] * 3 + [_I] * 4 + [_P],
+    "fv3_tp2d_multi5": [_PP] * 2 + [_I] * 4 + [_P],
     "fv3_probe_affine": [_P] * 2 + [_L] + [_P],
     "fv3_probe_stencil": [_P] * 2 + [_I] * 2 + [_P],
 }
@@ -81,17 +82,40 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n"
+                    f"{log[-8000:]}"
+                )
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link ({link.returncode}):\n"
+                f"{link.stderr[-8000:]}"
+            )
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_info.update(
         path=str(out), seconds=time.perf_counter() - t0,
-        log=proc.stdout + proc.stderr,
+        log="".join(logs) + link.stdout + link.stderr,
     )
     return out
 

@@ -93,15 +93,14 @@ def fv_tp_2d_multi5_cuda(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
              _build.check(area_py, "area_py", (F, N, N), dev)]
     out = [torch.empty(field, dtype=torch.float32, device=dev)
            for _ in range(10)]
-    scratch = [torch.empty_like(out[0]) for _ in range(6)]
 
     def array(ts):
         return (ctypes.c_void_p * len(ts))(*ts)
 
+    # two CUDA launches (csrc/tp2d_multi5.cu), no scratch; one count
     _build.call(
         "fv3_tp2d_multi5", array(ptrs), array([t.data_ptr() for t in out]),
-        array([t.data_ptr() for t in scratch]), F, nz, N, hord,
-        _build.stream(),
+        F, nz, N, hord, _build.stream(),
     )
     fv_tp_2d_multi5_cuda.launches += 1
     return tuple(out)

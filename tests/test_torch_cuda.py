@@ -152,3 +152,65 @@ def test_probe_kernels(dev):
     x = _t(np.random.RandomState(0).randn(*probe.SHAPE), dev)
     assert torch.equal(probe.affine(x), probe.affine_plain(x))
     assert torch.equal(probe.stencil(x), probe.stencil_plain(x))
+
+
+def _multi5_args(rng, N, nz, dev):
+    sh = (6, nz, N, N)
+    area = 1.0 + 0.1 * rng.rand(6, N, N)
+    fields = [100.0 + np.abs(rng.randn(*sh)), 100.0 + np.abs(rng.randn(*sh)),
+              300.0 + 10.0 * rng.randn(*sh), 300.0 + 10.0 * rng.randn(*sh),
+              rng.randn(*sh), rng.randn(*sh),
+              -100.0 + 5.0 * rng.randn(*sh), -100.0 + 5.0 * rng.randn(*sh),
+              1e-4 * rng.randn(*sh), 1e-4 * rng.randn(*sh),
+              0.2 * rng.randn(*sh), 0.2 * rng.randn(*sh)]
+    fields += [0.05 * area[:, None] * rng.randn(*sh) for _ in range(4)]
+    return [_t(a, dev) for a in fields + [area, area + 0.01]]
+
+
+@pytest.mark.parametrize("N", [11, 40, 80, 198])
+@pytest.mark.parametrize("hord", [5, 8])
+def test_multi5_kernel_tiles(dev, N, hord):
+    """K6's tiles (csrc/tp2d_multi5.cu, 18 x 33): a lattice smaller than
+    one tile (11), ragged last tiles (40, 80), interior tiles that load
+    without wrapping (80, 198) and the C192 width, which the tiles fit
+    exactly (198); every face of the padded lattice against
+    five K1 calls (the gate of chip_smoke.py, FUSED_RTOL) and the consumed
+    faces against the plain form (K1's tolerance)."""
+    args = _multi5_args(np.random.RandomState(N + hord), N, 3, dev)
+    got = advection.fv_tp_2d_multi5(*args, hord)
+    five = advection.transports5(fv_tp_2d_cuda, *args, hord)
+    want = advection.fv_tp_2d_multi5_plain(*args, hord)
+    sl = np.s_[:, :, 2 : N - 2, 2 : N - 2]
+    for g, f, w in zip(got, five, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - f).abs().max()) <= 1e-6 * float(f.abs().max())
+        torch.testing.assert_close(g[sl], w[sl], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["coincident", "beyond"])
+@pytest.mark.parametrize("iv,kord", [(1, 9), (0, 10), (-1, 17)])
+def test_remap_kernel_merge_walk_cases(dev, case, iv, kord):
+    """K5's merge walk where target edges lie exactly on source edges and
+    where they reach above and below the source column; a tracer stack
+    (F = 2 Fp) over several blocks of columns."""
+    rng = np.random.RandomState(kord - iv)
+    ny, nx = n, n + 1
+
+    def edges():
+        w = np.cumsum(0.2 + rng.rand(6, NZ + 1, ny, nx), axis=1)
+        return 300.0 + (w - w[:, :1]) / (w[:, -1:] - w[:, :1]) * 9.97e4
+
+    pe1 = edges().astype(np.float32)
+    pe2 = edges().astype(np.float32)
+    if case == "coincident":
+        pe2[:, 10], pe2[:, 30], pe2[:, 31] = pe1[:, 9], pe1[:, 30], pe1[:, 32]
+        pe2 = np.sort(pe2, axis=1)
+    else:
+        pe2 = (pe2.astype(np.float64) * 1.04 - 2500.0).astype(np.float32)
+    q = 1.0 + rng.randn(12, NZ, ny, nx)
+    q, pe1, pe2 = (_t(a, dev) for a in (q, pe1, pe2))
+    got = remap.remap_levels(q, pe1, pe2, iv, kord)
+    want = remap.remap_levels_plain(q, pe1, pe2, iv, kord)
+    assert bool(torch.isfinite(got).all())
+    # the JAX kernel test's tolerance (test_pallas_kernels.py:228)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

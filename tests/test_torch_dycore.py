@@ -62,12 +62,13 @@ def _compare(out, want):
 
 def test_one_dt_matches_jax_with_jax_metrics(jax_run):
     state, phis, metrics, want = jax_run
-    m = metrics_from_numpy(metrics)
+    m = metrics_from_numpy(metrics, "cpu")
     ak, bk = thydro.hybrid_coefficients(NZ, PTOP)
     one_dt = thydro.build_one_dt(
         m, ak, bk, NZ, DT, 1, 6, 5, 9, 0.12, PTOP, torch.float64
     )
-    _compare(one_dt(state_from_numpy(state), torch.as_tensor(phis)), want)
+    st = state_from_numpy(state, "cpu")
+    _compare(one_dt(st, torch.as_tensor(phis)), want)
 
 
 def test_one_dt_matches_jax_with_own_metrics(jax_run):
@@ -77,13 +78,15 @@ def test_one_dt_matches_jax_with_own_metrics(jax_run):
         kord=9, ptop=PTOP, dtype=torch.float64, device="cpu",
     )
     assert m.area_px.dtype == torch.float64
-    _compare(run(state_from_numpy(state), torch.as_tensor(phis), 1), want)
+    st = state_from_numpy(state, "cpu")
+    _compare(run(st, torch.as_tensor(phis), 1), want)
 
 
 def test_add_nonhydrostatic_fields_matches_jax(jax_run):
     state, _, _, _ = jax_run
     base = {k: state[k] for k in ("delp", "pt", "u", "v", "q")}
-    got = thydro.add_nonhydrostatic_fields(state_from_numpy(base), PTOP)
+    got = thydro.add_nonhydrostatic_fields(state_from_numpy(base, "cpu"),
+                                           PTOP)
     np.testing.assert_allclose(got.delz.numpy(), state["delz"], rtol=1e-14)
     assert not bool(got.w.any())
 
@@ -92,7 +95,7 @@ def test_rest_state_matches_graft_entry():
     from __graft_entry__ import _rest_state
 
     want = _rest_state(JGrid.make(6, halo=3), 10, PTOP, jnp.float32)
-    got = thydro.rest_state(6, 10, PTOP)
+    got = thydro.rest_state(6, 10, PTOP, device="cpu")
     for k in ("delp", "pt", "u", "v", "q"):
         np.testing.assert_array_equal(
             getattr(got, k).numpy(), np.asarray(getattr(want, k)), err_msg=k
@@ -115,7 +118,7 @@ def _c12x63_trajectory():
     delp, pt, u, v, q = benchmark_like_state(12, nz, seed=0)
     run, _, _ = thydro.make_dycore_stepper(
         TGrid.make(12, halo=3), nz, DT, k_split=1, n_split=6, hord=5,
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     st = thydro.add_nonhydrostatic_fields(
         thydro.DycoreState(*(torch.as_tensor(a) for a in (delp, pt, u, v, q))),
@@ -167,15 +170,15 @@ def test_fused_transport_dt_equals_unfused_and_jax(jax_run):
     from fv3net_tpu_torch.ops import advection
 
     state, phis, metrics, want = jax_run
-    m = metrics_from_numpy(metrics)
+    m = metrics_from_numpy(metrics, "cpu")
     ak, bk = thydro.hybrid_coefficients(NZ, PTOP)
     one_dt = thydro.build_one_dt(
         m, ak, bk, NZ, DT, 1, 6, 5, 9, 0.12, PTOP, torch.float64
     )
-    off = one_dt(state_from_numpy(state), torch.as_tensor(phis))
+    off = one_dt(state_from_numpy(state, "cpu"), torch.as_tensor(phis))
     advection.set_fused_transport(True)
     try:
-        on = one_dt(state_from_numpy(state), torch.as_tensor(phis))
+        on = one_dt(state_from_numpy(state, "cpu"), torch.as_tensor(phis))
     finally:
         advection.set_fused_transport(False)
     for k in off._fields:

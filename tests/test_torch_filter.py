@@ -23,7 +23,7 @@ n, H = 12, 3
 @pytest.fixture(scope="module")
 def metrics():
     mj = jsw.SWMetrics.make(JGrid.make(n, halo=H), jnp.float64)
-    return mj, metrics_from_numpy(jax_metrics_arrays(mj))
+    return mj, metrics_from_numpy(jax_metrics_arrays(mj), "cpu")
 
 
 @pytest.mark.parametrize("shape", [(6, 4, n, n), (6, n, n)])

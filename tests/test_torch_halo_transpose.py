@@ -126,7 +126,8 @@ def test_jacfwd_and_vmap_through_the_exchange():
 
 @pytest.fixture(scope="module")
 def metrics():
-    return tsw.SWMetrics.make(TGrid.make(N, halo=H), torch.float64)
+    return tsw.SWMetrics.make(TGrid.make(N, halo=H), torch.float64,
+                              device="cpu")
 
 
 @pytest.mark.parametrize("damper", ["div_damp", "corner_div_damp"])

@@ -144,3 +144,54 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library()
     assert not (tmp_path / "kernels").exists()
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc process per csrc/*.cu (compile only), then one link of
+    the objects into the library; the objects do not outlive the build.
+    A stand-in nvcc records its arguments and writes its -o file."""
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        'while [ "$#" -gt 1 ]; do\n'
+        '  if [ "$1" = "-o" ]; then echo built > "$2"; fi\n'
+        "  shift\n"
+        "done\n"
+        "echo 'ptxas info    : Used 8 registers'\n"
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    out = _build.build()
+    calls = log.read_text().splitlines()
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1]
+                  for c in compiles) == sources
+    links = [c for c in calls if "-shared" in c.split()]
+    assert len(links) == 1 and len(calls) == len(sources) + 1
+    assert out.exists() and out.parent == tmp_path / "kernels"
+    assert sorted(p.name for p in out.parent.iterdir()) == [out.name]
+    assert _build.build_info["log"].count("Used 8 registers") == (
+        len(sources) + 1)
+    assert _build.build() == out  # an identical build is reused
+
+
+def test_kernel_times_inputs():
+    """kernel_times.py's seeded inputs: monotone remap edges sharing the
+    column's end points, and the D stage's 16 fields and 2 areas."""
+    from fv3net_tpu_torch import kernel_times
+
+    rng = np.random.RandomState(0)
+    q, pe1, pe2 = kernel_times._remap_inputs(rng, 3, 4)
+    assert q.shape == (6, kernel_times.NZ, 3, 4)
+    for pe in (pe1, pe2):
+        assert pe.shape == (6, kernel_times.NZ + 1, 3, 4)
+        assert (np.diff(pe, axis=1) > 0).all()
+    np.testing.assert_array_equal(pe1[:, [0, -1]], pe2[:, [0, -1]])
+    args = kernel_times._multi5_inputs(rng, 8)
+    assert len(args) == 18
+    assert all(a.dtype == np.float32 for a in args)
+    assert [a.shape for a in args[16:]] == [(6, 8, 8)] * 2

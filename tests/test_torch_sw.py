@@ -25,7 +25,8 @@ n, H, NZ = 12, 3, 3
 @pytest.fixture(scope="module")
 def metrics():
     mj = jsw.SWMetrics.make(JGrid.make(n, halo=H), jnp.float64)
-    mt = tsw.SWMetrics.make(TGrid.make(n, halo=H), torch.float64)
+    mt = tsw.SWMetrics.make(TGrid.make(n, halo=H), torch.float64,
+                            device="cpu")
     return mj, mt
 
 
@@ -48,7 +49,7 @@ def test_swmetrics_make_matches_jax(metrics):
 def test_metrics_from_numpy_round_trip(metrics):
     mj, _ = metrics
     arrays = jax_metrics_arrays(mj)
-    m2 = metrics_from_numpy(arrays)
+    m2 = metrics_from_numpy(arrays, "cpu")
     assert (m2.n, m2.halo) == (mj.n, mj.halo)
     assert m2.divdamp_scale == mj.divdamp_scale
     for f in dataclasses.fields(m2):
@@ -56,7 +57,7 @@ def test_metrics_from_numpy_round_trip(metrics):
         if isinstance(got, torch.Tensor):
             np.testing.assert_array_equal(got.numpy(), arrays[f.name],
                                           err_msg=f.name)
-    m3 = metrics_from_numpy(arrays, dtype=torch.float32)
+    m3 = metrics_from_numpy(arrays, "cpu", dtype=torch.float32)
     assert m3.area_px.dtype == torch.float32
 
 
