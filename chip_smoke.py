@@ -15,11 +15,12 @@ Phases (any failure raises and the script exits non-zero):
      C192 (padded N = 18, 54, 198; the remap at n = 12, 48, 192 in its
      cell-centred, u- and v-staggered shapes); max error and CUDA-event
      times (median of 20 calls) of each kernel's wrapper alone on
-     pre-built inputs (K3 on its pre-exchanged pair, beside the time of
-     scalar_filter with its two exchanges) and of its plain version,
-     each beside its bound (BOUND_NOTE) and, for K7, beside one PyTorch
-     call that computes the same function; K6 also against five K1
-     calls;
+     pre-built inputs (K3 on q itself, beside the time of the two
+     exchanges it no longer needs; K1 at hord 5, beside hord 1) and of
+     its plain version, each beside its bound (BOUND_NOTE) and, for K7,
+     beside one PyTorch call that computes the same function; the host
+     time of each wrapper's Python call alone (host_ms); K6 also against
+     five K1 calls;
   4. slice parity: one dt at C12 x 63 f32 on CUDA (kernels) against the
      same dt on the CPU (plain torch) in f32 and float64, every state
      field (see F32_FACTOR), with the fused transport off and on;
@@ -245,15 +246,34 @@ def bound(ins, outs, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def host_ms(fn, reps=20, warmup=3):
+    """Median wall time in ms of the Python call fn() alone, without
+    synchronising, while the card has queued work (a ~1 ms spin before
+    each call), so the call never waits for the device: the wrapper's
+    host share of a kernel's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def record(stats, name, N, err, fn, plain, ins, outs, ops, library=None):
-    """Time a kernel's wrapper alone (fn), its plain version and, where
-    one PyTorch call computes the same function, that call; with the
-    bound of the call, into stats[(name, N)]."""
+    """Time a kernel's wrapper alone (fn) on the card and on the host, its
+    plain version and, where one PyTorch call computes the same function,
+    that call; with the bound of the call, into stats[(name, N)]."""
     b_ms, b_by = bound(ins, outs, ops)
     stats[(name, N)] = dict(
         max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=None if library is None else cuda_ms(library),
+        host_ms=host_ms(fn),
     )
 
 
@@ -377,6 +397,9 @@ def check_tp(rng, N, dev, stats):
     record(stats, "fv_tp_2d", N, max(errs), lambda: fv_tp_2d_cuda(*args),
            lambda: advection.fv_tp_2d_plain(*args), args[:8], got,
            OPS_TP2D_CELL * got[0].numel())
+    # hord 1 has no edge arithmetic: the same copies and phases
+    say(f"fv_tp_2d N={N}: hord 5 {stats[('fv_tp_2d', N)]['ms']:.4f} ms, "
+        f"hord 1 {cuda_ms(lambda: fv_tp_2d_cuda(*args[:8], 1)):.4f} ms")
 
 
 def _sim1_inputs(rng, n, dev):
@@ -431,19 +454,28 @@ def check_filter(rng, n, dev, stats):
     )
     q = t(rng.randn(6, NZ, n, n))
     c = sw.FILTER_COEF
-    got = sw.scalar_filter(q, m, c)  # halo exchanges + kernel
+    launches = del4_filter_cuda.launches
+    got = sw.scalar_filter(q, m, c)  # one launch, q read through tables
+    if del4_filter_cuda.launches != launches + 1:
+        raise AssertionError("scalar_filter: not one K3 launch")
     want = sw.scalar_filter_plain(q, m, c)
     # tolerance of the JAX kernel test (test_pallas_kernels.py:372)
     err = check_close(f"del4 n={n}", got, want, 1e-4, 1e-5)
-    # the kernel alone, on the pre-exchanged pair scalar_filter gives it
-    args = (halo_exchange(q, H, fill="x"), halo_exchange(q, H, fill="y"),
-            m.area_px, m.area_py, c, H)
+    # the kernel reads q, the two gather tables and the padded areas
+    tables = [halo_mod.scalar_gather_flat(n, H, NZ, fill, q.device)
+              for fill in ("x", "y")]
     N = n + 2 * H
-    record(stats, "del4_filter", N, err, lambda: del4_filter_cuda(*args),
-           lambda: sw.scalar_filter_plain(q, m, c), args[:4], [got],
+    record(stats, "del4_filter", N, err,
+           lambda: del4_filter_cuda(q, m.area_px, m.area_py, c, H),
+           lambda: sw.scalar_filter_plain(q, m, c),
+           [q, *tables, m.area_px, m.area_py], [got],
            OPS_DEL4_CELL * got.numel())
-    say(f"del4 n={n}: scalar_filter (2 exchanges + kernel) "
-        f"{cuda_ms(lambda: sw.scalar_filter(q, m, c)):.4f} ms")
+    # the yardstick: the two exchanges the kernel used to be given
+    ms_x = cuda_ms(lambda: (halo_exchange(q, H, fill="x"),
+                            halo_exchange(q, H, fill="y")))
+    ms = cuda_ms(lambda: sw.scalar_filter(q, m, c))
+    say(f"del4 n={n}: scalar_filter {ms:.4f} ms (one launch); the x- and "
+        f"y-fill exchanges it no longer makes {ms_x:.4f} ms")
 
 
 def check_column(rng, N, dev, stats):
@@ -622,7 +654,8 @@ def report_kernels(stats):
         say(f"kernel {name:17s} N={N:3d} max_abs_err={r['max_abs_err']:.3e} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.1%} of it) library "
+            f"{r['bound_ms'] / r['ms']:.1%} of it) host "
+            f"{r['host_ms']:.4f} ms library "
             + ("none" if lib is None else f"{lib:.4f} ms"))
 
 
@@ -1018,6 +1051,7 @@ def kernel_summary(stats, probe_launches, fused_launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "host_ms": r["host_ms"],
         })
     for tag, launches, N in (("C48", LAUNCHES_PER_DT, 54),
                              ("coupled C48", coupled_launches, 54),

@@ -1,13 +1,12 @@
 // Per-cell arithmetic of the Lin-Rood 2D transport, shared by K1
 // (tp2d.cu, one fv_tp_2d) and K6 (tp2d_multi5.cu, the D stage's five):
 // PPM edge values with the hord 1/5/6/8 limiters, the upwind face average
-// of ops/advection.py::ppm_flux, the inner transverse half-update and the
-// outer flux of ops/advection.py::fv_tp_2d_plain.  The edge and face
-// functions read their cells through a line type: K1's Line indexes a
-// row or column of device memory modulo N, which reproduces the roll()
-// wrap-around of the plain version on the whole padded [N, N] slab (the
-// caller consumes only [2, N-2)); K6's SLine indexes a shared-memory
-// tile whose loads have already wrapped.
+// of ops/advection.py::ppm_flux, the face flux and the inner transverse
+// half-update of ops/advection.py::fv_tp_2d_plain.  The edge and face
+// functions read their cells through a line type; both kernels pass an
+// SLine over a shared-memory tile whose loads have already taken the
+// indices modulo N (tile.cuh), which reproduces the roll() wrap-around of
+// the plain version on the whole padded [N, N] slab.
 //
 // Stencil reach: the face average at face i reads cells i-3 .. i+2 (the
 // edges of the upwind cell, i-1 or i, each an edge4 of two cells either
@@ -19,11 +18,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
 
 // i modulo n for i within a few lattices of [0, n): no division
 __device__ __forceinline__ int wrap_near(int i, int n) {
@@ -39,17 +33,6 @@ __device__ __forceinline__ float sgn(float x) {
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
-
-// One row or column of a slab: element stride `stride`, length n, cells
-// indexed modulo n.
-struct Line {
-  const float* base;
-  int stride;
-  int n;
-  __device__ __forceinline__ float at(int i) const {
-    return base[wrap(i, n) * stride];
-  }
-};
 
 // One row or column of a shared-memory tile: element stride `stride`,
 // no wrap-around (the tile's loads took the indices modulo N).
@@ -138,55 +121,6 @@ __device__ __forceinline__ float inner_update(float q0, float area, float f0,
                                               float f1, float m0, float m1) {
   const float ra = area + (m0 - m1);
   return 0.5f * (q0 + (q0 * area + (f0 - f1)) / ra);
-}
-
-// Inner half-update along y of cell (j, i) of one [N, N] slab: q the
-// y-filled field, cr the y Courant numbers, mf the y mass fluxes, area
-// the cell's (plain or mass-weighted) area.
-template <int HORD>
-__device__ __forceinline__ float inner_y(const float* q, const float* cr,
-                                         const float* mf, float area, int j,
-                                         int i, int N) {
-  const Line ql{q + i, N, N};
-  const int jp = wrap(j + 1, N);
-  const float m0 = mf[j * N + i];
-  const float m1 = mf[jp * N + i];
-  const float f0 = face_flux<HORD>(ql, j, cr[j * N + i], m0);
-  const float f1 = face_flux<HORD>(ql, j + 1, cr[jp * N + i], m1);
-  return inner_update(ql.at(j), area, f0, f1, m0, m1);
-}
-
-// Inner half-update along x of cell (j, i): as inner_y with the x-filled
-// field, x Courant numbers and x mass fluxes.
-template <int HORD>
-__device__ __forceinline__ float inner_x(const float* q, const float* cr,
-                                         const float* mf, float area, int j,
-                                         int i, int N) {
-  const Line ql{q + j * N, 1, N};
-  const int ip = wrap(i + 1, N);
-  const float m0 = mf[j * N + i];
-  const float m1 = mf[j * N + ip];
-  const float f0 = face_flux<HORD>(ql, i, cr[j * N + i], m0);
-  const float f1 = face_flux<HORD>(ql, i + 1, cr[j * N + ip], m1);
-  return inner_update(ql.at(i), area, f0, f1, m0, m1);
-}
-
-// Outer x flux at face (j, i) from the y half-updated slab q_y.
-template <int HORD>
-__device__ __forceinline__ float outer_x(const float* q_y, const float* cr,
-                                         const float* mf, int j, int i,
-                                         int N) {
-  const Line ql{q_y + j * N, 1, N};
-  return face_flux<HORD>(ql, i, cr[j * N + i], mf[j * N + i]);
-}
-
-// Outer y flux at face (j, i) from the x half-updated slab q_x.
-template <int HORD>
-__device__ __forceinline__ float outer_y(const float* q_x, const float* cr,
-                                         const float* mf, int j, int i,
-                                         int N) {
-  const Line ql{q_x + i, N, N};
-  return face_flux<HORD>(ql, j, cr[j * N + i], mf[j * N + i]);
 }
 
 }  // namespace

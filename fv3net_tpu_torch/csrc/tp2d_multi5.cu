@@ -46,6 +46,7 @@
 
 #include <cuda_pipeline.h>
 
+#include "tile.cuh"
 #include "tp2d_core.cuh"
 
 namespace {
@@ -84,30 +85,12 @@ struct Args {
   int nz, N;
 };
 
-// Start copying src[(r0 + r) mod N][(c0 + c) mod N] into dst[r][c] for
-// an H x W region of one N x N slab: asynchronous copies (cp.async), so
-// every load of a phase is in flight at once; the thread that started an
-// element's copy waits for it (__pipeline_wait_prior) before a barrier.
-template <int H, int W>
-__device__ __forceinline__ void load(float* dst, const float* src, int r0,
-                                     int c0, int N) {
-  const bool inside = r0 >= 0 && c0 >= 0 && r0 + H <= N && c0 + W <= N;
-  for (int t = threadIdx.x; t < H * W; t += kThreads) {
-    int r = r0 + t / W, c = c0 + t % W;
-    if (!inside) {
-      r = wrap_near(r, N);
-      c = wrap_near(c, N);
-    }
-    __pipeline_memcpy_async(dst + t, src + r * N + c, sizeof(float));
-  }
-}
-
 // The field's x- and y-filled tiles.
 __device__ __forceinline__ void load_field(float* ix, float* iy,
                                            const float* qx, const float* qy,
                                            int j0, int i0, int N) {
-  load<IX_H, IX_W>(ix, qx, j0 - 3, i0 - 3, N);
-  load<IY_H, IY_W>(iy, qy, j0 - 3, i0 - 3, N);
+  load_tile<IX_H, IX_W, kThreads>(ix, qx, j0 - 3, i0 - 3, N);
+  load_tile<IY_H, IY_W, kThreads>(iy, qy, j0 - 3, i0 - 3, N);
   __pipeline_commit();
 }
 
@@ -115,16 +98,16 @@ __device__ __forceinline__ void load_field(float* ix, float* iy,
 __device__ __forceinline__ void load_faces(float* cx, float* cy,
                                            const float* x, const float* y,
                                            int j0, int i0, int N) {
-  load<CX_H, CX_W>(cx, x, j0 - 3, i0, N);
-  load<CY_H, CY_W>(cy, y, j0, i0 - 3, N);
+  load_tile<CX_H, CX_W, kThreads>(cx, x, j0 - 3, i0, N);
+  load_tile<CY_H, CY_W, kThreads>(cy, y, j0, i0 - 3, N);
 }
 
 // The areas at the cells whose half-updates the tile computes.
 __device__ __forceinline__ void load_areas(float* ax, float* ay,
                                            const float* x, const float* y,
                                            int j0, int i0, int N) {
-  load<QX_H, QX_W>(ax, x, j0 - 3, i0, N);
-  load<QY_H, QY_W>(ay, y, j0, i0 - 3, N);
+  load_tile<QX_H, QX_W, kThreads>(ax, x, j0 - 3, i0, N);
+  load_tile<QY_H, QY_W, kThreads>(ay, y, j0, i0 - 3, N);
 }
 
 // The face fluxes of the inner half-updates, each face once, with mass

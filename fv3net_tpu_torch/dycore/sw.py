@@ -494,21 +494,19 @@ def scalar_filter(q, m, c):
     Role: a tiny background 2-delta filter (c ~ 0.02) that keeps the weak
     boundary-ring mass mode of the linearized step neutral with
     negligible smoothing of resolved flow.  CUDA tensors go to the fused
-    kernel (ops/cuda_filter.py: both Laplacians from one pre-exchanged
-    x-fill/y-fill pair), CPU tensors to the plain local form.
+    kernel (ops/cuda_filter.py: one launch that reads q through the
+    x-fill and y-fill exchange tables), CPU tensors to the plain local
+    form.
     """
     if c == 0.0:
         return q
     if q.is_cuda:
         from ..ops.cuda_filter import del4_filter_cuda
 
-        h = m.halo
         squeeze = q.ndim == 3
         q4 = q[:, None] if squeeze else q
-        out = del4_filter_cuda(
-            halo_exchange(q4, h, fill="x"), halo_exchange(q4, h, fill="y"),
-            m.area_px, m.area_py, c, h,
-        )
+        out = del4_filter_cuda(q4.contiguous(), m.area_px, m.area_py, c,
+                               m.halo)
         return out[:, 0] if squeeze else out
     return scalar_filter_plain(q, m, c)
 

@@ -500,6 +500,24 @@ def _scalar_gather(n: int, h: int, fill: str, device: torch.device):
 
 
 @lru_cache(maxsize=None)
+def scalar_gather_flat(n: int, h: int, nz: int, fill: str,
+                       device: torch.device):
+    """The gather table of ``halo_exchange(q, h, fill)`` for q [6, nz, n, n]
+    as int32 flat positions [6, N*N] (N = n + 2h) into q at level 0: slot
+    (f, p) of the padded level k is q.reshape(-1)[table[f, p] + k * n * n],
+    i.e. table[f, p] = (face' * nz) * n * n + pos' for the source cell
+    (face', pos').  A kernel reads the exchanged field through it without
+    the exchanged copy being written."""
+    if 6 * nz * n * n >= 2 ** 31:
+        raise ValueError(f"[6, {nz}, {n}, {n}] does not fit int32 indices")
+    flat, _ = _scalar_tables(n, h, fill)
+    flat = np.asarray(flat, np.int64).reshape(6, -1)
+    face, pos = flat // (n * n), flat % (n * n)
+    return torch.as_tensor((face * nz * n * n + pos).astype(np.int32),
+                           device=device)
+
+
+@lru_cache(maxsize=None)
 def _staggered_gather(kind: str, n: int, h: int, fill: str,
                       device: torch.device, dtype: torch.dtype):
     """(face, pos, sign) gather tensors for both outputs of a D- or

@@ -1,5 +1,6 @@
-"""Time the remap (K5) and fused-transport (K6) kernels alone at the C192
-path's shapes, and compare their outputs with another checkout's.
+"""Time the remap (K5), fused-transport (K6) and transport (K1) kernels
+and the del-4 filter (K3, as ``sw.scalar_filter`` calls it) alone at the
+C192 path's shapes, and compare their outputs with another checkout's.
 
 Run on the GPU machine from the repository root:
 
@@ -12,9 +13,14 @@ same in every checkout): K5 on q1/pe1/pe2 of n = 192 x 63 levels, cell
 centred and u-staggered, for the (iv, kord) variants the C192 step
 remaps with (pt, winds, tracers at kord 9; kord 10 and 17), and K6 on the
 D stage's 16 fields of N = 198 x 63 at hord 5 (the step's) and hord 1
-(the same loads and tiles without the edge arithmetic).  Each wrapper
-call is timed
-by CUDA events, median of 20 after 3 warm-up calls.  --save writes the
+(the same loads and tiles without the edge arithmetic); K1 on the same
+inputs' fields at N = 198 x 63, hord 5 and 1, with plain and with
+mass-weighted areas; ``sw.scalar_filter`` on q [6, 63, 192, 192] with
+seeded areas (chip_smoke.py's metrics).  Each call is timed by CUDA
+events, median of 20 after 3 warm-up calls.  The host time of the Python
+call alone (median of 20, not synchronised, the card kept busy) is taken
+for the K7 probe, K1 at N = 54 and K3 at n = 48, and for the pieces of
+the wrappers' shared call path.  --save writes the
 outputs to FILE; --reference compares them with a FILE saved by another
 checkout (bit for bit, else the max abs difference).  Prints one JSON
 line with the card's name and power limit.  Running two checkouts in
@@ -29,6 +35,8 @@ import os
 import statistics
 import subprocess
 import sys
+import time
+import types
 
 import numpy as np
 
@@ -82,6 +90,69 @@ def _multi5_inputs(rng, N):
     return [f.astype(np.float32) for f in fields] + [apx, apy]
 
 
+def _filter_inputs(torch, halo_exchange, rng, n):
+    """sw.scalar_filter's metrics (seeded areas, their x- and y-fill
+    exchanges; chip_smoke.py's check_filter) and q [6, 63, n, n]."""
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device="cuda")
+
+    area = t(1.0 + 0.1 * rng.rand(6, n, n))
+    m = types.SimpleNamespace(
+        n=n, halo=3, area_px=halo_exchange(area, 3, fill="x"),
+        area_py=halo_exchange(area, 3, fill="y"), rarea=1.0 / area,
+    )
+    return m, t(rng.randn(6, NZ, n, n))
+
+
+def _host_ms(torch, fn, reps=20, warmup=3):
+    """Median wall time in ms of the Python call fn() alone, without
+    synchronising, each after ~1 ms of queued device work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda):
+    """Host ms of three wrappers at the C48 path's shapes (K7 at its
+    [256, 256]) and of the pieces of their shared call path."""
+    x = torch.as_tensor(rng.randn(*probe.SHAPE).astype(np.float32),
+                        device="cuda")
+    N = 54
+    sh = (6, NZ, N, N)
+    tp = [torch.as_tensor(a, device="cuda") for a in (
+        rng.randn(*sh), rng.randn(*sh), 0.2 * rng.randn(*sh),
+        0.2 * rng.randn(*sh), 0.05 * rng.randn(*sh), 0.05 * rng.randn(*sh),
+        1.0 + 0.1 * rng.rand(6, 1, N, N), 1.0 + 0.1 * rng.rand(6, 1, N, N),
+    )]
+    tp = [a.float() for a in tp]
+    m, q = _filter_inputs(torch, halo_exchange, rng, 48)
+    return {
+        "probe_affine [256, 256]": _host_ms(torch,
+                                            lambda: probe.affine_cuda(x)),
+        "fv_tp_2d N=54 hord=5": _host_ms(torch,
+                                         lambda: fv_tp_2d_cuda(*tp, 5)),
+        "scalar_filter n=48": _host_ms(
+            torch, lambda: sw.scalar_filter(q, m, sw.FILTER_COEF)),
+        "_build.stream()": _host_ms(torch, _build.stream),
+        "torch.empty [6, 63, 54, 54]": _host_ms(
+            torch, lambda: torch.empty(sh, device="cuda")),
+        "_build.check": _host_ms(
+            torch, lambda: _build.check(tp[0], "q", sh, tp[0].device)),
+        "_build.call (the probe's launch)": _host_ms(
+            torch, lambda: _build.call(
+                "fv3_probe_affine", x.data_ptr(), x.data_ptr(), x.numel(),
+                _build.stream())),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", required=True)
@@ -98,9 +169,13 @@ def main(argv=None):
     os.chdir(root)  # the kernels build under <root>/build/kernels
     import torch
 
+    from fv3net_tpu_torch import probe
+    from fv3net_tpu_torch.dycore import sw
+    from fv3net_tpu_torch.grid import halo_exchange
     from fv3net_tpu_torch.ops import _build
     from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
-    from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_multi5_cuda
+    from fv3net_tpu_torch.ops.cuda_tp import (fv_tp_2d_cuda,
+                                              fv_tp_2d_multi5_cuda)
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times needs a CUDA device")
@@ -132,8 +207,28 @@ def main(argv=None):
         times[key] = _cuda_ms(
             torch, lambda: fv_tp_2d_multi5_cuda(*ins, hord)
         )
-    del ins
-    result = {"tag": args.tag, "root": root, "card": card, "ms": times}
+    # K1 on delp's fields with (xfx, yfx) and the plain areas, or the air
+    # mass area * delp
+    dpx, dpy, crx, cry, xfx, yfx = (ins[i] for i in (0, 1, 10, 11, 12, 13))
+    apx, apy = ins[16][:, None], ins[17][:, None]
+    for form, areas in (("area", (apx, apy)),
+                        ("mass", (apx * dpx, apy * dpy))):
+        tp = (dpx, dpy, crx, cry, xfx, yfx, *areas)
+        for hord in (5, 1):
+            key = f"fv_tp_2d N=198 hord={hord} {form}"
+            outs[key] = [o.cpu() for o in fv_tp_2d_cuda(*tp, hord)]
+            times[key] = _cuda_ms(torch, lambda: fv_tp_2d_cuda(*tp, hord))
+    del ins, tp, areas
+    m, q = _filter_inputs(torch, halo_exchange, rng, N192)
+    key = f"scalar_filter n={N192}"
+    outs[key] = sw.scalar_filter(q, m, sw.FILTER_COEF).cpu()
+    times[key] = _cuda_ms(torch, lambda: sw.scalar_filter(q, m,
+                                                          sw.FILTER_COEF))
+    del m, q
+    host = _host_times(torch, rng, probe, sw, halo_exchange, _build,
+                       fv_tp_2d_cuda)
+    result = {"tag": args.tag, "root": root, "card": card, "ms": times,
+              "host_ms": host}
     if reference:
         ref = torch.load(reference)
         diff = {}

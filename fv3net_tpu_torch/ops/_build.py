@@ -39,10 +39,10 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 
 # argtypes of every C entry point in csrc/ (each returns an int error code)
 SIGNATURES = {
-    "fv3_tp2d": [_P] * 8 + [_L, _L] + [_P] * 4 + [_I] * 4 + [_P],
+    "fv3_tp2d": [_P] * 8 + [_I] * 2 + [_P] * 2 + [_I] * 5 + [_P],
     "fv3_sim1": [_P] * 12 + [_I] * 3 + [_F] * 6 + [_P],
     "fv3_column": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
-    "fv3_del4": [_P] * 6 + [_I] * 4 + [_F] + [_P],
+    "fv3_del4": [_P] * 6 + [_I] * 5 + [_F] + [_P],
     "fv3_remap": [_P] * 6 + [_I] * 7 + [_P],
     "fv3_tp2d_multi5": [_PP] * 2 + [_I] * 4 + [_P],
     "fv3_probe_affine": [_P] * 2 + [_L] + [_P],
@@ -50,6 +50,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_entry = {}  # name -> the library's C entry point, bound once
 build_info = {}  # path, seconds and compiler output of the last build
 
 
@@ -135,26 +136,46 @@ def library() -> ctypes.CDLL:
 
 def call(name: str, *args) -> None:
     """Call a C entry point; raise if it reports a CUDA error."""
-    err = getattr(library(), name)(*args)
+    fn = _entry.get(name)
+    if fn is None:
+        fn = _entry[name] = getattr(library(), name)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error code {err}")
 
 
 def stream() -> int:
-    """Handle of the current CUDA stream, for the kernels' launches."""
-    return torch.cuda.current_stream().cuda_stream
+    """Handle of the current CUDA stream of the current device, for the
+    kernels' launches: torch's raw lookup, since
+    ``torch.cuda.current_stream().cuda_stream`` builds a Stream object
+    first (5-8 us of a wrapper's host time on the H100 machine,
+    kernel_times.py)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def check(t: torch.Tensor, name: str, shape, device) -> int:
+def check(t: torch.Tensor, name: str, shape: tuple, device) -> int:
     """Validate a kernel operand; returns its data pointer."""
     if not isinstance(t, torch.Tensor) or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(
             f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}"
         )
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     return t.data_ptr()
+
+
+# A block of K1 or K3 loops over a run of up to MAX_LEVELS levels of its
+# tile, fewer where the card would otherwise get fewer than ~BLOCKS blocks
+# (runs of 8 levels at C192 and 1 at C48 were the fastest of 1-8 for K1
+# and of 1-16 for K3 on the H100, kernel_variants.py).
+MAX_LEVELS, BLOCKS = 8, 2048
+
+
+def levels_per_block(tiles: int, slabs: int) -> int:
+    """Levels each block loops over for `tiles` tiles of each of `slabs`
+    (face, level) slabs."""
+    return max(1, min(MAX_LEVELS, tiles * slabs // BLOCKS))

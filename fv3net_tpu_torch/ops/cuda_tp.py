@@ -19,13 +19,18 @@ import torch
 from . import _build
 
 
+TX, TY = 33, 18  # csrc/tp2d.cu's tile
+
+
 def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
                   hord: int):
-    """(fx, fy) of ``fv_tp_2d`` from the CUDA kernel.
+    """(fx, fy) of ``fv_tp_2d`` from the CUDA kernel, on the whole padded
+    lattice.
 
     qp_x, qp_y, crx, cry, xfx, yfx: [F, nz, N, N] float32 on one CUDA
     device.  area_px, area_py: [F, 1, N, N] (plain areas) or [F, nz, N, N]
-    (mass-weighted area * delp).
+    (mass-weighted area * delp).  One launch; fx and fy are the only
+    allocations.
     """
     if hord not in (1, 5, 6, 8):
         raise ValueError(f"unsupported hord {hord}")
@@ -33,6 +38,8 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
     if dev.type != "cuda":
         raise ValueError("fv_tp_2d_cuda takes CUDA tensors")
     F, nz, N, _ = qp_x.shape
+    if qp_x.numel() >= 2 ** 31:
+        raise ValueError(f"{tuple(qp_x.shape)} does not fit int32 indices")
     field = (F, nz, N, N)
     ptrs = [
         _build.check(t, name, field, dev)
@@ -49,14 +56,12 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
         _build.check(area_px, "area_px", a_shape, dev),
         _build.check(area_py, "area_py", a_shape, dev),
     ]
-    q_x = torch.empty(field, dtype=torch.float32, device=dev)
-    q_y = torch.empty_like(q_x)
-    fx = torch.empty_like(q_x)
-    fy = torch.empty_like(q_x)
+    fx = torch.empty(field, dtype=torch.float32, device=dev)
+    fy = torch.empty(field, dtype=torch.float32, device=dev)
+    lv = _build.levels_per_block(-(-N // TX) * -(-N // TY), F * nz)
     _build.call(
-        "fv3_tp2d", *ptrs, a_fstride, a_kstride, q_x.data_ptr(),
-        q_y.data_ptr(), fx.data_ptr(), fy.data_ptr(), F, nz, N, hord,
-        _build.stream(),
+        "fv3_tp2d", *ptrs, a_fstride, a_kstride, fx.data_ptr(),
+        fy.data_ptr(), F, nz, N, hord, lv, _build.stream(),
     )
     fv_tp_2d_cuda.launches += 1
     return fx, fy

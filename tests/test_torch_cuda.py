@@ -54,6 +54,35 @@ def test_fv_tp_2d_kernel(dev, hord, mass_weighted):
         torch.testing.assert_close(g[sl], w[sl], rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("mass_weighted", [False, True])
+@pytest.mark.parametrize("N", [11, 18, 54, 198])
+def test_fv_tp_2d_kernel_whole_lattice(dev, N, mass_weighted):
+    """K1's tiles (csrc/tp2d.cu, 18 x 33, 8-byte copies for even N): a
+    lattice smaller than one tile with 4-byte copies (11) and with pairs
+    (18), ragged tiles (54, the C48 width) and the C192 width, where each
+    block runs its ring over several levels (198); every face of the
+    padded lattice against the plain version, one launch a call."""
+    rng = np.random.RandomState(N)
+    sh = (6, NZ, N, N)
+    area = 1.0 + 0.1 * rng.rand(6, 1, N, N)
+    args = [rng.randn(*sh), rng.randn(*sh), 0.2 * rng.randn(*sh),
+            0.2 * rng.randn(*sh), 0.05 * area * rng.randn(*sh),
+            0.05 * area * rng.randn(*sh)]
+    if mass_weighted:
+        dp = 100.0 + rng.rand(*sh)
+        args += [area * dp, (area + 0.01) * dp]
+    else:
+        args += [area, area + 0.01]
+    args = [_t(a, dev) for a in args]
+    for hord in (1, 5, 6, 8):
+        launches = fv_tp_2d_cuda.launches
+        got = advection.fv_tp_2d(*args, hord)
+        assert fv_tp_2d_cuda.launches == launches + 1
+        want = advection.fv_tp_2d_plain(*args, hord)
+        for g, w in zip(got, want):  # the JAX kernel test's tolerance
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+
+
 def test_sim1_kernel(dev):
     rng = np.random.RandomState(0)
     pe = np.sort(np.linspace(300.0, 1e5, NZ + 1)[:, None, None]
@@ -90,6 +119,31 @@ def test_filter_and_column_kernels(dev):
     want = cuda_column.column_pressures_plain(dp, 300.0)
     for g, w, rtol in zip(got, want, (1e-6, 1e-5, 1e-5)):
         torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)
+
+
+@pytest.mark.parametrize("nz", [NZ, 0])
+@pytest.mark.parametrize("width", [12, 48, 192])
+def test_filter_kernel_widths(dev, width, nz):
+    """K3 at the widths of C12, C48 and C192 (ragged tiles at 12, tiles
+    whose regions are interior at 192), 4-D and 3-D q: one launch a call,
+    within the JAX kernel test's tolerance of the plain version."""
+    from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
+
+    rng = np.random.RandomState(width)
+    area = _t(1.0 + 0.1 * rng.rand(6, width, width), dev)
+    m = type("M", (), dict(
+        n=width, halo=H, area_px=halo_exchange(area, H, fill="x"),
+        area_py=halo_exchange(area, H, fill="y"), rarea=1.0 / area,
+    ))
+    shape = (6, nz, width, width) if nz else (6, width, width)
+    q = _t(rng.randn(*shape), dev)
+    launches = del4_filter_cuda.launches
+    got = sw.scalar_filter(q, m, sw.FILTER_COEF)
+    assert del4_filter_cuda.launches == launches + 1
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, sw.scalar_filter_plain(q, m,
+                                                           sw.FILTER_COEF),
+                               rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("stag", [(0, 0), (1, 0), (0, 1)])

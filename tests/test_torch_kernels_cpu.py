@@ -104,9 +104,9 @@ def test_wrappers_refuse_cpu_tensors():
         fv_tp_2d_cuda(f, f, f, f, f, f, a, a, 5)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_column.column_pressures_cuda(f, 300.0)
-    with pytest.raises(ValueError, match="CUDA"):
-        del4_filter_cuda(f, f, a[:, 0], a[:, 0], 0.02, H)
     c = torch.zeros(6, NZ, n, n)
+    with pytest.raises(ValueError, match="CUDA"):
+        del4_filter_cuda(c, a[:, 0], a[:, 0], 0.02, H)
     with pytest.raises(ValueError, match="CUDA"):
         sim1_solver_cuda(1.0, c, c, c, c, torch.zeros(6, NZ + 1, n, n), c,
                          torch.zeros(6, n, n))
