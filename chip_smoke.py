@@ -12,11 +12,13 @@ Phases (any failure raises and the script exits non-zero):
      bit for bit equal to its plain version, times;
   3. kernels: each dycore kernel against its plain torch version on the
      card, f32, nz = 63, seeded inputs, at the widths of C12, C48 and
-     C192 (padded N = 18, 54, 198; the remap at n = 12, 48, 192 in its
-     cell-centred, u- and v-staggered shapes); max error and CUDA-event
+     C192 (padded N = 18, 54, 198; the vertical solve and the remap on
+     the interior n = 12, 48, 192, the remap in its cell-centred, u- and
+     v-staggered shapes; each keyed by that width); max error and CUDA-event
      times (median of 20 calls) of each kernel's wrapper alone on
      pre-built inputs (K3 on q itself, beside the time of the two
-     exchanges it no longer needs; K1 at hord 5, beside hord 1) and of
+     exchanges it no longer needs; K1 at hord 5, beside hord 1; K2 on the
+     halo-padded pem, pm and ws the step passes it) and of
      its plain version, each beside its bound (BOUND_NOTE) and, for K7,
      beside one PyTorch call that computes the same function; the host
      time of each wrapper's Python call alone (host_ms); K6 also against
@@ -81,6 +83,7 @@ from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.dycore.hydro import benchmark_state, make_dycore_stepper
 from fv3net_tpu_torch.grid import CubedSphereGrid, halo_exchange
 from fv3net_tpu_torch.grid import halo as halo_mod
+from fv3net_tpu_torch.kernel_times import _halo_padded
 from fv3net_tpu_torch.ops import _build, advection, cuda_column, remap
 from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
 from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
@@ -130,6 +133,8 @@ LAUNCHES_PER_DT = {
 # ... on the C192 path (fused transport on): the five substep transports
 # are one fused launch, K1 runs only for the tracer
 LAUNCHES_PER_DT_FUSED = dict(LAUNCHES_PER_DT, fv_tp_2d=1, fv_tp_2d_multi5=6)
+# kernels that run on the n x n interior (the others on the padded lattice)
+INTERIOR = ("sim1_solver", "ppm_remap")
 # ... on the toolchain probe path: one call of each probe
 LAUNCHES_PROBE = dict(
     {k: 0 for k in WRAPPERS}, probe_affine=1, probe_stencil=1
@@ -426,9 +431,14 @@ def _sim1_inputs(rng, n, dev):
 
 
 def check_sim1(rng, n, dev, stats):
+    """K2 fed as the step feeds it: dm, pt, dz, w [6, 63, n, n] and pem,
+    pm, ws halo-padded (NaN in the halo), of which it reads the interior;
+    against the plain version on the interior.  Keyed by n, the width it
+    solves; its bound counts the interior bytes it must move."""
     args = _sim1_inputs(rng, n, dev)
+    padded = args[:4] + [_halo_padded(torch, a) for a in args[4:]]
     dt = 150.0
-    got = sim1_solver_cuda(dt, *args)
+    got = sim1_solver_cuda(dt, *padded, halo=H)
     want = riemann.sim1_solver(dt, *args)
     # tolerances of the JAX kernel test (test_pallas_kernels.py:151-162)
     errs = [
@@ -437,8 +447,8 @@ def check_sim1(rng, n, dev, stats):
         check_close(f"sim1 n={n} ppe", got[2], want[2], 1e-4,
                     float(want[2].abs().max()) * 1e-4),
     ]
-    record(stats, "sim1_solver", n + 2 * H, max(errs),
-           lambda: sim1_solver_cuda(dt, *args),
+    record(stats, "sim1_solver", n, max(errs),
+           lambda: sim1_solver_cuda(dt, *padded, halo=H),
            lambda: riemann.sim1_solver(dt, *args), args, got,
            OPS_SIM1_LEVEL * got[0].numel())
 
@@ -566,13 +576,13 @@ def check_remap(rng, n, dev, stats):
                 ops = (OPS_REMAP_LEVEL * q.numel()
                        + OPS_REMAP_TARGET * got.numel()
                        + OPS_REMAP_PAIR * overlap_pairs(pe1, pe2))
-                record(stats, "ppm_remap", n + 2 * H, 0.0,
+                record(stats, "ppm_remap", n, 0.0,
                        lambda: ppm_remap_cuda(*args),
                        lambda: remap.remap_levels_plain(*args),
                        args[:3], [got], ops)
         del q, pe1, pe2
         torch.cuda.empty_cache()
-    stats[("ppm_remap", n + 2 * H)]["max_abs_err"] = max(errs)
+    stats[("ppm_remap", n)]["max_abs_err"] = max(errs)
 
 
 def _multi5_inputs(rng, N, dev):
@@ -651,8 +661,8 @@ def phase_kernels():
 def report_kernels(stats):
     for (name, N), r in sorted(stats.items()):
         lib = r["library_ms"]
-        say(f"kernel {name:17s} N={N:3d} max_abs_err={r['max_abs_err']:.3e} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+        say(f"kernel {name:17s} width={N:3d} "
+            f"max_abs_err={r['max_abs_err']:.3e} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of it) host "
             f"{r['host_ms']:.4f} ms library "
@@ -1030,6 +1040,13 @@ def phase_coupled_path():
     return launches
 
 
+def width(name, n):
+    """The width a kernel's phase-3 numbers are keyed by on the C<n> path:
+    the interior n for the kernels that run on the interior columns (the
+    vertical solve and the remap), the padded n + 2H for the others."""
+    return n if name in INTERIOR else n + 2 * H
+
+
 def kernel_summary(stats, probe_launches, fused_launches,
                    coupled_launches):
     """The kernels' JSON entries: each kernel's launches from the path
@@ -1040,7 +1057,7 @@ def kernel_summary(stats, probe_launches, fused_launches,
                    fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
                    probe_affine=probe_launches["probe_affine"],
                    probe_stencil=probe_launches["probe_stencil"])
-    shape = dict({k: 54 for k in META}, fv_tp_2d_multi5=198,
+    shape = dict({k: width(k, 48) for k in META}, fv_tp_2d_multi5=198,
                  probe_affine=256, probe_stencil=256)
     kernels = []
     for name, (source, replaces) in META.items():
@@ -1053,12 +1070,13 @@ def kernel_summary(stats, probe_launches, fused_launches,
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "host_ms": r["host_ms"],
         })
-    for tag, launches, N in (("C48", LAUNCHES_PER_DT, 54),
-                             ("coupled C48", coupled_launches, 54),
-                             ("C192 fused", fused_launches, 198)):
+    for tag, launches, n in (("C48", LAUNCHES_PER_DT, 48),
+                             ("coupled C48", coupled_launches, 48),
+                             ("C192 fused", fused_launches, 192)):
         loss = {
-            k: round(n * (stats[(k, N)]["ms"] - stats[(k, N)]["bound_ms"]), 4)
-            for k, n in launches.items() if n and (k, N) in stats
+            k: round(c * (stats[(k, width(k, n))]["ms"]
+                          - stats[(k, width(k, n))]["bound_ms"]), 4)
+            for k, c in launches.items() if c and (k, width(k, n)) in stats
         }
         say(f"{tag}: launches x (kernel ms - bound ms) per step {loss}")
     return kernels

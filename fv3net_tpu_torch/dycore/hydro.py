@@ -427,8 +427,6 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
     # vertical acoustics: semi-implicit solve on the transported state
     # (Riem_Solver3 position in fv_dynamics), then the TRUE geopotential
     # from the solved layer heights
-    pe_int = pe_p[:, :, h : h + n, h : h + n]
-    pm_int = pm_p[:, :, h : h + n, h : h + n]
     dm_int = delp_new / GRAV
     if phis is not None:
         # terrain BC: ws = V . grad(z_s) from bottom-level C-winds
@@ -442,11 +440,11 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
             ucb * dzdx_f + _shx(ucb * dzdx_f, 1)
             + vcb * dzdy_f + _shy(vcb * dzdy_f, 1)
         )
-        ws = ws_full[:, h : h + n, h : h + n]
     else:
-        ws = torch.zeros_like(delp_new[:, 0])
+        ws_full = torch.zeros_like(dp_p[:, 0])
+    # pe, pm and ws padded: the solve reads their interior (no copy)
     w2, dz2, ppe = sim1_solve(
-        dt, dm_int, pt_new, dz_adv, w_adv, pe_int, pm_int, ws
+        dt, dm_int, pt_new, dz_adv, w_adv, pe_p, pm_p, ws_full, halo=h
     )
     dz_p = halo_exchange(dz2, h, fill="y")
     phi_lay = _geopotential(-GRAV * dz_p, phis_p)  # dphi positive downward

@@ -19,7 +19,8 @@ interface stiffness aa_k = 2 gamma dt^2 (p_if)/ (dz_{k-1}+dz_k), giving
 one bidiagonal solve for the provisional interface perturbation and one
 tridiagonal (Thomas) solve for w.  The plain form below loops over levels
 in Python with all columns batched per step; ``sim1_solve`` runs the CUDA
-kernel (ops/cuda_sim1.py, one thread per column) for CUDA tensors.
+kernel (ops/cuda_sim1.py, column slabs in shared memory) for CUDA
+tensors.
 
 Boundary conditions: p' = 0 at the model top (open); at the surface the
 material boundary condition w = ws (terrain-following surface vertical
@@ -52,17 +53,28 @@ def dz_from_pressure(dm, pt, p):
     return -(dm * RDGAS * pt / P00) * (p / P00) ** (-CV_AIR / CP_AIR)
 
 
-def sim1_solve(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05):
+def sim1_solve(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05,
+               halo: int = 0):
     """Dispatching front-end: the CUDA kernel for CUDA tensors, the
-    plain form below for CPU tensors."""
+    plain form below for CPU tensors.
+
+    dm, pt, dz, w are [6, nz, n, n]; pem, pm and ws may carry a halo of
+    `halo` cells around their n x n interior ([6, nz+1, N, N], [6, nz,
+    N, N], [6, N, N] with N = n + 2 halo), which is what the solve reads:
+    the kernel through the row stride N, without a copy.
+    """
     if dm.is_cuda:
         from ..ops.cuda_sim1 import sim1_solver_cuda
 
         return sim1_solver_cuda(
             dt, dm.contiguous(), pt.contiguous(), dz.contiguous(),
             w.contiguous(), pem.contiguous(), pm.contiguous(),
-            ws.contiguous(), p_fac=p_fac,
+            ws.contiguous(), p_fac=p_fac, halo=halo,
         )
+    if halo:
+        inner = slice(halo, -halo)
+        pem, pm = pem[..., inner, inner], pm[..., inner, inner]
+        ws = ws[..., inner, inner]
     return sim1_solver(dt, dm, pt, dz, w, pem, pm, ws, p_fac)
 
 

@@ -1,6 +1,8 @@
-"""Time the remap (K5), fused-transport (K6) and transport (K1) kernels
-and the del-4 filter (K3, as ``sw.scalar_filter`` calls it) alone at the
-C192 path's shapes, and compare their outputs with another checkout's.
+"""Time the remap (K5), fused-transport (K6) and transport (K1) kernels,
+the del-4 filter (K3, as ``sw.scalar_filter`` calls it), the vertical
+solve (K2) and the column pressures (K4) alone at the C192 path's shapes
+(K2 and K4 also at C48's), and compare their outputs with another
+checkout's.
 
 Run on the GPU machine from the repository root:
 
@@ -16,11 +18,16 @@ D stage's 16 fields of N = 198 x 63 at hord 5 (the step's) and hord 1
 (the same loads and tiles without the edge arithmetic); K1 on the same
 inputs' fields at N = 198 x 63, hord 5 and 1, with plain and with
 mass-weighted areas; ``sw.scalar_filter`` on q [6, 63, 192, 192] with
-seeded areas (chip_smoke.py's metrics).  Each call is timed by CUDA
-events, median of 20 after 3 warm-up calls.  The host time of the Python
-call alone (median of 20, not synchronised, the card kept busy) is taken
-for the K7 probe, K1 at N = 54 and K3 at n = 48, and for the pieces of
-the wrappers' shared call path.  --save writes the
+seeded areas (chip_smoke.py's metrics); K2 on chip_smoke.py's plausible
+columns at n = 192 and 48, the wrapper alone on the contiguous interior
+fields and ``riemann.sim1_solve`` as the step calls it (on the
+halo-padded pem, pm and ws with ``halo=3`` where the checkout's wrapper
+takes a halo, else on their interior views, which it copies); K4 on dp
+[6, 63, N, N] at N = 198 and 54.  Each call is timed by CUDA events,
+median of 20 after 3 warm-up calls.  The host time of the Python call
+alone (median of 20, not synchronised, the card kept busy) is taken for
+the K7 probe, K1 at N = 54, K3 at n = 48, K2 and K4 at the C48 shapes,
+and for the pieces of the wrappers' shared call path.  --save writes the
 outputs to FILE; --reference compares them with a FILE saved by another
 checkout (bit for bit, else the max abs difference).  Prints one JSON
 line with the card's name and power limit.  Running two checkouts in
@@ -30,6 +37,7 @@ turns in one call (A, B, B, A) compares them on one card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -41,6 +49,7 @@ import types
 import numpy as np
 
 NZ, N192 = 63, 192
+H, PTOP = 3, 300.0
 REMAP_VARIANTS = ((1, 9), (-1, 9), (0, 9), (1, 10), (1, 17))
 
 
@@ -90,6 +99,46 @@ def _multi5_inputs(rng, N):
     return [f.astype(np.float32) for f in fields] + [apx, apy]
 
 
+def _sim1_inputs(rng, n):
+    """chip_smoke.py's plausible columns for the vertical solve (dz < 0,
+    dm, pt > 0): dm, pt, dz, w [6, 63, n, n], pe [6, 64, n, n], pm, ws,
+    float32 (pm = dp / dln pe, dz hydrostatic at pm times 1 + 5% noise)."""
+    from fv3net_tpu_torch.constants import CP_AIR, CV_AIR, GRAV, RDGAS
+    from fv3net_tpu_torch.constants import REFERENCE_SURFACE_PRESSURE as P00
+
+    pe = np.sort(np.linspace(PTOP, 1.0e5, NZ + 1)[:, None, None]
+                 * (1.0 + 0.01 * rng.rand(6, NZ + 1, n, n)), axis=1)
+    delp = np.diff(pe, axis=1)
+    pt = np.clip(300.0 + 30.0 * rng.randn(6, NZ, n, n), 200.0, 400.0)
+    pm = delp / np.diff(np.log(pe), axis=1)
+    dm = delp / GRAV
+    dz = -(dm * RDGAS * pt / P00) * (pm / P00) ** (-CV_AIR / CP_AIR) * (
+        1.0 + 0.05 * rng.randn(6, NZ, n, n))
+    w = 2.0 * rng.randn(6, NZ, n, n)
+    ws = 0.5 * rng.randn(6, n, n)
+    return [a.astype(np.float32) for a in (dm, pt, dz, w, pe, pm, ws)]
+
+
+def _halo_padded(torch, a):
+    """a [..., n, n] inside a halo of H cells of NaN (the step's padded
+    fields around their interior)."""
+    out = torch.full((*a.shape[:-2], a.shape[-2] + 2 * H,
+                      a.shape[-1] + 2 * H), float("nan"), device=a.device)
+    out[..., H:-H, H:-H] = a
+    return out
+
+
+def _step_sim1_call(torch, riemann, args):
+    """riemann.sim1_solve as the step calls it: on the halo-padded pem, pm
+    and ws with halo=H where sim1_solve takes a halo, else on their
+    interior views."""
+    padded = [_halo_padded(torch, a) for a in args[4:]]
+    if "halo" in inspect.signature(riemann.sim1_solve).parameters:
+        return lambda: riemann.sim1_solve(150.0, *args[:4], *padded, halo=H)
+    views = [a[..., H:-H, H:-H] for a in padded]
+    return lambda: riemann.sim1_solve(150.0, *args[:4], *views)
+
+
 def _filter_inputs(torch, halo_exchange, rng, n):
     """sw.scalar_filter's metrics (seeded areas, their x- and y-fill
     exchanges; chip_smoke.py's check_filter) and q [6, 63, n, n]."""
@@ -120,8 +169,9 @@ def _host_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda):
-    """Host ms of three wrappers at the C48 path's shapes (K7 at its
+def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda,
+                step_sim1, column_pressures_cuda, dp):
+    """Host ms of five wrappers at the C48 path's shapes (K7 at its
     [256, 256]) and of the pieces of their shared call path."""
     x = torch.as_tensor(rng.randn(*probe.SHAPE).astype(np.float32),
                         device="cuda")
@@ -141,6 +191,9 @@ def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda):
                                          lambda: fv_tp_2d_cuda(*tp, 5)),
         "scalar_filter n=48": _host_ms(
             torch, lambda: sw.scalar_filter(q, m, sw.FILTER_COEF)),
+        "sim1_solve n=48 (the step's call)": _host_ms(torch, step_sim1),
+        "column_pressures_cuda N=54": _host_ms(
+            torch, lambda: column_pressures_cuda(dp, PTOP)),
         "_build.stream()": _host_ms(torch, _build.stream),
         "torch.empty [6, 63, 54, 54]": _host_ms(
             torch, lambda: torch.empty(sh, device="cuda")),
@@ -170,10 +223,12 @@ def main(argv=None):
     import torch
 
     from fv3net_tpu_torch import probe
-    from fv3net_tpu_torch.dycore import sw
+    from fv3net_tpu_torch.dycore import riemann, sw
     from fv3net_tpu_torch.grid import halo_exchange
     from fv3net_tpu_torch.ops import _build
+    from fv3net_tpu_torch.ops.cuda_column import column_pressures_cuda
     from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
+    from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
     from fv3net_tpu_torch.ops.cuda_tp import (fv_tp_2d_cuda,
                                               fv_tp_2d_multi5_cuda)
 
@@ -225,8 +280,25 @@ def main(argv=None):
     times[key] = _cuda_ms(torch, lambda: sw.scalar_filter(q, m,
                                                           sw.FILTER_COEF))
     del m, q
+    for n in (N192, 48):
+        cols = [torch.as_tensor(a, device="cuda")
+                for a in _sim1_inputs(rng, n)]
+        key = f"sim1_solver_cuda n={n} (contiguous interior)"
+        outs[key] = [o.cpu() for o in sim1_solver_cuda(150.0, *cols)]
+        times[key] = _cuda_ms(torch, lambda: sim1_solver_cuda(150.0, *cols))
+        step_sim1 = _step_sim1_call(torch, riemann, cols)
+        key = f"sim1_solve n={n} (the step's call)"
+        outs[key] = [o.cpu() for o in step_sim1()]
+        times[key] = _cuda_ms(torch, step_sim1)
+        N = n + 2 * H
+        dp = torch.as_tensor(
+            (900.0 + 200.0 * rng.rand(6, NZ, N, N)).astype(np.float32),
+            device="cuda")
+        key = f"column_pressures_cuda N={N}"
+        outs[key] = [o.cpu() for o in column_pressures_cuda(dp, PTOP)]
+        times[key] = _cuda_ms(torch, lambda: column_pressures_cuda(dp, PTOP))
     host = _host_times(torch, rng, probe, sw, halo_exchange, _build,
-                       fv_tp_2d_cuda)
+                       fv_tp_2d_cuda, step_sim1, column_pressures_cuda, dp)
     result = {"tag": args.tag, "root": root, "card": card, "ms": times,
               "host_ms": host}
     if reference:

@@ -40,7 +40,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 # argtypes of every C entry point in csrc/ (each returns an int error code)
 SIGNATURES = {
     "fv3_tp2d": [_P] * 8 + [_I] * 2 + [_P] * 2 + [_I] * 5 + [_P],
-    "fv3_sim1": [_P] * 12 + [_I] * 3 + [_F] * 6 + [_P],
+    "fv3_sim1": [_P] * 10 + [_I] * 4 + [_F] * 6 + [_P],
     "fv3_column": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
     "fv3_del4": [_P] * 6 + [_I] * 5 + [_F] + [_P],
     "fv3_remap": [_P] * 6 + [_I] * 7 + [_P],

@@ -17,9 +17,10 @@ three stages labelled in the traced steps).  Warms up one dt, then:
     sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
     the device-busy time per dt (sum of kernel times), hence the device
-    idle share, the number of kernel launches per dt, the kernels by
-    device time, and the host time of the dycore's stages (each stage
-    wrapped in a record_function label for the traced dts only).
+    idle share, the number of kernel launches per dt, the copies per dt
+    (torch's copy kernels and memcpy activities), the kernels by device
+    time, and the host time of the dycore's stages (each stage wrapped in
+    a record_function label for the traced dts only).
 Writes ``step_profile_c<n>[_fused|_coupled].json`` and ``.txt`` under
 --out and prints the JSON summary.
 """
@@ -186,6 +187,10 @@ def main(argv=None):
     # autograd's scatter-add transposes (index_put_ with accumulate)
     scatter = [(c, ms) for k, (c, ms) in by_kernel.items()
                if "indexing_backward" in k]
+    # copies: torch's copy kernels (.contiguous(), clone, copy_) and
+    # memcpy activities
+    copies = [(c, ms) for k, (c, ms) in by_kernel.items()
+              if "copy" in k.lower()]
     summary = {
         "config": f"C{N}x{NZ} dt_atmos={DT_ATMOS[N]} k_split=1 n_split=6 "
                   f"hord=5 kord=9 f32 fused_transport={args.fused}"
@@ -204,6 +209,8 @@ def main(argv=None):
         "indexing_backward_calls_per_dt":
             sum(c for c, _ in scatter) / traced_dts,
         "indexing_backward_ms_per_dt": sum(ms for _, ms in scatter),
+        "copy_ops_per_dt": sum(c for c, _ in copies) / traced_dts,
+        "copy_ms_per_dt": sum(ms for _, ms in copies),
         "top_kernels_ms_per_dt": sorted(
             ([k[:120], c / traced_dts, ms]
              for k, (c, ms) in by_kernel.items()),

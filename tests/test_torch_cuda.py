@@ -103,6 +103,65 @@ def test_sim1_kernel(dev):
                                atol=float(want[2].abs().max()) * 1e-4)
 
 
+@pytest.mark.parametrize("width", [12, 48])
+def test_sim1_kernel_padded(dev, width):
+    """K2 reading pem, pm and ws through their halo, as the step passes
+    them (NaN and garbage in the halo): one launch, within the JAX kernel
+    test's tolerance of the plain version on the interior, and bit for bit
+    the launch on contiguous interior copies (C12 and C48 widths: a ragged
+    last tile and tiles over two faces)."""
+    rng = np.random.RandomState(width)
+    nw = width
+    pe = np.sort(np.linspace(300.0, 1e5, NZ + 1)[:, None, None]
+                 * (1.0 + 0.01 * rng.rand(6, NZ + 1, nw, nw)), axis=1)
+    delp = pe[:, 1:] - pe[:, :-1]
+    pt = np.clip(300.0 + 30.0 * rng.randn(6, NZ, nw, nw), 200.0, 400.0)
+    tt = torch.as_tensor
+    pm = riemann.layer_mean_pressure(tt(delp), tt(pe)).numpy()
+    dz = riemann.hydrostatic_dz(tt(delp), tt(pt), tt(pe)).numpy()
+    inner = [_t(a, dev) for a in (delp / 9.80665, pt, dz,
+                                  2.0 * rng.randn(6, NZ, nw, nw), pe, pm,
+                                  0.5 * rng.randn(6, nw, nw))]
+
+    def pad(a):
+        out = 1e30 * torch.randn(*a.shape[:-2], nw + 2 * H, nw + 2 * H,
+                                 device=dev)
+        out[..., 0, :] = float("nan")
+        out[..., H : H + nw, H : H + nw] = a
+        return out
+
+    padded = inner[:4] + [pad(a) for a in inner[4:]]
+    launches = sim1_solver_cuda.launches
+    got = riemann.sim1_solve(150.0, *padded, halo=H)
+    assert sim1_solver_cuda.launches == launches + 1
+    for g, c in zip(got, sim1_solver_cuda(150.0, *inner)):
+        assert torch.equal(g, c)
+    want = riemann.sim1_solver(150.0, *inner)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4,
+                               atol=float(want[2].abs().max()) * 1e-4)
+
+
+@pytest.mark.parametrize("width", [18, 54, 198])
+def test_column_kernel_ragged_padded(dev, width):
+    """K4 on padded faces of the C12, C48 and C192 widths (6 N^2 columns
+    end in a ragged tile at each) with garbage and NaN halo-corner
+    columns: one launch, the JAX kernel test's tolerances elsewhere, NaN
+    where the plain version has NaN."""
+    rng = np.random.RandomState(width)
+    dp = _t(900.0 + 200.0 * rng.rand(6, NZ, width, width), dev)
+    dp[:, :, 0, 0] = -1e6
+    dp[:, :, 0, -1] = float("nan")
+    launches = cuda_column.column_pressures_cuda.launches
+    got = cuda_column.column_pressures(dp, 300.0)
+    assert cuda_column.column_pressures_cuda.launches == launches + 1
+    want = cuda_column.column_pressures_plain(dp, 300.0)
+    for g, w, rtol in zip(got, want, (1e-6, 1e-5, 1e-5)):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=0.0,
+                                   equal_nan=True)
+
+
 def test_filter_and_column_kernels(dev):
     rng = np.random.RandomState(1)
     area = _t(1.0 + 0.1 * rng.rand(6, n, n), dev)
