@@ -58,19 +58,40 @@ Phases (any failure raises and the script exits non-zero):
      years per day (CUDA events), ms per stage (dynamics, physics,
      postphysics), finite state, mass gates of each stage and the ML
      fill fractions.
+ 10. hydrostatic parity: one hydrostatic dt (no w, delz) at C12 x 63 f32
+     with seeded phis on the card against the CPU in f32 and float64 by
+     phase 4's rule, with its launch counts; and one eager wrapper step
+     (step_dynamics ... apply_physics) from a seeded moist state with
+     smooth winds, on the card in f32 against the CPU in f32 and float64,
+     with the simple suite and with do_held_suarez=True and the "none"
+     suite.
+ 11. prognostic run: ``runtime.cli.main(["run-native", cfg, rundir])``
+     on the card in a temporary directory, the default model (C48 x 63
+     hydrostatic, simple suite, f32, dt_atmos 900, n_split 6) for
+     PROGNOSTIC_STEPS steps with a water_vapor_path diagnostic every
+     step, then ``append`` again from segment 0's RESTART: launches of
+     K1-K6 in each step, ms per step (mainloop) and per substep from the
+     loop's Timer with a synchronisation before each read, finite state,
+     dry mass across each step_dynamics, the restart round trip, the
+     model time and the segments' files.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path and on the coupled C48 path, K6 on the C192 path.  Each
-kernel's JSON entry holds its launches and its phase-3 numbers at the
-shapes of the path its launches come from (K1-K5 C48, K6 C192, K7/K8
-[256, 256]).  The last two lines are the kernels' JSON summary and
-{"ok": true, "device": {...}}.
+C48 main path and on the coupled C48 path, K6 on the C192 path, K1, K3
+and K5 on the prognostic path.  Each kernel's JSON entry holds its
+launches (from the coupled C48 path for K1-K5, the C192 path for K6, the
+probe path for K7/K8; each path's in ``launches_by_path``) and its
+phase-3 numbers at the shapes of the path its launches come from (K1-K5
+C48, K6 C192, K7/K8 [256, 256]).  The last two lines are the kernels'
+JSON summary and {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import datetime
 import json
 import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 import types
 
@@ -90,7 +111,8 @@ from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
 from fv3net_tpu_torch.physics import gfs
-from fv3net_tpu_torch.runtime import compiled_loop, coupled_bench
+from fv3net_tpu_torch.runtime import cli, compiled_loop, coupled_bench
+from fv3net_tpu_torch.runtime import segmented_run, timing
 
 H, NZ, DT_ATMOS, PTOP = 3, 63, 900.0, 300.0
 DT_C192 = 225.0  # bench.py rung 2
@@ -161,6 +183,20 @@ FUSED_RTOL = 1e-6  # K6 vs five K1 calls: max|diff| <= FUSED_RTOL * max|K1|
 # ... on the coupled path: the dycore's launches with two tracers (the
 # wrapper's specific humidity and cloud water), so one more transport
 LAUNCHES_COUPLED = dict(LAUNCHES_PER_DT, fv_tp_2d=32)
+# ... on the prognostic path (hydrostatic, two tracers): per dt three
+# transports a substep (delp, pt, vorticity) and one a tracer, two
+# filters a substep, and four remaps (pt, u, v, the tracer stack); no
+# vertical solve, column chain or fused transport
+LAUNCHES_PROGNOSTIC = dict(
+    LAUNCHES_PER_DT, fv_tp_2d=20, sim1_solver=0, del4_filter=12,
+    column_pressures=0, ppm_remap=4,
+)
+# ... and with one tracer (phase 10's hydrostatic dt)
+LAUNCHES_HYDRO_1TR = dict(LAUNCHES_PROGNOSTIC, fv_tp_2d=19)
+PROGNOSTIC_STEPS = 3  # steps of each segment of phase 11
+# restart round trip: T is stored as computed from pt and converts back
+# through the layer Exner function and (1 + zvir q): four f32 roundings
+T_ULPS = 4
 # exchange transposes against autograd's: each adjoint entry is a sum of
 # up to 5 signed O(1) cotangents, added in another order
 TRANSPOSE_RTOL, TRANSPOSE_ATOL = 1e-6, 1e-5
@@ -679,10 +715,10 @@ def stepper(g, device, dtype=torch.float32, dt_atmos=DT_ATMOS):
     )
 
 
-def compare_states(tag, got, plain32, ref64):
+def compare_states(tag, got, plain32, ref64, fields=None):
     """Per field: the CUDA f32 state against the plain f32 CPU state and
     both against the float64 CPU state (see F32_FACTOR)."""
-    for k in got._fields:
+    for k in fields or got._fields:
         a, p, r = (
             getattr(s, k).double().cpu() for s in (got, plain32, ref64)
         )
@@ -1040,6 +1076,291 @@ def phase_coupled_path():
     return launches
 
 
+# --- phases 10 and 11 -------------------------------------------------------
+
+
+def phase_hydrostatic_parity():
+    """One hydrostatic C12 dt on the card against the CPU (f32, f64), and
+    one eager wrapper step of the simple and the Held-Suarez suites
+    (module docstring, 10)."""
+    n = 12
+    g = CubedSphereGrid.make(n, halo=H)
+    st = benchmark_state(n, NZ, PTOP, "cpu")._replace(w=None, delz=None)
+    phis = 2000.0 * torch.as_tensor(
+        np.abs(np.random.RandomState(4).randn(6, n, n)))
+    out = []
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                          ("cuda", torch.float32)):
+        run, _, _ = stepper(g, device, dtype)
+        reset_counts()
+        out.append(run(type(st)(*(None if x is None else
+                                  x.to(device=device, dtype=dtype)
+                                  for x in st)),
+                       phis.to(device=device, dtype=dtype), 1))
+    torch.cuda.synchronize()
+    check_counts("C12x63 hydrostatic one dt", read_counts(),
+                 LAUNCHES_HYDRO_1TR)
+    ref64, plain32, got = out
+    if got.w is not None or got.delz is not None:
+        raise AssertionError("hydrostatic dt returned w or delz")
+    compare_states("C12x63 hydrostatic", got, plain32, ref64,
+                   fields=("delp", "pt", "u", "v", "q"))
+    inputs = moist_inputs(n)
+    for kw in ({}, {"do_held_suarez": True, "physics_suite": "none"}):
+        steps = [wrapper_step(n, device, dtype, kw, inputs)
+                 for device, dtype in
+                 (("cpu", "float64"), ("cpu", "float32"),
+                  ("cuda", "float32"))]
+        tag = "C12x63 eager " + ("held_suarez" if kw else "simple")
+        ref64, plain32, got = steps
+        if not kw and not float(ref64["total_precip"].max()) > 0.0:
+            raise AssertionError(f"{tag}: the saturation adjustment did "
+                                 f"not rain")
+        for k in ref64:
+            a, p, r = got[k], plain32[k], ref64[k]
+            scale = float(r.abs().max())
+            e_cuda = float((a - r).abs().max())
+            e_plain = float((p - r).abs().max())
+            say(f"{tag} {k:12s} max|f64| {scale:.3e} max|cuda-f64| "
+                f"{e_cuda:.3e} max|cpu32-f64| {e_plain:.3e}")
+            bound = F32_FACTOR * e_plain + 1e-7 * scale
+            if not bool(torch.isfinite(a).all()) or e_cuda > bound:
+                raise AssertionError(f"{tag} {k}: {e_cuda:.3e} > "
+                                     f"{bound:.3e}")
+
+
+def smooth_wind(shape, phase):
+    """A smooth D-grid wind of 5 m/s amplitude varying by level and face.
+    (White-noise winds put a hord-5 limiter on a branch point: on the CPU
+    alone, a 1-ulp change of the initial T, as the card's powf gives in
+    the T -> pt conversion, moves u after one step by up to 2.9e-3 m/s,
+    5x the f32-f64 difference, which phase 4's rule cannot hold; and so
+    does humidity clipped flat at its cap, below.)"""
+    f, nz, ny, nx = shape
+    y = np.linspace(0.0, 2.0 * np.pi, ny)[:, None]
+    x = np.linspace(0.0, 2.0 * np.pi, nx)[None, :]
+    lev = 0.1 * np.arange(nz)[:, None, None]
+    return np.stack([5.0 * np.sin(y + lev + face + phase) * np.cos(x)
+                     for face in range(f)])
+
+
+def moist_inputs(n):
+    """Seeded temperature noise, humidity at a seeded relative humidity
+    per column up to 10% supersaturated at the surface and smooth winds
+    of a few m/s on the wrapper's initial state at C<n> x 63, rounded to
+    f32: the same host arrays for every run of phase 10's wrapper step.
+    The relative humidity falls off aloft as (p / ps)^3, so the humidity
+    needs no cap:
+    clipped flat at 20 g/kg (as phase 8 does), its plateau puts the
+    tracer transport's limiter on a tie, where on the CPU alone a 1-ulp
+    change of the initial humidity, or of delp and pt, moves q after one
+    step by 2.0e-5-2.5e-5 at one cell, 30x the f32-f64 difference (the
+    card's step differs there by as much)."""
+    wrapper.initialize(
+        wrapper.ModelConfig(npx=n + 1, npz=NZ, dtype="float64"), device="cpu"
+    )
+    st = wrapper.get_state(["air_temperature", "x_wind", "y_wind"])
+    rng = np.random.RandomState(10)
+    t = st["air_temperature"].values + rng.randn(6, NZ, n, n)
+    _, p = gfs.pressure_fields(wrapper.get_model().state.delp, PTOP)
+    rh = rng.uniform(0.5, 1.1, size=(6, 1, n, n))
+    p = p.numpy()
+    q = rh * (p / p[:, -1:]) ** 3 * gfs.qsat(torch.as_tensor(t),
+                                            torch.as_tensor(p)).numpy()
+    new = {"air_temperature": t, "specific_humidity": q,
+           "x_wind": smooth_wind(st["x_wind"].shape, 0.0),
+           "y_wind": smooth_wind(st["y_wind"].shape, 1.0)}
+    return {k: st.get(k, st["air_temperature"]).with_data(
+        v.astype(np.float32)) for k, v in new.items()}
+
+
+def wrapper_step(n, device, dtype, config, inputs):
+    """One eager step through the wrapper's phases (step_dynamics ...
+    apply_physics) at C<n> x 63 from `inputs` (moist_inputs): the state
+    and total precipitation on the CPU in float64."""
+    wrapper.initialize(
+        wrapper.ModelConfig(npx=n + 1, npz=NZ, dtype=dtype, **config),
+        device=device,
+    )
+    wrapper.set_state(inputs)
+    for phase in (wrapper.step_dynamics, wrapper.step_pre_radiation,
+                  wrapper.step_radiation, wrapper.step_post_radiation_physics,
+                  wrapper.apply_physics):
+        phase()
+    mdl = wrapper.get_model()
+    out = {k: x.double().cpu() for k, x in mdl.state._asdict().items()
+           if x is not None}
+    out["total_precip"] = mdl.total_precip.double().cpu()
+    return out
+
+
+class SyncTimer(timing.Timer):
+    """The loop's Timer with a synchronisation before each clock read
+    (entry and exit), and the kernel launches of each step, read when
+    a "mainloop" block ends."""
+
+    instances = []
+
+    def __init__(self):
+        super().__init__()
+        self.launches = []
+        SyncTimer.instances.append(self)
+
+    @contextlib.contextmanager
+    def clock(self, name):
+        torch.cuda.synchronize()
+        if name == "mainloop":
+            reset_counts()
+        with super().clock(name):
+            yield
+            torch.cuda.synchronize()
+        if name == "mainloop":
+            self.launches.append(read_counts())
+
+
+def phase_prognostic_run():
+    """The eager prognostic run through the runfv3 CLI (module docstring,
+    11).  Returns the launches of one step."""
+    n = 48
+    config = {
+        "namelist": {"npx": n + 1, "npz": NZ, "dt_atmos": DT_ATMOS,
+                     "n_split": 6, "segment_steps": PROGNOSTIC_STEPS,
+                     "dtype": "float32"},
+        "diagnostics": [{"name": "diags.zarr",
+                         "variables": ["water_vapor_path"],
+                         "times": {"kind": "every"}}],
+    }
+    g = CubedSphereGrid.make(n, halo=H)
+    area = torch.as_tensor(np.asarray(g.area[g.interior]),
+                           dtype=torch.float64, device="cuda")
+    dry = []  # (before, after) float64 device sums around step_dynamics
+
+    def dry_mass_now():
+        st = wrapper.get_model().state
+        return (st.delp.double() * (1.0 - st.q[0].double())
+                * area[:, None]).sum()
+
+    def step_dynamics():
+        before = dry_mass_now()
+        wrapper._model.step_dynamics()
+        dry.append((before, dry_mass_now()))
+
+    restored = {}
+
+    def read_restart(wm, path):
+        real_read_restart(wm, path)
+        restored.update(wm.get_state(segmented_run.RESTART_NAMES + ["time"]))
+
+    real_read_restart = segmented_run.read_restart
+    patches = ((timing, "Timer", SyncTimer),
+               (wrapper, "step_dynamics", step_dynamics),
+               (segmented_run, "read_restart", read_restart))
+    originals = [getattr(mod, name) for mod, name, _ in patches]
+    SyncTimer.instances.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "fv3config.yml")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)  # JSON is YAML
+        rundir = os.path.join(tmp, "run")
+        try:
+            for mod, name, fn in patches:
+                setattr(mod, name, fn)
+            t0 = time.perf_counter()
+            if cli.main(["run-native", cfg_path, rundir]) != 0:
+                raise AssertionError("run-native failed")
+            say(f"C48x63 prognostic run-native ({PROGNOSTIC_STEPS} steps): "
+                f"{time.perf_counter() - t0:.1f} s")
+            written = wrapper.get_state(segmented_run.RESTART_NAMES
+                                        + ["time"])
+            t0 = time.perf_counter()
+            if cli.main(["append", rundir]) != 0:
+                raise AssertionError("append failed")
+            say(f"C48x63 prognostic append ({PROGNOSTIC_STEPS} steps): "
+                f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            for (mod, name, _), fn in zip(patches, originals):
+                setattr(mod, name, fn)
+        check_prognostic_files(rundir)
+    timers = SyncTimer.instances
+    if len(timers) != 2:
+        raise AssertionError(f"{len(timers)} TimeLoops, not 2")
+    launches = [c for tm in timers for c in tm.launches]
+    for i, c in enumerate(launches):
+        check_counts(f"C48x63 prognostic step {i}", c, LAUNCHES_PROGNOSTIC)
+    report_prognostic_times(timers)
+    mdl = wrapper.get_model()
+    for k, x in mdl.state._asdict().items():
+        if x is not None and not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"C48x63 prognostic: non-finite {k}")
+    if mdl.state.w is not None or not mdl.state.delp.is_cuda:
+        raise AssertionError("prognostic state: not hydrostatic on the card")
+    rel = [abs(float(a) / float(b) - 1.0) for b, a in dry]
+    say(f"C48x63 prognostic dry mass across step_dynamics: max relative "
+        f"change {max(rel):.3e} over {len(rel)} steps (bound {MASS_BOUND})")
+    if not max(rel) <= MASS_BOUND:
+        raise AssertionError(f"prognostic dry mass {max(rel):.3e}")
+    check_round_trip(written, restored)
+    t0 = datetime.datetime.fromisoformat(wrapper.ModelConfig().initial_time)
+    elapsed = (mdl.time - t0).total_seconds()
+    say(f"C48x63 prognostic model time advanced {elapsed:.0f} s "
+        f"({2 * PROGNOSTIC_STEPS} x {DT_ATMOS:.0f} s)")
+    if elapsed != 2 * PROGNOSTIC_STEPS * DT_ATMOS:
+        raise AssertionError(f"model time advanced {elapsed} s")
+    return launches[-1]
+
+
+def check_prognostic_files(rundir):
+    """Both segments wrote RESTART, diags.zarr (water_vapor_path, one
+    record a step, finite), scalars.jsonl and timing.json."""
+    from fv3net_tpu_torch.io.zarr_lite import ZarrLiteStore
+
+    for seg in ("0000", "0001"):
+        d = os.path.join(rundir, "artifacts", seg)
+        for name in ("RESTART", "diags.zarr", "scalars.jsonl", "timing.json"):
+            if not os.path.exists(os.path.join(d, name)):
+                raise AssertionError(f"segment {seg}: no {name}")
+        wvp = ZarrLiteStore(os.path.join(d, "diags.zarr")).read(
+            "water_vapor_path")
+        if wvp.shape != (PROGNOSTIC_STEPS, 6, 48, 48) or \
+                not np.isfinite(wvp).all():
+            raise AssertionError(f"segment {seg}: water_vapor_path "
+                                 f"{wvp.shape}")
+    say(f"C48x63 prognostic segments 0000 and 0001: RESTART, diags.zarr "
+        f"(water_vapor_path {PROGNOSTIC_STEPS} x [6, 48, 48], finite), "
+        f"scalars.jsonl, timing.json")
+
+
+def report_prognostic_times(timers):
+    """ms per step and per substep: the median over the steps after the
+    first of the run (each read after a synchronisation)."""
+    names = ["mainloop"] + [k for k in timers[0].times if k != "mainloop"]
+    for name in names:
+        samples = [1e3 * t for tm in timers for t in tm.times[name]][1:]
+        say(f"C48x63 prognostic {name:11s} ms {statistics.median(samples):.3f}"
+            f" (median of {len(samples)}: {[round(t, 3) for t in samples]})")
+
+
+def check_round_trip(written, restored):
+    """The state append read back from segment 0's RESTART against the
+    state run-native wrote there: seven fields bit for bit, T within
+    T_ULPS ulps of f32."""
+    if restored["time"] != written["time"]:
+        raise AssertionError("restart round trip: time differs")
+    for name in segmented_run.RESTART_NAMES:
+        a, b = restored[name].values, written[name].values
+        if name == "air_temperature":
+            ulps = float((np.abs(a.astype(np.float64) - b)
+                          / np.spacing(np.abs(b))).max())
+            say(f"restart round trip {name}: {ulps:.0f} ulps of f32 "
+                f"(bound {T_ULPS})")
+            if ulps > T_ULPS:
+                raise AssertionError(f"restart round trip T: {ulps} ulps")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"restart round trip: {name} differs")
+    say("restart round trip: delp, q, qc, u, v, tsfc, total_precip bit for "
+        "bit")
+
+
 def width(name, n):
     """The width a kernel's phase-3 numbers are keyed by on the C<n> path:
     the interior n for the kernels that run on the interior columns (the
@@ -1047,12 +1368,16 @@ def width(name, n):
     return n if name in INTERIOR else n + 2 * H
 
 
-def kernel_summary(stats, probe_launches, fused_launches,
-                   coupled_launches):
+def kernel_summary(stats, probe_launches, main_launches, fused_launches,
+                   coupled_launches, prognostic_launches):
     """The kernels' JSON entries: each kernel's launches from the path
     that runs it (K1-K5 from the coupled C48 path, K6 from the C192 path)
-    and its phase-3 numbers at that path's shapes (the probes at theirs);
-    prints launches x (time - bound) of each kernel on each path."""
+    beside its launches on every path, and its phase-3 numbers at that
+    path's shapes (the probes at theirs); prints launches x (time -
+    bound) of each kernel on each path."""
+    by_path = {"probe": probe_launches, "C48": main_launches,
+               "C192 fused": fused_launches, "coupled C48": coupled_launches,
+               "prognostic C48": prognostic_launches}
     counted = dict(coupled_launches,
                    fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
                    probe_affine=probe_launches["probe_affine"],
@@ -1069,10 +1394,12 @@ def kernel_summary(stats, probe_launches, fused_launches,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "host_ms": r["host_ms"],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
         })
-    for tag, launches, n in (("C48", LAUNCHES_PER_DT, 48),
+    for tag, launches, n in (("C48", main_launches, 48),
                              ("coupled C48", coupled_launches, 48),
-                             ("C192 fused", fused_launches, 192)):
+                             ("C192 fused", fused_launches, 192),
+                             ("prognostic C48", prognostic_launches, 48)):
         loss = {
             k: round(c * (stats[(k, width(k, n))]["ms"]
                           - stats[(k, width(k, n))]["bound_ms"]), 4)
@@ -1089,14 +1416,17 @@ def main():
     stats.update(phase_kernels())
     report_kernels(stats)
     phase_slice_parity()
-    phase_main_path()
+    main_launches = phase_main_path()
     fused_launches = phase_c192_path()
     phase_transposes()
     os.makedirs(os.path.dirname(DENSE_DIR), exist_ok=True)
     phase_coupled_parity()
     coupled_launches = phase_coupled_path()
-    kernels = kernel_summary(stats, probe_launches, fused_launches,
-                             coupled_launches)
+    phase_hydrostatic_parity()
+    prognostic_launches = phase_prognostic_run()
+    kernels = kernel_summary(stats, probe_launches, main_launches,
+                             fused_launches, coupled_launches,
+                             prognostic_launches)
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,13 +1,15 @@
-"""Nonhydrostatic FV3-style dynamical core: Lagrangian layers + remap.
+"""FV3-style dynamical core: Lagrangian layers + remap.
 
-Counterpart of the JAX package's ``dycore/hydro.py`` for the path its
-benchmark runs (``make_dycore_stepper`` with the c_sw/d_sw substep, the
-nonhydrostatic semi-implicit vertical solve, tracer transport and the
-conservative vertical remap), face level, in PyTorch.  The shallow-water
-machinery of sw.py is applied per Lagrangian layer with a theta-pi
-pressure-gradient force, n_split acoustic-style substeps, accumulated
-mass fluxes for tracer transport, and a conservative PPM vertical remap
-(ops.remap) back to the hybrid ak/bk coordinate every k_split step.
+Counterpart of the JAX package's ``dycore/hydro.py``
+(``make_dycore_stepper`` with the c_sw/d_sw substep, the hydrostatic
+branch or the nonhydrostatic semi-implicit vertical solve, tracer
+transport and the conservative vertical remap), face level, in PyTorch.
+A state without w and delz steps hydrostatically, one with them
+nonhydrostatically.  The shallow-water machinery of sw.py is applied per
+Lagrangian layer with a theta-pi pressure-gradient force, n_split
+acoustic-style substeps, accumulated mass fluxes for tracer transport,
+and a conservative PPM vertical remap (ops.remap) back to the hybrid
+ak/bk coordinate every k_split step.
 
 Prognostic state (all [6, nz, ...] with D-grid staggering):
     delp  [6, nz, n, n]     layer pressure thickness (Pa)
@@ -15,16 +17,19 @@ Prognostic state (all [6, nz, ...] with D-grid staggering):
     u     [6, nz, n+1, n]   covariant x-wind on x-edges
     v     [6, nz, n, n+1]
     q     [ntracer, 6, nz, n, n]  tracer mixing ratios (optional)
-    w     [6, nz, n, n]     vertical wind (m/s)
-    delz  [6, nz, n, n]     layer thickness (m, < 0)
+    w     [6, nz, n, n]     vertical wind (m/s; nonhydrostatic only)
+    delz  [6, nz, n, n]     layer thickness (m, < 0; nonhydrostatic only)
 
 On CUDA tensors the hand-written kernels run: the transports
-(ops/cuda_tp.py; the five D-stage transports as one fused kernel when
-``ops.advection.set_fused_transport(True)``), the vertical solve
-(ops/cuda_sim1.py), the del-4 filters (ops/cuda_filter.py), the column
-pressure chains (ops/cuda_column.py) and the vertical remap
-(ops/cuda_remap.py).  On CPU tensors every piece runs its plain torch
-form.
+(ops/cuda_tp.py; the five nonhydrostatic D-stage transports as one fused
+kernel when ``ops.advection.set_fused_transport(True)``), the vertical
+solve (ops/cuda_sim1.py), the del-4 filters (ops/cuda_filter.py), the
+nonhydrostatic column pressure chains (ops/cuda_column.py) and the
+vertical remap (ops/cuda_remap.py).  The hydrostatic branch runs K1
+(three transports a substep), K3 and K5 only: its pressure chains keep
+the interface Exner function, which K4 does not return, and take the
+plain form, as the JAX package's do.  On CPU tensors every piece runs
+its plain torch form.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from ..ops.advection import (
     ppm_flux,
     transports5,
 )
-from ..ops.cuda_column import column_pressures
+from ..ops.cuda_column import column_pressures, exner_chain
 from ..ops.remap import remap_levels
 from .riemann import hydrostatic_dz, sim1_solve
 from .sw import (
@@ -252,13 +257,17 @@ def _c_sw_half_3d(state: DycoreState, m: SWMetrics, dt2: float,
 
     # Exner + hydrostatic geopotential of the half-updated columns.  The
     # unused halo-corner columns of the padded delpc may hold garbage:
-    # the kernel branch (CUDA) guards the Exner power with pe >= 1e-30,
-    # the plain branch (CPU) does not -- both exactly as the JAX package's
-    # kernel and jnp branches
-    pe, pi_lay, _ = column_pressures(delpc, ptop)
-    if delpc.is_cuda:
-        pe = torch.clamp_min(pe, 1e-30)
-    pik = (pe / REFERENCE_SURFACE_PRESSURE) ** KAPPA
+    # the kernel branch (nonhydrostatic, CUDA) guards the Exner power with
+    # pe >= 1e-30, the plain branch does not -- both exactly as the JAX
+    # package's kernel and jnp branches.  The hydrostatic step takes the
+    # plain branch, as the JAX package does at C48 widths
+    if state.w is not None:
+        pe, pi_lay, _ = column_pressures(delpc, ptop)
+        if delpc.is_cuda:
+            pe = torch.clamp_min(pe, 1e-30)
+        pik = (pe / REFERENCE_SURFACE_PRESSURE) ** KAPPA
+    else:
+        _, pik, pi_lay = exner_chain(delpc, ptop)
     dphi = CP_AIR * ptc * (pik[:, 1:] - pik[:, :-1])
     phis_p = (
         halo_exchange(phis, m.halo, fill="x")[:, None]
@@ -321,23 +330,22 @@ def dyn_substep(state: DycoreState, m: SWMetrics, dt: float, ptop: float,
 
 def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
                   hord: int, d2_damp: float, phis, exch, adv):
-    """Flux-form update of `base` (the nonhydrostatic D stage).
+    """Flux-form update of `base` (the D stage).
 
     exch: the (up, vp, dpx, dpy, ptx, pty) halo exchanges of base's
     fields (shared with the C half-stage).  adv: the (uc, vc) padded
     time-centered advective C winds from the half-stage.
 
-    w is transported mass-weighted and delz volume-weighted alongside the
-    other prognostics, the semi-implicit Riemann solver (riemann.py)
-    advances the vertical acoustics, the geopotential in the wind update
-    comes from the TRUE layer heights (delz), and the winds get the
-    perturbation-pressure gradient -(1/rho) grad_s(p') on top of the
-    hydrostatic cp*theta*grad(pi) term.
+    Hydrostatic when base.w is None: delp, pt and the vorticity are
+    transported and the geopotential integrates cp*theta*d(pi) upward.
+    Otherwise nonhydrostatic: w is transported mass-weighted and delz
+    volume-weighted alongside the other prognostics, the semi-implicit
+    Riemann solver (riemann.py) advances the vertical acoustics, the
+    geopotential in the wind update comes from the TRUE layer heights
+    (delz), and the winds get the perturbation-pressure gradient
+    -(1/rho) grad_s(p') on top of the hydrostatic cp*theta*grad(pi) term.
     """
-    if base.w is None:
-        raise NotImplementedError(
-            "only the nonhydrostatic substep (state with w, delz) is ported"
-        )
+    nonhydro = base.w is not None
     h, n = m.halo, m.n
     u, v = base.u, base.v
     up, vp, dpx, dpy, ptx, pty = exch
@@ -361,19 +369,30 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
     sfx = uc * dt * m.sina_u[:, None]
     sfy = vc * dt * m.sina_v[:, None]
 
-    # the five transports (ops.advection.transports5): fused into one
-    # call when the switch is on (the JAX package's fused branch, without
-    # its 128-lane gate), else five fv_tp_2d calls
-    wx = halo_exchange(base.w, h, fill="x")
-    wy = halo_exchange(base.w, h, fill="y")
-    dzx = halo_exchange(base.delz, h, fill="x")
-    dzy = halo_exchange(base.delz, h, fill="y")
-    args = (dpx, dpy, ptx, pty, wx, wy, dzx, dzy, omega_x, omega_y, crx,
-            cry, xfx, yfx, sfx, sfy, m.area_px, m.area_py, hord)
-    (fx, fy, fxt, fyt, fxw, fyw, fxz, fyz, fxo, fyo) = (
-        fv_tp_2d_multi5(*args) if _fused5_enabled()
-        else transports5(fv_tp_2d, *args)
-    )
+    if nonhydro:
+        # the five transports (ops.advection.transports5): fused into one
+        # call when the switch is on (the JAX package's fused branch,
+        # without its 128-lane gate), else five fv_tp_2d calls
+        wx = halo_exchange(base.w, h, fill="x")
+        wy = halo_exchange(base.w, h, fill="y")
+        dzx = halo_exchange(base.delz, h, fill="x")
+        dzy = halo_exchange(base.delz, h, fill="y")
+        args = (dpx, dpy, ptx, pty, wx, wy, dzx, dzy, omega_x, omega_y, crx,
+                cry, xfx, yfx, sfx, sfy, m.area_px, m.area_py, hord)
+        (fx, fy, fxt, fyt, fxw, fyw, fxz, fyz, fxo, fyo) = (
+            fv_tp_2d_multi5(*args) if _fused5_enabled()
+            else transports5(fv_tp_2d, *args)
+        )
+    else:
+        # the three transports of the hydrostatic branch (the JAX
+        # package's hydro.py:423-438; it never fuses them): delp with the
+        # area fluxes, pt mass-weighted with the delp fluxes, vorticity
+        apx, apy = m.area_px[:, None], m.area_py[:, None]
+        fx, fy = fv_tp_2d(dpx, dpy, crx, cry, xfx, yfx, apx, apy, hord)
+        fxt, fyt = fv_tp_2d(ptx, pty, crx, cry, fx, fy, apx * dpx,
+                            apy * dpy, hord)
+        fxo, fyo = fv_tp_2d(omega_x, omega_y, crx, cry, sfx, sfy, apx, apy,
+                            hord)
 
     def flux_div(fx_, fy_):
         d = (fx_ - _shx(fx_, 1)) + (fy_ - _shy(fy_, 1))
@@ -384,12 +403,13 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
     pt_new = scalar_filter(
         base.pt * base.delp + flux_div(fxt, fyt), m, fc
     ) / delp_new
-    # w: mass-weighted (like pt); delz: volume-form with the area fluxes
-    # (conserves total volume)
-    w_adv = scalar_filter(
-        base.w * base.delp + flux_div(fxw, fyw), m, fc
-    ) / delp_new
-    dz_adv = scalar_filter(base.delz + flux_div(fxz, fyz), m, fc)
+    if nonhydro:
+        # w: mass-weighted (like pt); delz: volume-form with the area
+        # fluxes (conserves total volume)
+        w_adv = scalar_filter(
+            base.w * base.delp + flux_div(fxw, fyw), m, fc
+        ) / delp_new
+        dz_adv = scalar_filter(base.delz + flux_div(fxz, fyz), m, fc)
 
     # --- kinetic energy + PGF at corners ---------------------------------
     ub = 0.5 * (_shx(up, -1) + up)
@@ -418,36 +438,43 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
     # (forward-backward coupling), all on fill='y' padded fields
     dp_p = halo_exchange(delp_new, h, fill="y")
     pt_p = halo_exchange(pt_new, h, fill="y")
-    pe_p, pi_lay, pm_p = column_pressures(dp_p, ptop)
     phis_p = (
         halo_exchange(phis, h, fill="y")[:, None]
         if phis is not None
         else 0.0
     )
-    # vertical acoustics: semi-implicit solve on the transported state
-    # (Riem_Solver3 position in fv_dynamics), then the TRUE geopotential
-    # from the solved layer heights
-    dm_int = delp_new / GRAV
-    if phis is not None:
-        # terrain BC: ws = V . grad(z_s) from bottom-level C-winds
-        zs = phis / GRAV
-        zsx = halo_exchange(zs, h, fill="x")
-        zsy = halo_exchange(zs, h, fill="y")
-        dzdx_f = (zsx - _shx(zsx, -1)) / m.dxc_f
-        dzdy_f = (zsy - _shy(zsy, -1)) / m.dyc_f
-        ucb, vcb = uc[:, -1], vc[:, -1]
-        ws_full = 0.5 * (
-            ucb * dzdx_f + _shx(ucb * dzdx_f, 1)
-            + vcb * dzdy_f + _shy(vcb * dzdy_f, 1)
+    if nonhydro:
+        pe_p, pi_lay, pm_p = column_pressures(dp_p, ptop)
+        # vertical acoustics: semi-implicit solve on the transported state
+        # (Riem_Solver3 position in fv_dynamics), then the TRUE
+        # geopotential from the solved layer heights
+        dm_int = delp_new / GRAV
+        if phis is not None:
+            # terrain BC: ws = V . grad(z_s) from bottom-level C-winds
+            zs = phis / GRAV
+            zsx = halo_exchange(zs, h, fill="x")
+            zsy = halo_exchange(zs, h, fill="y")
+            dzdx_f = (zsx - _shx(zsx, -1)) / m.dxc_f
+            dzdy_f = (zsy - _shy(zsy, -1)) / m.dyc_f
+            ucb, vcb = uc[:, -1], vc[:, -1]
+            ws_full = 0.5 * (
+                ucb * dzdx_f + _shx(ucb * dzdx_f, 1)
+                + vcb * dzdy_f + _shy(vcb * dzdy_f, 1)
+            )
+        else:
+            ws_full = torch.zeros_like(dp_p[:, 0])
+        # pe, pm and ws padded: the solve reads their interior (no copy)
+        w2, dz2, ppe = sim1_solve(
+            dt, dm_int, pt_new, dz_adv, w_adv, pe_p, pm_p, ws_full, halo=h
         )
+        dz_p = halo_exchange(dz2, h, fill="y")
+        dphi = -GRAV * dz_p  # positive downward
     else:
-        ws_full = torch.zeros_like(dp_p[:, 0])
-    # pe, pm and ws padded: the solve reads their interior (no copy)
-    w2, dz2, ppe = sim1_solve(
-        dt, dm_int, pt_new, dz_adv, w_adv, pe_p, pm_p, ws_full, halo=h
-    )
-    dz_p = halo_exchange(dz2, h, fill="y")
-    phi_lay = _geopotential(-GRAV * dz_p, phis_p)  # dphi positive downward
+        # hydrostatic: the plain chain keeps the interface Exner function
+        # pik (K4 does not return it); integrate cp*theta*d(pi)
+        _, pik, pi_lay = exner_chain(dp_p, ptop)
+        dphi = CP_AIR * pt_p * (pik[:, 1:] - pik[:, :-1])
+    phi_lay = _geopotential(dphi, phis_p)
 
     phi_c = _vertex_fix_scalar_corner(
         _corner_avg(phi_lay), _vertex_cells(phi_lay, h, n), h, n
@@ -501,28 +528,32 @@ def _substep_core(base: DycoreState, m: SWMetrics, dt: float, ptop: float,
         - (dt / m.dy_v[:, None]) * (dkv + CP_AIR * pt_at_v * dpiv)
     )
 
-    # perturbation-pressure gradient -(1/rho) grad_s(p') (the
-    # nonhydrostatic part of the split PGF; nh_p_grad equivalent)
-    pp_lay = 0.5 * (ppe[:, :-1] + ppe[:, 1:])
-    alpha = -dz2 * GRAV / delp_new  # specific volume 1/rho
-    pp_y = halo_exchange(pp_lay, h, fill="y")
-    al_y = halo_exchange(alpha, h, fill="y")
-    pp_c = _vertex_fix_scalar_corner(
-        _corner_avg(pp_y), _vertex_cells(pp_y, h, n), h, n
-    )
-    u_new_p = u_new_p - (dt / m.dx_u[:, None]) * to_u(al_y) * (
-        pp_c[:, :, :, 1:] - pp_c[:, :, :, :-1]
-    )
-    v_new_p = v_new_p - (dt / m.dy_v[:, None]) * to_v(al_y) * (
-        pp_c[:, :, 1:, :] - pp_c[:, :, :-1, :]
-    )
+    if nonhydro:
+        # perturbation-pressure gradient -(1/rho) grad_s(p') (the
+        # nonhydrostatic part of the split PGF; nh_p_grad equivalent)
+        pp_lay = 0.5 * (ppe[:, :-1] + ppe[:, 1:])
+        alpha = -dz2 * GRAV / delp_new  # specific volume 1/rho
+        pp_y = halo_exchange(pp_lay, h, fill="y")
+        al_y = halo_exchange(alpha, h, fill="y")
+        pp_c = _vertex_fix_scalar_corner(
+            _corner_avg(pp_y), _vertex_cells(pp_y, h, n), h, n
+        )
+        u_new_p = u_new_p - (dt / m.dx_u[:, None]) * to_u(al_y) * (
+            pp_c[:, :, :, 1:] - pp_c[:, :, :, :-1]
+        )
+        v_new_p = v_new_p - (dt / m.dy_v[:, None]) * to_v(al_y) * (
+            pp_c[:, :, 1:, :] - pp_c[:, :, :-1, :]
+        )
 
     u_new = u + u_new_p[:, :, h : h + n + 1, h : h + n] + du_damp
     v_new = v + v_new_p[:, :, h : h + n, h : h + n + 1] + dv_damp
     # re-impose single-valuedness of shared boundary D-edges
     u_new, v_new = average_dgrid_boundary(u_new, v_new)
 
-    new = DycoreState(delp_new, pt_new, u_new, v_new, base.q, w2, dz2)
+    new = DycoreState(
+        delp_new, pt_new, u_new, v_new, base.q,
+        w2 if nonhydro else None, dz2 if nonhydro else None,
+    )
     return new, (fx, fy, crx, cry)
 
 
@@ -532,7 +563,8 @@ def remap_step(state: DycoreState, ak, bk, ptop, kord_tm=9, kord_mt=9,
 
     Every field is remapped on its native [6, nz, Y, X] layout by
     ``ops.remap.remap_levels`` (the K5 kernel for CUDA tensors whose
-    kord it covers); the tracers go as one [ntracer * 6, nz, n, n] stack.
+    kord it covers); the tracers go as one [ntracer * 6, nz, n, n] stack;
+    w and delz only where the state carries them.
     """
     delp, pt, u, v, q, w, delz = state
     pe1 = _interface_pressures(delp, ptop)  # source interface pressures
@@ -560,11 +592,14 @@ def remap_step(state: DycoreState, ak, bk, ptop, kord_tm=9, kord_mt=9,
         rmp(q.flatten(0, 1), pe1, pe2, 0, kord_tr).reshape(q.shape)
         if q is not None else None
     )
-    # w like a wind (kord_wz), delz via the specific volume -dz/dp
-    # (mass-weighted, so total column height is conserved)
-    w_new = rmp(w, pe1, pe2, -1, kord_wz)
-    sv_new = rmp(-delz / delp, pe1, pe2, 1, kord_wz)
-    delz_new = -sv_new * delp_new
+    if w is not None:
+        # w like a wind (kord_wz), delz via the specific volume -dz/dp
+        # (mass-weighted, so total column height is conserved)
+        w_new = rmp(w, pe1, pe2, -1, kord_wz)
+        sv_new = rmp(-delz / delp, pe1, pe2, 1, kord_wz)
+        delz_new = -sv_new * delp_new
+    else:
+        w_new, delz_new = None, None
     return DycoreState(
         delp_new, pt_new, u_new, v_new, q_new, w_new, delz_new
     )

@@ -28,6 +28,15 @@ def column_pressures(dp, ptop: float):
 
 def column_pressures_plain(dp, ptop: float):
     """The plain torch chain (any device)."""
+    pe, _, pi_lay = exner_chain(dp, ptop)
+    return pe, pi_lay, layer_mean_pressure(dp, pe)
+
+
+def exner_chain(dp, ptop: float):
+    """(pe, pik, pi_lay): interface pressures, the interface Exner
+    function and the hydrostatically consistent layer-mean Exner function
+    pi = (pik+ pe+ - pik- pe-) / ((1 + kappa) dp), in plain torch (the
+    hydrostatic dycore's chain, which needs pik)."""
     pe = ptop + torch.cat(
         [torch.zeros_like(dp[:, :1]), torch.cumsum(dp, dim=1)], dim=1
     )
@@ -35,7 +44,7 @@ def column_pressures_plain(dp, ptop: float):
     pi_lay = (
         pik[:, 1:] * pe[:, 1:] - pik[:, :-1] * pe[:, :-1]
     ) / ((1.0 + KAPPA) * dp)
-    return pe, pi_lay, layer_mean_pressure(dp, pe)
+    return pe, pik, pi_lay
 
 
 def column_pressures_cuda(dp, ptop: float):

@@ -1,10 +1,12 @@
-"""Where the time of one C48 (or C192) x 63 dycore dt, or of one coupled
-C48 step, goes on the GPU.
+"""Where the time of one C48 (or C192) x 63 dycore dt, of one coupled
+C48 step, or of one step of the eager prognostic run at C48, goes on the
+GPU.
 
 Run on the GPU machine from the repository root:
 
     python -m fv3net_tpu_torch.step_profile [--n 48|192] [--fused]
-                                            [--coupled] [--out DIR]
+                                            [--coupled | --prognostic]
+                                            [--out DIR]
 
 Builds the benchmark configuration (bench.py ``_build_config``: C<n> x 63,
 k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
@@ -12,7 +14,10 @@ k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
 (``ops.advection.set_fused_transport``) on if --fused; or with --coupled
 the coupled step of bench.py rung 3 (``runtime.coupled_bench``: the
 dycore + radiation + GFS physics + dense ML corrector, C48 only, its
-three stages labelled in the traced steps).  Warms up one dt, then:
+three stages labelled in the traced steps); or with --prognostic one
+step of the eager TimeLoop over the wrapper's phases (the default model:
+hydrostatic C48 x 63, simple suite, f32, from the wrapper's initial
+state; C48 only, its substeps labelled).  Warms up one dt, then:
   * times 5 dts with the host clock (synchronized), the step time a user
     sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
@@ -21,7 +26,8 @@ three stages labelled in the traced steps).  Warms up one dt, then:
     (torch's copy kernels and memcpy activities), the kernels by device
     time, and the host time of the dycore's stages (each stage wrapped in
     a record_function label for the traced dts only).
-Writes ``step_profile_c<n>[_fused|_coupled].json`` and ``.txt`` under
+Writes ``step_profile_c<n>[_fused|_coupled|_prognostic].json`` and
+``.txt`` under
 --out and prints the JSON summary.
 """
 
@@ -37,10 +43,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from . import wrapper
 from .dycore import hydro
 from .grid import CubedSphereGrid
 from .ops import advection
-from .runtime import compiled_loop, coupled_bench
+from .runtime import compiled_loop, coupled_bench, derived_state, loop
 
 NZ, PTOP = 63, 300.0
 DT_ATMOS = {48: 900.0, 192: 225.0}
@@ -110,6 +117,26 @@ def _coupled_steps(N, out):
     return loop.step, traced_step
 
 
+def _prognostic_steps(N):
+    """(step, traced step) of the eager prognostic run: one TimeLoop step
+    of the default model (hydrostatic, simple suite, f32) at C<N> x 63,
+    its substeps labelled."""
+    wrapper.initialize(wrapper.ModelConfig(npx=N + 1, npz=NZ), device="cuda")
+    tl = loop.TimeLoop(
+        wrapper, derived_state.DerivedModelState(wrapper),
+        wrapper.get_model().config.dt_atmos,
+    )
+    for name in ("_compute_column_integrated_tracers", "_step_dynamics",
+                 "_step_prephysics", "_step_physics", "_step_postphysics"):
+        setattr(tl, name, _labelled(f"prognostic{name}", getattr(tl, name)))
+    steps = iter(tl)
+
+    def step():
+        next(steps)
+
+    return step, step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=48, choices=sorted(DT_ATMOS))
@@ -117,6 +144,8 @@ def main(argv=None):
                     help="fused 5-field transport on")
     ap.add_argument("--coupled", action="store_true",
                     help="the coupled step of bench.py rung 3 (C48)")
+    ap.add_argument("--prognostic", action="store_true",
+                    help="one step of the eager prognostic run (C48)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     N = args.n
@@ -124,6 +153,9 @@ def main(argv=None):
         raise RuntimeError("step_profile needs a CUDA device")
     if args.coupled and (N != 48 or args.fused):
         raise ValueError("--coupled runs bench.py rung 3: C48, unfused")
+    if args.prognostic and (N != 48 or args.fused or args.coupled):
+        raise ValueError("--prognostic runs the default model: C48, "
+                         "hydrostatic, unfused")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -132,6 +164,7 @@ def main(argv=None):
 
     step, traced_step = (
         _coupled_steps(N, args.out) if args.coupled
+        else _prognostic_steps(N) if args.prognostic
         else _dycore_steps(N, args.fused)
     )
     step()  # warm-up
@@ -194,7 +227,9 @@ def main(argv=None):
     summary = {
         "config": f"C{N}x{NZ} dt_atmos={DT_ATMOS[N]} k_split=1 n_split=6 "
                   f"hord=5 kord=9 f32 fused_transport={args.fused}"
-                  + (" coupled (bench.py rung 3)" if args.coupled else ""),
+                  + (" coupled (bench.py rung 3)" if args.coupled else "")
+                  + (" prognostic (eager TimeLoop, hydrostatic, simple "
+                     "suite)" if args.prognostic else ""),
         "card": card,
         "host_ms_per_dt": host_ms,
         "host_ms_per_dt_median": host_med,
@@ -227,7 +262,8 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
     stem = os.path.join(
         args.out, f"step_profile_c{N}"
-        + ("_fused" if args.fused else "_coupled" if args.coupled else "")
+        + ("_fused" if args.fused else "_coupled" if args.coupled
+           else "_prognostic" if args.prognostic else "")
     )
     with open(stem + ".json", "w") as f:
         json.dump(summary, f, indent=1)

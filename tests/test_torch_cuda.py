@@ -14,6 +14,7 @@ from fv3net_tpu_torch.ops import advection, cuda_column, remap
 from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
+from fv3net_tpu_torch.util.quantity import Quantity
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +328,232 @@ def test_remap_kernel_merge_walk_cases(dev, case, iv, kord):
     assert bool(torch.isfinite(got).all())
     # the JAX kernel test's tolerance (test_pallas_kernels.py:228)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# --- the eager runtime on CUDA state ----------------------------------------
+# Traps the CPU tests cannot show: np.asarray of a CUDA tensor raises, and a
+# host array meets a CUDA tensor in the tendency arithmetic.
+
+
+def _moist_state(wrapper, seed):
+    """Seeded temperature noise, a warm boundary layer in a seeded share
+    of the columns and humidity at a seeded relative humidity up to 5%
+    supersaturated below and 30% of it aloft: moist enough that the GFS
+    suite's shallow-convection trigger fires in some columns (on the CPU
+    in float64 at C12 x 63: 102 of 864 columns after one step)."""
+    from fv3net_tpu_torch.physics import gfs
+
+    rng = np.random.RandomState(seed)
+    mdl = wrapper.get_model()
+    nz, nn = mdl.nz, mdl.n
+    st = wrapper.get_state(["air_temperature",
+                            "pressure_thickness_of_atmospheric_layer"])
+    t = st["air_temperature"].values + rng.randn(6, nz, nn, nn)
+    k = np.arange(nz)[None, :, None, None]
+    t = t + 10.0 * rng.uniform(0, 1, size=(6, 1, nn, nn)) * np.exp(
+        -(nz - 1 - k) / 4.0)
+    delp = st["pressure_thickness_of_atmospheric_layer"].values
+    p = np.cumsum(delp, axis=1) + mdl.config.ptop - 0.5 * delp
+    qs = gfs.qsat(torch.as_tensor(t), torch.as_tensor(p)).numpy()
+    rh = rng.uniform(0.5, 1.05, size=(6, 1, nn, nn)) * np.where(
+        k > nz - 12, 1.0, 0.3)
+    q = np.minimum(rh * qs, 0.02)
+    temp = st["air_temperature"]
+    wrapper.set_state({"specific_humidity": temp.with_data(q),
+                       "air_temperature": temp.with_data(t)})
+
+
+def _init_cuda(dev, **kw):
+    from fv3net_tpu_torch import wrapper
+
+    wrapper.initialize(wrapper.ModelConfig(npx=n + 1, npz=NZ, **kw),
+                       device=dev)
+    return wrapper
+
+
+class _ConstantTendency:
+    """Predictions as host arrays (numpy), as a simple model gives them."""
+
+    input_variables = ["air_temperature", "specific_humidity"]
+
+    def predict(self, state):
+        t = state["air_temperature"]
+        return {"dQ1": t.with_data(np.full(t.shape, 1e-5, np.float32)),
+                "dQ2": t.with_data(np.full(t.shape, -1e-8, np.float32))}
+
+
+@pytest.mark.parametrize("model", ["dense", "constant"])
+def test_time_loop_steppers_on_cuda_state(dev, tmp_path, model):
+    """Two TimeLoop steps on CUDA state with an SST prescriber
+    (prephysics), and an ML stepper (the port's dense model on the
+    device, or host-array predictions) combined with a nudger of x_wind
+    (host arrays) as postphysics: diagnostics stay on the card, the state
+    stays finite, the prescriber and the nudger take effect, and
+    postphysics conserves dry mass."""
+    from fv3net_tpu_torch import fit
+    from fv3net_tpu_torch.runtime import coupled_bench, derived_state, loop
+    from fv3net_tpu_torch.runtime import steppers
+
+    wrapper = _init_cuda(dev)
+    mdl = wrapper.get_model()
+    _moist_state(wrapper, seed=3)
+    state = derived_state.MergedState(derived_state.DerivedModelState(wrapper))
+    mask = (np.arange(6 * n * n).reshape(6, n, n) % 2).astype(float)
+    state.overlay["land_sea_mask"] = Quantity(mask, ("tile", "y", "x"))
+    sst = Quantity(np.full((6, n, n), 295.0), ("tile", "y", "x"))
+    target = state["x_wind"].values + 3.0
+    if model == "dense":
+        ml = fit.load(coupled_bench.write_dense_artifact(
+            str(tmp_path / "dense"), NZ))
+    else:
+        ml = _ConstantTendency()
+    post = steppers.CombinedStepper([
+        steppers.PureMLStepper(ml, dt=mdl.config.dt_atmos),
+        steppers.PureNudger(
+            steppers.NudgingConfig(timescale_hours={"x_wind": 1.0}),
+            lambda time: {"x_wind": Quantity(
+                target, ("tile", "z", "y_interface", "x"))},
+        ),
+    ])
+    pre = [steppers.Prescriber(
+        steppers.PrescriberConfig(variables=["surface_temperature"]),
+        lambda time: {"surface_temperature": sst},
+    )]
+    tl = loop.TimeLoop(wrapper, state, dt=mdl.config.dt_atmos,
+                       prephysics_steppers=pre, postphysics_stepper=post,
+                       n_steps=2)
+    for _, diags in tl:
+        for key in ("water_vapor_path",
+                    "tendency_of_air_temperature_due_to_python",
+                    "storage_of_mass_due_to_python", "dQ1_filled_frac"):
+            assert diags[key].data.is_cuda, key
+        assert float(diags["dQ1_filled_frac"].data) == 0.0
+    for k, x in mdl.state._asdict().items():
+        if x is not None:
+            assert x.is_cuda and bool(torch.isfinite(x).all()), k
+    np.testing.assert_array_equal(mdl.tsfc, np.where(mask == 0, 295.0, 288.0))
+    tend = diags["tendency_of_air_temperature_due_to_python"].values
+    assert np.isfinite(tend).all() and np.abs(tend).max() > 0.0
+    assert "x_wind_tendency_due_to_nudging" in diags
+    # the dry-mass-conserving humidity set (postphysics) holds the dry
+    # mass to float32 roundoff
+    dry = diags["storage_of_mass_due_to_python"].values
+    assert np.isfinite(dry).all()
+
+
+def test_wrapper_host_transforms_on_cuda_state(dev):
+    """set_state_mass_conserving with a CUDA and a host humidity,
+    transform_agrid_winds_to_dgrid_winds from CUDA quantities, and
+    get_state(surface_geopotential) of a CUDA phis: no host conversion
+    of a CUDA tensor raises, and each result equals the one from host
+    inputs."""
+    wrapper = _init_cuda(dev)
+    mdl = wrapper.get_model()
+    st = wrapper.get_state(["specific_humidity",
+                            "pressure_thickness_of_atmospheric_layer"])
+    q0 = st["specific_humidity"]
+    dp0 = st["pressure_thickness_of_atmospheric_layer"].values
+    q_new = np.full(q0.shape, 2e-3, np.float32)
+    out = []
+    for data in (torch.as_tensor(q_new, device=dev), q_new):
+        wrapper.set_state({"pressure_thickness_of_atmospheric_layer":
+                           Quantity(dp0, q0.dims), "specific_humidity":
+                           q0.with_data(np.zeros(q0.shape, np.float32))})
+        wrapper.set_state_mass_conserving(
+            {"specific_humidity": q0.with_data(data)})
+        assert mdl.state.delp.is_cuda and mdl.state.q.is_cuda
+        out.append(mdl.state.delp.cpu())
+        dry = float((mdl.state.delp.double() * (1 - mdl.state.q[0].double())
+                     ).sum())
+        assert dry == pytest.approx(float(dp0.astype(np.float64).sum()),
+                                    rel=1e-6)
+    assert torch.equal(out[0], out[1])
+    rng = np.random.RandomState(1)
+    ua, va = (rng.randn(6, NZ, n, n) for _ in range(2))
+    dims = ("tile", "z", "y", "x")
+    got = wrapper.transform_agrid_winds_to_dgrid_winds(
+        Quantity(torch.as_tensor(ua, device=dev), dims),
+        Quantity(torch.as_tensor(va, device=dev), dims))
+    want = wrapper.transform_agrid_winds_to_dgrid_winds(
+        Quantity(ua, dims), Quantity(va, dims))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.values, w.values)
+    wrapper.set_state({"x_wind": got[0], "y_wind": got[1]})
+    assert mdl.state.u.is_cuda
+    east = wrapper.get_state(["eastward_wind"])["eastward_wind"]
+    assert np.isfinite(east.values).all()
+    phis = torch.as_tensor(rng.rand(6, n, n) * 1e3, dtype=torch.float32,
+                           device=dev)
+    wrapper.set_state({"surface_geopotential": Quantity(
+        phis, ("tile", "y", "x"))})
+    geo = wrapper.get_state(["surface_geopotential"])["surface_geopotential"]
+    assert isinstance(geo.data, np.ndarray)
+    np.testing.assert_array_equal(geo.data, phis.cpu().numpy())
+
+
+def _gfs_step(device, dtype):
+    """One eager step (dynamics, radiation, GFS physics) from the seeded
+    moist state: the state, total precipitation and the shallow-
+    convection and PBL diagnostics, on the CPU in float64."""
+    from fv3net_tpu_torch import wrapper
+
+    wrapper.initialize(wrapper.ModelConfig(
+        npx=n + 1, npz=NZ, physics_suite="gfs", dtype=dtype), device=device)
+    _moist_state(wrapper, seed=10)
+    for phase in (wrapper.step_dynamics, wrapper.step_pre_radiation,
+                  wrapper.step_radiation, wrapper.step_post_radiation_physics,
+                  wrapper.apply_physics):
+        phase()
+    mdl = wrapper.get_model()
+    out = {k: x.double().cpu() for k, x in mdl.state._asdict().items()
+           if x is not None}
+    out["total_precip"] = mdl.total_precip.double().cpu()
+    diags = {k: torch.as_tensor(wrapper.get_diagnostic_by_name(k).values)
+             .double() for k in ("shallow_convection_active",
+                                 "planetary_boundary_layer_height",
+                                 "convective_precipitation")}
+    return out, diags
+
+
+def test_eager_gfs_step_on_card_fires_shallow_convection(dev):
+    """One eager GFS step on the card in float32 against the CPU in
+    float32 and float64 from the same seeded moist state, in which
+    shallow convection fires: the card's f32 state is as close to the f64
+    state as the CPU's f32 is (factor 3, chip_smoke.py's F32_FACTOR rule)
+    outside the columns in which a physics threshold decided differently
+    on the card and on the CPU in f32 (at most 1%)."""
+    got, gd = _gfs_step(dev, "float32")
+    plain, pd = _gfs_step("cpu", "float32")
+    ref, _ = _gfs_step("cpu", "float64")
+    active = int(gd["shallow_convection_active"].sum())
+    ncol = gd["shallow_convection_active"].numel()
+    print(f"shallow convection active in {active} of {ncol} columns on the "
+          f"card ({int(pd['shallow_convection_active'].sum())} on the CPU)")
+    assert active > 0
+    flips = (
+        (gd["shallow_convection_active"] != pd["shallow_convection_active"])
+        | ((gd["convective_precipitation"] > 0)
+           != (pd["convective_precipitation"] > 0))
+        | ((gd["planetary_boundary_layer_height"]
+            - pd["planetary_boundary_layer_height"]).abs() > 1.0)
+    )
+    assert int(flips.sum()) <= 0.01 * ncol
+    for k, r in ref.items():
+        keep = ~flips
+        if r.ndim == 4:
+            keep = keep[:, None]
+        if r.ndim == 5:
+            keep = keep[None, :, None]
+        if r.shape[-2] == n + 1:
+            keep = torch.nn.functional.pad(keep, (0, 0, 0, 1)) & \
+                torch.nn.functional.pad(keep, (0, 0, 1, 0))
+        if r.shape[-1] == n + 1:
+            keep = torch.nn.functional.pad(keep, (0, 1)) & \
+                torch.nn.functional.pad(keep, (1, 0))
+        keep = keep.expand(r.shape)
+        a, p, w = (torch.where(keep, x[k], 0.0) for x in (got, plain, ref))
+        assert bool(torch.isfinite(got[k]).all()), k
+        e_card = float((a - w).abs().max())
+        e_plain = float((p - w).abs().max())
+        assert e_card <= 3.0 * e_plain + 1e-7 * float(w.abs().max()), (
+            k, e_card, e_plain)

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from fv3net_tpu_torch import convert
+from fv3net_tpu_torch import convert, wrapper
 from fv3net_tpu_torch.device import default_device
 from fv3net_tpu_torch.dycore import hydro, sw
 from fv3net_tpu_torch.grid import CubedSphereGrid
+from fv3net_tpu_torch.runtime import cli, segmented_run
 
 torch.set_num_threads(1)
 
@@ -32,6 +33,12 @@ ENTRY_POINTS = {
     "SWMetrics.make": lambda: sw.SWMetrics.make(_grid()),
     "metrics_from_numpy": lambda: convert.metrics_from_numpy({}),
     "state_from_numpy": lambda: convert.state_from_numpy({}),
+    "initialize": lambda: wrapper.initialize(
+        wrapper.ModelConfig(npx=n + 1, npz=NZ)),
+    "append": lambda: segmented_run.append("no-such-run"),
+    "runfv3 append": lambda: cli.main(["append", "no-such-run"]),
+    "runfv3 run-native": lambda: cli.main(
+        ["run-native", "no-such-config.yml", "no-such-run"]),
 }
 
 
@@ -73,3 +80,28 @@ def test_explicit_cpu_runs_the_plain_path(monkeypatch):
     m2 = convert.metrics_from_numpy(arrays, "cpu")
     assert torch.equal(m2.area_px, m.area_px)
     assert m2.area_px.device.type == "cpu"
+
+
+def test_initialize_on_explicit_cpu_steps_every_phase(monkeypatch):
+    """wrapper.initialize(device="cpu") builds the default (hydrostatic,
+    simple suite) model on the CPU, and every phase of a step keeps it
+    there; the Held-Suarez configuration likewise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"do_held_suarez": True, "physics_suite": "none"}):
+        wrapper.initialize(
+            wrapper.ModelConfig(npx=n + 1, npz=NZ, dtype="float64", **kw),
+            device="cpu",
+        )
+        mdl = wrapper.get_model()
+        assert mdl.config.hydrostatic and mdl.state.w is None
+        for phase in (wrapper.step_dynamics, wrapper.step_pre_radiation,
+                      wrapper.step_radiation,
+                      wrapper.step_post_radiation_physics,
+                      wrapper.apply_physics):
+            phase()
+        for k, x in mdl.state._asdict().items():
+            if x is not None:
+                assert x.device.type == "cpu", k
+                assert bool(torch.isfinite(x).all()), k
+        assert mdl.total_precip.device.type == "cpu"
+        assert wrapper.get_step_count() == 1
