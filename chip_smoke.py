@@ -61,22 +61,27 @@ Phases (any failure raises and the script exits non-zero):
  10. hydrostatic parity: one hydrostatic dt (no w, delz) at C12 x 63 f32
      with seeded phis on the card against the CPU in f32 and float64 by
      phase 4's rule, with its launch counts; and one eager wrapper step
-     (step_dynamics ... apply_physics) from a seeded moist state with
-     smooth winds, on the card in f32 against the CPU in f32 and float64,
-     with the simple suite and with do_held_suarez=True and the "none"
-     suite.
+     (step_dynamics ... apply_physics, fv3net_tpu_torch.parity) with the
+     simple suite and with do_held_suarez=True and the "none" suite, on
+     the card in f32 against the CPU in f32 and float64, from two seeded
+     moist states: smooth winds and uncapped humidity by phase 4's rule;
+     white-noise winds and humidity clipped flat at 20 g/kg by the f32
+     spread (the CPU's f32 steps from 5 1-ulp perturbations of the
+     inputs as well, see F32_FACTOR).
  11. prognostic run: ``runtime.cli.main(["run-native", cfg, rundir])``
      on the card in a temporary directory, the default model (C48 x 63
      hydrostatic, simple suite, f32, dt_atmos 900, n_split 6) for
      PROGNOSTIC_STEPS steps with a water_vapor_path diagnostic every
      step, then ``append`` again from segment 0's RESTART: launches of
-     K1-K6 in each step, ms per step (mainloop) and per substep from the
-     loop's Timer with a synchronisation before each read, finite state,
+     K1-K6 in each step, ms per step (the whole iteration of append's
+     loop: the TimeLoop step, the diagnostics sinks, the metrics and the
+     scalar writes), per mainloop and per substep from the loop's Timer,
+     each clock read after a synchronisation, finite state,
      dry mass across each step_dynamics, the restart round trip, the
      model time and the segments' files.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path and on the coupled C48 path, K6 on the C192 path, K1, K3
-and K5 on the prognostic path.  Each kernel's JSON entry holds its
+C48 main path and on the coupled C48 path, K6 on the C192 path, K1, K3,
+K4 and K5 on the prognostic path.  Each kernel's JSON entry holds its
 launches (from the coupled C48 path for K1-K5, the C192 path for K6, the
 probe path for K7/K8; each path's in ``launches_by_path``) and its
 phase-3 numbers at the shapes of the path its launches come from (K1-K5
@@ -98,7 +103,7 @@ import types
 import numpy as np
 import torch
 
-from fv3net_tpu_torch import probe, wrapper
+from fv3net_tpu_torch import parity, probe, wrapper
 from fv3net_tpu_torch.constants import GRAV
 from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.dycore.hydro import benchmark_state, make_dycore_stepper
@@ -165,9 +170,14 @@ LAUNCHES_PROBE = dict(
 # cancelling terms, so one f32 dt differs from the float64 dt by ~1e-2 of
 # their magnitude on ANY device (CPU f32 vs f64 at C12x63: u 3.0e-3, w
 # 1.5e-2 relative).  The CUDA f32 step (kernels) must be as close to the
-# float64 CPU step as the plain f32 CPU step is, per field:
+# float64 CPU step as the plain f32 CPU step is, per field (F32_FACTOR):
 # max|cuda - f64| <= F32_FACTOR * max|cpu32 - f64| + 1e-7 * max|f64|
-F32_FACTOR = 3.0
+# (fv3net_tpu_torch.parity.f32_rule).  Where white-noise winds or
+# humidity clipped flat at a cap put a limiter on a tie, a 1-ulp input
+# change moves the CPU's own f32 step past that bound
+# (tests/test_torch_f32_spread.py); such inputs are held by the f32
+# spread: max|cpu32 - f64| taken over the CPU's f32 steps from the inputs
+# and from parity.SPREAD_RUNS 1-ulp perturbations of them (phase 10)
 MASS_BOUND = 1e-5  # |relative change of global dry mass| over the run
 # C192: one dt with the fused transport on against the same dt with it off,
 # on the card, per field: max|fused - unfused| <= FUSED_BOUND * max|field|.
@@ -185,11 +195,13 @@ FUSED_RTOL = 1e-6  # K6 vs five K1 calls: max|diff| <= FUSED_RTOL * max|K1|
 LAUNCHES_COUPLED = dict(LAUNCHES_PER_DT, fv_tp_2d=32)
 # ... on the prognostic path (hydrostatic, two tracers): per dt three
 # transports a substep (delp, pt, vorticity) and one a tracer, two
-# filters a substep, and four remaps (pt, u, v, the tracer stack); no
-# vertical solve, column chain or fused transport
+# filters a substep, one column chain a substep (the C-grid half-stage;
+# the substep core keeps the plain chain, which gives the interface
+# Exner function) and four remaps (pt, u, v, the tracer stack); no
+# vertical solve or fused transport
 LAUNCHES_PROGNOSTIC = dict(
     LAUNCHES_PER_DT, fv_tp_2d=20, sim1_solver=0, del4_filter=12,
-    column_pressures=0, ppm_remap=4,
+    column_pressures=6, ppm_remap=4,
 )
 # ... and with one tracer (phase 10's hydrostatic dt)
 LAUNCHES_HYDRO_1TR = dict(LAUNCHES_PROGNOSTIC, fv_tp_2d=19)
@@ -715,21 +727,24 @@ def stepper(g, device, dtype=torch.float32, dt_atmos=DT_ATMOS):
     )
 
 
-def compare_states(tag, got, plain32, ref64, fields=None):
+def compare_states(tag, got, plain32, ref64, fields=None, perturbed=()):
     """Per field: the CUDA f32 state against the plain f32 CPU state and
-    both against the float64 CPU state (see F32_FACTOR)."""
-    for k in fields or got._fields:
-        a, p, r = (
-            getattr(s, k).double().cpu() for s in (got, plain32, ref64)
-        )
-        scale = float(r.abs().max())
-        e_cuda = float((a - r).abs().max())
-        e_plain = float((p - r).abs().max())
+    both against the float64 CPU state (see F32_FACTOR); with
+    `perturbed` (the CPU's f32 steps from 1-ulp perturbations of the
+    inputs) against the worst of the CPU's f32 steps.  States are
+    NamedTuples or mappings of name -> tensor; `fields` defaults to
+    those of ref64."""
+    rule = parity.f32_rule(got, [plain32, *perturbed], ref64, fields)
+    a_all, p_all = parity.as_fields(got), parity.as_fields(plain32)
+    for k, (e_cuda, bound, scale, errs, finite) in rule.items():
+        gap = float((a_all[k].double().cpu() - p_all[k].double().cpu())
+                    .abs().max())
+        spread = (f" max|perturbed-f64| {max(errs[1:]):.3e}"
+                  if perturbed else "")
         say(f"{tag} {k:5s} max|f64| {scale:.3e} max|cuda-cpu32| "
-            f"{float((a - p).abs().max()):.3e} max|cuda-f64| {e_cuda:.3e} "
-            f"max|cpu32-f64| {e_plain:.3e}")
-        bound = F32_FACTOR * e_plain + 1e-7 * scale
-        if not bool(torch.isfinite(a).all()) or e_cuda > bound:
+            f"{gap:.3e} max|cuda-f64| {e_cuda:.3e} "
+            f"max|cpu32-f64| {errs[0]:.3e}{spread}")
+        if not finite or e_cuda > bound:
             raise AssertionError(f"{tag} {k}: {e_cuda:.3e} > {bound:.3e}")
 
 
@@ -982,18 +997,14 @@ def phase_coupled_parity():
         raise AssertionError(f"C12x63 coupled: {nflip} flipped columns")
     fields = dict(zip(got[0]._fields, zip(got[0], plain32[0], ref64[0])))
     fields["total_precip"] = (got[1], plain32[1], ref64[1])
+    masked = ({}, {}, {})
     for k, arrays in fields.items():
+        if not bool(torch.isfinite(arrays[0]).all()):
+            raise AssertionError(f"C12x63 coupled {k}: not finite")
         keep = ~_column_mask(flips, arrays[0])
-        a, p, r = (torch.where(keep, x, 0.0) for x in arrays)
-        scale = float(r.abs().max())
-        e_cuda = float((a - r).abs().max())
-        e_plain = float((p - r).abs().max())
-        say(f"C12x63 coupled {k:12s} max|f64| {scale:.3e} max|cuda-f64| "
-            f"{e_cuda:.3e} max|cpu32-f64| {e_plain:.3e}")
-        bound = F32_FACTOR * e_plain + 1e-7 * scale
-        if not bool(torch.isfinite(arrays[0]).all()) or e_cuda > bound:
-            raise AssertionError(f"C12x63 coupled {k}: {e_cuda:.3e} > "
-                                 f"{bound:.3e}")
+        for m, x in zip(masked, arrays):
+            m[k] = torch.where(keep, x, 0.0)
+    compare_states("C12x63 coupled", *masked)
 
 
 def global_sum(x, area):
@@ -1105,105 +1116,48 @@ def phase_hydrostatic_parity():
         raise AssertionError("hydrostatic dt returned w or delz")
     compare_states("C12x63 hydrostatic", got, plain32, ref64,
                    fields=("delp", "pt", "u", "v", "q"))
-    inputs = moist_inputs(n)
     for kw in ({}, {"do_held_suarez": True, "physics_suite": "none"}):
-        steps = [wrapper_step(n, device, dtype, kw, inputs)
-                 for device, dtype in
-                 (("cpu", "float64"), ("cpu", "float32"),
-                  ("cuda", "float32"))]
-        tag = "C12x63 eager " + ("held_suarez" if kw else "simple")
-        ref64, plain32, got = steps
-        if not kw and not float(ref64["total_precip"].max()) > 0.0:
-            raise AssertionError(f"{tag}: the saturation adjustment did "
-                                 f"not rain")
-        for k in ref64:
-            a, p, r = got[k], plain32[k], ref64[k]
-            scale = float(r.abs().max())
-            e_cuda = float((a - r).abs().max())
-            e_plain = float((p - r).abs().max())
-            say(f"{tag} {k:12s} max|f64| {scale:.3e} max|cuda-f64| "
-                f"{e_cuda:.3e} max|cpu32-f64| {e_plain:.3e}")
-            bound = F32_FACTOR * e_plain + 1e-7 * scale
-            if not bool(torch.isfinite(a).all()) or e_cuda > bound:
-                raise AssertionError(f"{tag} {k}: {e_cuda:.3e} > "
-                                     f"{bound:.3e}")
+        for noisy in (False, True):
+            eager_parity(n, kw, noisy)
 
 
-def smooth_wind(shape, phase):
-    """A smooth D-grid wind of 5 m/s amplitude varying by level and face.
-    (White-noise winds put a hord-5 limiter on a branch point: on the CPU
-    alone, a 1-ulp change of the initial T, as the card's powf gives in
-    the T -> pt conversion, moves u after one step by up to 2.9e-3 m/s,
-    5x the f32-f64 difference, which phase 4's rule cannot hold; and so
-    does humidity clipped flat at its cap, below.)"""
-    f, nz, ny, nx = shape
-    y = np.linspace(0.0, 2.0 * np.pi, ny)[:, None]
-    x = np.linspace(0.0, 2.0 * np.pi, nx)[None, :]
-    lev = 0.1 * np.arange(nz)[:, None, None]
-    return np.stack([5.0 * np.sin(y + lev + face + phase) * np.cos(x)
-                     for face in range(f)])
-
-
-def moist_inputs(n):
-    """Seeded temperature noise, humidity at a seeded relative humidity
-    per column up to 10% supersaturated at the surface and smooth winds
-    of a few m/s on the wrapper's initial state at C<n> x 63, rounded to
-    f32: the same host arrays for every run of phase 10's wrapper step.
-    The relative humidity falls off aloft as (p / ps)^3, so the humidity
-    needs no cap:
-    clipped flat at 20 g/kg (as phase 8 does), its plateau puts the
-    tracer transport's limiter on a tie, where on the CPU alone a 1-ulp
-    change of the initial humidity, or of delp and pt, moves q after one
-    step by 2.0e-5-2.5e-5 at one cell, 30x the f32-f64 difference (the
-    card's step differs there by as much)."""
-    wrapper.initialize(
-        wrapper.ModelConfig(npx=n + 1, npz=NZ, dtype="float64"), device="cpu"
+def eager_parity(n, config, noisy):
+    """One eager wrapper step at C<n> x 63 from parity.moist_inputs on
+    the card in f32 against the CPU in f32 and float64: smooth inputs by
+    phase 4's rule, noisy ones (white-noise winds, humidity clipped flat)
+    by the f32 spread of parity.SPREAD_RUNS 1-ulp perturbations
+    (F32_FACTOR)."""
+    inputs = parity.moist_inputs(n, NZ, noisy=noisy)
+    ref64, plain32, got = (
+        parity.wrapper_step(n, NZ, device, dtype, config, inputs)
+        for device, dtype in (("cpu", "float64"), ("cpu", "float32"),
+                              ("cuda", "float32"))
     )
-    st = wrapper.get_state(["air_temperature", "x_wind", "y_wind"])
-    rng = np.random.RandomState(10)
-    t = st["air_temperature"].values + rng.randn(6, NZ, n, n)
-    _, p = gfs.pressure_fields(wrapper.get_model().state.delp, PTOP)
-    rh = rng.uniform(0.5, 1.1, size=(6, 1, n, n))
-    p = p.numpy()
-    q = rh * (p / p[:, -1:]) ** 3 * gfs.qsat(torch.as_tensor(t),
-                                            torch.as_tensor(p)).numpy()
-    new = {"air_temperature": t, "specific_humidity": q,
-           "x_wind": smooth_wind(st["x_wind"].shape, 0.0),
-           "y_wind": smooth_wind(st["y_wind"].shape, 1.0)}
-    return {k: st.get(k, st["air_temperature"]).with_data(
-        v.astype(np.float32)) for k, v in new.items()}
-
-
-def wrapper_step(n, device, dtype, config, inputs):
-    """One eager step through the wrapper's phases (step_dynamics ...
-    apply_physics) at C<n> x 63 from `inputs` (moist_inputs): the state
-    and total precipitation on the CPU in float64."""
-    wrapper.initialize(
-        wrapper.ModelConfig(npx=n + 1, npz=NZ, dtype=dtype, **config),
-        device=device,
-    )
-    wrapper.set_state(inputs)
-    for phase in (wrapper.step_dynamics, wrapper.step_pre_radiation,
-                  wrapper.step_radiation, wrapper.step_post_radiation_physics,
-                  wrapper.apply_physics):
-        phase()
-    mdl = wrapper.get_model()
-    out = {k: x.double().cpu() for k, x in mdl.state._asdict().items()
-           if x is not None}
-    out["total_precip"] = mdl.total_precip.double().cpu()
-    return out
+    perturbed = [
+        parity.wrapper_step(n, NZ, "cpu", "float32", config,
+                            parity.perturb_ulp(inputs, seed))
+        for seed in range(parity.SPREAD_RUNS if noisy else 0)
+    ]
+    tag = (f"C12x63 eager {'held_suarez' if config else 'simple'} "
+           f"{'noisy' if noisy else 'smooth'}")
+    if not config and not float(ref64["total_precip"].max()) > 0.0:
+        raise AssertionError(f"{tag}: the saturation adjustment did not "
+                             f"rain")
+    compare_states(tag, got, plain32, ref64, perturbed=perturbed)
 
 
 class SyncTimer(timing.Timer):
     """The loop's Timer with a synchronisation before each clock read
-    (entry and exit), and the kernel launches of each step, read when
-    a "mainloop" block ends."""
+    (entry and exit), the host clock when each "mainloop" block starts,
+    and the kernel launches of each step, read when a "mainloop" block
+    ends."""
 
     instances = []
 
     def __init__(self):
         super().__init__()
         self.launches = []
+        self.starts = []
         SyncTimer.instances.append(self)
 
     @contextlib.contextmanager
@@ -1211,11 +1165,25 @@ class SyncTimer(timing.Timer):
         torch.cuda.synchronize()
         if name == "mainloop":
             reset_counts()
+            self.starts.append(time.perf_counter())
         with super().clock(name):
             yield
             torch.cuda.synchronize()
         if name == "mainloop":
             self.launches.append(read_counts())
+
+
+class SyncScalarSink(timing.ScalarSink):
+    """append's scalar sink, whose write ends each step's iteration (after
+    the diagnostics sinks and the metrics): the host clock after each
+    write, read after a synchronisation."""
+
+    ends = []
+
+    def write(self, step, time_, scalars):
+        super().write(step, time_, scalars)
+        torch.cuda.synchronize()
+        SyncScalarSink.ends.append(time.perf_counter())
 
 
 def phase_prognostic_run():
@@ -1253,10 +1221,12 @@ def phase_prognostic_run():
 
     real_read_restart = segmented_run.read_restart
     patches = ((timing, "Timer", SyncTimer),
+               (timing, "ScalarSink", SyncScalarSink),
                (wrapper, "step_dynamics", step_dynamics),
                (segmented_run, "read_restart", read_restart))
     originals = [getattr(mod, name) for mod, name, _ in patches]
     SyncTimer.instances.clear()
+    SyncScalarSink.ends.clear()
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path = os.path.join(tmp, "fv3config.yml")
         with open(cfg_path, "w") as f:
@@ -1332,10 +1302,23 @@ def check_prognostic_files(rundir):
 
 def report_prognostic_times(timers):
     """ms per step and per substep: the median over the steps after the
-    first of the run (each read after a synchronisation)."""
-    names = ["mainloop"] + [k for k in timers[0].times if k != "mainloop"]
-    for name in names:
-        samples = [1e3 * t for tm in timers for t in tm.times[name]][1:]
+    first of the run (each read after a synchronisation).  "step" is the
+    whole iteration of append's loop: from the start of the TimeLoop's
+    step to the end of its scalar write, the diagnostics sinks and the
+    metrics included; "after loop" is that iteration less mainloop."""
+    starts = [t for tm in timers for t in tm.starts]
+    ends = SyncScalarSink.ends
+    if len(ends) != len(starts):
+        raise AssertionError(f"{len(ends)} scalar writes, {len(starts)} "
+                             f"steps")
+    mainloop = [t for tm in timers for t in tm.times["mainloop"]]
+    step = [b - a for a, b in zip(starts, ends)]
+    series = {"step": step, "mainloop": mainloop,
+              "after loop": [s - m for s, m in zip(step, mainloop)]}
+    series.update({k: [t for tm in timers for t in tm.times[k]]
+                   for k in timers[0].times if k != "mainloop"})
+    for name, values in series.items():
+        samples = [1e3 * t for t in values][1:]
         say(f"C48x63 prognostic {name:11s} ms {statistics.median(samples):.3f}"
             f" (median of {len(samples)}: {[round(t, 3) for t in samples]})")
 

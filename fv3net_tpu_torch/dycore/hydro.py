@@ -255,19 +255,16 @@ def _c_sw_half_3d(state: DycoreState, m: SWMetrics, dt2: float,
     divt = (fxt - _shx(fxt, 1)) + (fyt - _shy(fyt, 1))
     ptc = (ptx * dpx + divt * rarea_p) / delpc
 
-    # Exner + hydrostatic geopotential of the half-updated columns.  The
+    # Exner + hydrostatic geopotential of the half-updated columns (K4 on
+    # CUDA, in both the hydrostatic and the nonhydrostatic step).  The
     # unused halo-corner columns of the padded delpc may hold garbage:
-    # the kernel branch (nonhydrostatic, CUDA) guards the Exner power with
-    # pe >= 1e-30, the plain branch does not -- both exactly as the JAX
-    # package's kernel and jnp branches.  The hydrostatic step takes the
-    # plain branch, as the JAX package does at C48 widths
-    if state.w is not None:
-        pe, pi_lay, _ = column_pressures(delpc, ptop)
-        if delpc.is_cuda:
-            pe = torch.clamp_min(pe, 1e-30)
-        pik = (pe / REFERENCE_SURFACE_PRESSURE) ** KAPPA
-    else:
-        _, pik, pi_lay = exner_chain(delpc, ptop)
+    # the kernel branch (CUDA) guards the Exner power with pe >= 1e-30,
+    # the plain branch does not -- both exactly as the JAX package's
+    # kernel and jnp branches
+    pe, pi_lay, _ = column_pressures(delpc, ptop)
+    if delpc.is_cuda:
+        pe = torch.clamp_min(pe, 1e-30)
+    pik = (pe / REFERENCE_SURFACE_PRESSURE) ** KAPPA
     dphi = CP_AIR * ptc * (pik[:, 1:] - pik[:, :-1])
     phis_p = (
         halo_exchange(phis, m.halo, fill="x")[:, None]

@@ -71,22 +71,37 @@ def test_hydrostatic_dt_keeps_no_w_or_delz(torch_run):
 def test_hydrostatic_branch_reaches_no_nonhydrostatic_kernel(
         jax_run, monkeypatch):
     """On the CPU the hydrostatic dt never calls the five-transport forms
-    (K6 and its plain form), the column pressure chain (K4) or the
-    vertical solve (K2): each is replaced by a function that raises; the
-    dt still equals the JAX dt."""
+    (K6 and its plain form) or the vertical solve (K2), and its substep
+    core never calls the column pressure chain (K4): each is replaced by
+    a function that raises.  The C-grid half-stage does call K4's chain,
+    once a substep, as the JAX package's half-stage does (its gate has no
+    hydrostatic condition).  The dt still equals the JAX dt."""
+    import sys
+
     def forbidden(name):
         def fn(*args, **kwargs):
             raise AssertionError(f"hydrostatic dt reached {name}")
         return fn
 
-    for name in ("transports5", "fv_tp_2d_multi5", "column_pressures",
-                 "sim1_solve"):
+    for name in ("transports5", "fv_tp_2d_multi5", "sim1_solve"):
         monkeypatch.setattr(thydro, name, forbidden(name))
+    callers = []
+    column_pressures = thydro.column_pressures
+
+    def watched(*args, **kwargs):
+        caller = sys._getframe(1).f_code.co_name
+        if caller != "_c_sw_half_3d":
+            raise AssertionError(f"{caller} reached column_pressures")
+        callers.append(caller)
+        return column_pressures(*args, **kwargs)
+
+    monkeypatch.setattr(thydro, "column_pressures", watched)
     state, phis, want = jax_run
     run, _, _ = _stepper()
     got = state_to_numpy(
         run(state_from_numpy(state, "cpu"), torch.as_tensor(phis), 1)
     )
+    assert len(callers) == 6
     for k in FIELDS:
         assert_close_scaled(got[k], want[k], RTOL, name=k)
 
