@@ -79,11 +79,41 @@ Phases (any failure raises and the script exits non-zero):
      each clock read after a synchronisation, finite state,
      dry mass across each step_dynamics, the restart round trip, the
      model time and the segments' files.
+ 12. nudged parity: one eager step of the nudged run (a TimeLoop step
+     with the nudger, runtime.nudged_case: the slice's configuration,
+     nonhydrostatic, GFS suite with gray radiation and GFDL microphysics
+     over six advected species, initialised from restart files that the
+     port's write_restarts wrote from a seeded moist state, relative
+     humidity up to 1.1, ice, rain and snow) at C12 x 63 on the card in
+     f32 against the CPU in f32 and float64: every state field,
+     total_precip and the nudging tendencies by phase 4's rule, the
+     columns where a physics branch (phase 8's, and the GFDL scheme's
+     freezing and melting) decided differently on the card than on the
+     CPU in f32 counted, masked and bounded (NUDGED_FLIP_BOUND); then
+     gfs_physics_step with the mass-flux convection, a seeded h_std
+     (gravity-wave drag) and the GFDL microphysics with its hydrometeors
+     on the same state, by the same rule (the mass flux's discrete
+     choices masked too, SAS_CHOICE_RTOL).
+ 13. nudged run: the case at C48 x 63 (INPUT/ and two snapshots at T0
+     and T0 + 1 h, the initial T + 3 K and humidity + 1e-4), the wrapper
+     initialised from it on the card (its state equal to the CPU's ingest
+     of the same files bit for bit), NUDGED_STEPS TimeLoop steps with
+     the nudger: launches of K1-K6 in each step, ms per step (mainloop)
+     and per substep (each clock read after a synchronisation), finite
+     state, dry mass across each step_dynamics, the column water budget
+     across each apply_physics (WATER_BOUND), the hydrometeors (no
+     physics-made negatives, the negative mass the dycore's transport
+     leaves within UNDERSHOOT_BOUND), GFDL precipitation, the nudging
+     tendency of T; then state_after_timestep.zarr and
+     nudging_tendencies.zarr written, open_nudge_to_fine (dQ1 equal to
+     the stored tendency bit for bit) and batches_from_mapper (one batch
+     a step).
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path and on the coupled C48 path, K6 on the C192 path, K1, K3,
-K4 and K5 on the prognostic path.  Each kernel's JSON entry holds its
-launches (from the coupled C48 path for K1-K5, the C192 path for K6, the
-probe path for K7/K8; each path's in ``launches_by_path``) and its
+C48 main path, on the coupled C48 path and on the nudged path, K6 on the
+C192 path, K1, K3, K4 and K5 on the prognostic path.  Each kernel's JSON
+entry holds its launches (from the coupled C48 path for K1-K5, the C192
+path for K6, the probe path for K7/K8; each path's in
+``launches_by_path``) and its
 phase-3 numbers at the shapes of the path its launches come from (K1-K5
 C48, K6 C192, K7/K8 [256, 256]).  The last two lines are the kernels'
 JSON summary and {"ok": true, "device": {...}}.
@@ -115,9 +145,11 @@ from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
 from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
-from fv3net_tpu_torch.physics import gfs
+from fv3net_tpu_torch.physics import gfdl_mp, gfs
 from fv3net_tpu_torch.runtime import cli, compiled_loop, coupled_bench
-from fv3net_tpu_torch.runtime import segmented_run, timing
+from fv3net_tpu_torch.runtime import derived_state, nudged_case, segmented_run
+from fv3net_tpu_torch.runtime import loop as loop_mod
+from fv3net_tpu_torch.runtime import names, timing
 
 H, NZ, DT_ATMOS, PTOP = 3, 63, 900.0, 300.0
 DT_C192 = 225.0  # bench.py rung 2
@@ -206,6 +238,28 @@ LAUNCHES_PROGNOSTIC = dict(
 # ... and with one tracer (phase 10's hydrostatic dt)
 LAUNCHES_HYDRO_1TR = dict(LAUNCHES_PROGNOSTIC, fv_tp_2d=19)
 PROGNOSTIC_STEPS = 3  # steps of each segment of phase 11
+# ... on the nudged path (nonhydrostatic, six tracers): the C48 main
+# path's launches with five transports a substep and one a tracer
+LAUNCHES_NUDGED = dict(LAUNCHES_PER_DT, fv_tp_2d=36)
+NUDGED_STEPS = 4  # TimeLoop steps of phase 13, inside the snapshots' hour
+# phase 13's column water budget across apply_physics: six species and
+# the precipitation, less the surface evaporation, relative to the water
+WATER_BOUND = 1e-5
+# the dycore's tracer transport (hord 5, unlimited) is not positive
+# definite: where a hydrometeor field ends at a sharp edge (ice only where
+# T < 260 K) it undershoots zero (the JAX package's as well: the port's
+# float64 step equals it, tests/test_torch_nudging.py, and phase 12 holds
+# the card's hydrometeors to the CPU's).  The undershoot is a ripple of
+# the transport: its negative mass is ~1e-3 of a species' positive mass
+# or less (CPU, C12), where a fault of the transport (a sign, an index)
+# would move O(1) of it; the bound tells the two apart.  The physics
+# makes no field more negative than it found it.
+UNDERSHOOT_BOUND = 0.1
+# the mass-flux convection's discrete choices (launch level, cloud top):
+# a column whose convective precipitation differs between the card and
+# the CPU's f32 by more than this share took another choice (roundoff
+# moves it by ~1e-6)
+SAS_CHOICE_RTOL = 1e-3
 # restart round trip: T is stored as computed from pt and converts back
 # through the layer Exner function and (1 + zvir q): four f32 roundings
 T_ULPS = 4
@@ -215,6 +269,15 @@ TRANSPOSE_RTOL, TRANSPOSE_ATOL = 1e-6, 1e-5
 # coupled parity: at most this share of the columns may take another
 # branch of a physics threshold in the card's f32 step than in the CPU's
 FLIP_BOUND = 1e-3
+# ... in the nudged run's C12 step (phase 12): the GFDL scheme adds two
+# thresholds a level (freezing below T_ICE_ALL, melting above T_FREEZE),
+# 126 a column, to phase 8's three a column.  With the card's and the
+# CPU's f32 temperatures ~1e-4 K apart after a dt and ~2 K between
+# levels, each column crosses one of them on one side only with a
+# chance of ~1e-4 a threshold, ~0.1-1 of the 864 columns in all (one
+# on an H100); 1% still fails a systematic disagreement
+# (the bound of tests/test_torch_cuda.py's eager GFS step on the card)
+NUDGED_FLIP_BOUND = 1e-2
 # postphysics: relative change of global dry mass sum(delp (1 - qv) area)
 DRY_MASS_BOUND = 1e-6
 DENSE_DIR = "build/coupled_dense"
@@ -968,6 +1031,31 @@ def _column_mask(mask, x):
     return m.expand(x.shape)
 
 
+def hold_flipped(tag, got, plain32, ref64, detectors, flip_bound):
+    """Count the columns that each detector (name -> [6, n, n] mask) finds
+    flipped, bound their union (a share `flip_bound` of the columns), mask
+    them, and hold the rest of each field by phase 4's rule
+    (compare_states).  The states are mappings of name -> tensor."""
+    flips = None
+    for name, mask in detectors.items():
+        flips = mask if flips is None else flips | mask
+    nflip, ncol = int(flips.sum()), flips.numel()
+    by = ", ".join(f"{k} {int(m.sum())}" for k, m in detectors.items())
+    say(f"{tag}: {nflip} of {ncol} columns took another physics branch on "
+        f"the card than on the CPU in f32 ({by}; bound {flip_bound})")
+    if nflip > flip_bound * ncol:
+        raise AssertionError(f"{tag}: {nflip} flipped columns")
+    masked = [{} for _ in range(3)]
+    for k in ref64:
+        arrays = [x[k] for x in (got, plain32, ref64)]
+        if not bool(torch.isfinite(arrays[0]).all()):
+            raise AssertionError(f"{tag} {k}: not finite")
+        keep = ~_column_mask(flips, arrays[0])
+        for m, x in zip(masked, arrays):
+            m[k] = torch.where(keep, x, 0.0)
+    compare_states(tag, *masked)
+
+
 def phase_coupled_parity():
     """One coupled C12 step on the card in f32 against the CPU in f32 and
     float64, from the same perturbed f32 state (module docstring, 8)."""
@@ -986,25 +1074,15 @@ def phase_coupled_parity():
         wrapper.temperature_from_pt(st.delp, pt, st.q[0], PTOP), p
     )).clamp_max(0.02)
     st = st._replace(pt=pt, q=q)
-    ref64 = coupled_step(n, "cpu", "float64", st)
-    plain32 = coupled_step(n, "cpu", "float32", st)
-    got = coupled_step(n, "cuda", "float32", st)
-    flips = flipped_columns(got[2], plain32[2])
-    nflip, ncol = int(flips.sum()), flips.numel()
-    say(f"C12x63 coupled: {nflip} of {ncol} columns took another physics "
-        f"branch on the card than on the CPU in f32 (bound {FLIP_BOUND})")
-    if nflip > FLIP_BOUND * ncol:
-        raise AssertionError(f"C12x63 coupled: {nflip} flipped columns")
-    fields = dict(zip(got[0]._fields, zip(got[0], plain32[0], ref64[0])))
-    fields["total_precip"] = (got[1], plain32[1], ref64[1])
-    masked = ({}, {}, {})
-    for k, arrays in fields.items():
-        if not bool(torch.isfinite(arrays[0]).all()):
-            raise AssertionError(f"C12x63 coupled {k}: not finite")
-        keep = ~_column_mask(flips, arrays[0])
-        for m, x in zip(masked, arrays):
-            m[k] = torch.where(keep, x, 0.0)
-    compare_states("C12x63 coupled", *masked)
+    ref64, plain32, got = (
+        dict(out[0]._asdict(), total_precip=out[1], diags=out[2])
+        for out in (coupled_step(n, "cpu", "float64", st),
+                    coupled_step(n, "cpu", "float32", st),
+                    coupled_step(n, "cuda", "float32", st)))
+    flips = flipped_columns(got.pop("diags"), plain32.pop("diags"))
+    ref64.pop("diags")
+    hold_flipped("C12x63 coupled", got, plain32, ref64, {"gfs": flips},
+                 FLIP_BOUND)
 
 
 def global_sum(x, area):
@@ -1344,6 +1422,299 @@ def check_round_trip(written, restored):
         "bit")
 
 
+# --- phases 12 and 13 -------------------------------------------------------
+
+
+@contextlib.contextmanager
+def gfdl_branches():
+    """Record, at every call of the GFDL microphysics, on which side of
+    its two discontinuous thresholds each level fell: homogeneous
+    freezing of cloud liquid below T_ICE_ALL and melting of cloud ice
+    above T_FREEZE, decided on the saturation adjustment's output (the
+    scheme's other limiters are continuous).  Yields the list of
+    [2, 6, nz, n, n] masks."""
+    real = gfdl_mp.saturation_adjustment
+    masks = []
+
+    def recording(t, qv, ql, qi, p, iters=2):
+        out = real(t, qv, ql, qi, p, iters)
+        t2, _, ql2, qi2 = out
+        frz = t2 < gfdl_mp.T_ICE_ALL
+        ice = torch.where(frz, ql2, 0.0)
+        t3 = t2 + gfdl_mp.LF * ice / gfdl_mp.CP_AIR
+        masks.append(torch.stack([frz, t3 > gfdl_mp.T_FREEZE]).cpu())
+        return out
+
+    gfdl_mp.saturation_adjustment = recording
+    try:
+        yield masks
+    finally:
+        gfdl_mp.saturation_adjustment = real
+
+
+def gfdl_flips(masks_a, masks_b):
+    """Columns [6, n, n] in which a GFDL branch differs between two runs."""
+    flips = None
+    for a, b in zip(masks_a, masks_b):
+        f = (a != b).any(dim=0).any(dim=1)
+        flips = f if flips is None else flips | f
+    return flips
+
+
+def nudged_step(n, device, dtype, root):
+    """One eager step of the nudged run (a TimeLoop step with the nudger)
+    at C<n> x 63 from the case under `root`, on `device` in `dtype`: the
+    state, total precipitation and nudging tendencies, the physics
+    diagnostics and the GFDL branch masks, on the CPU in float64."""
+    wm, nudger = nudged_case.initialize(n, device, root, dtype)
+    mdl = wm.get_model()
+    tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
+                           mdl.config.dt_atmos, postphysics_stepper=nudger,
+                           n_steps=1)
+    t0 = time.perf_counter()
+    with gfdl_branches() as masks:
+        (_, diags), = list(tl)
+    say(f"C{n}x{NZ} nudged step {device} {dtype}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {k: x.double().cpu() for k, x in mdl.state._asdict().items()}
+    out["total_precip"] = mdl.total_precip.double().cpu()
+    for v in (names.TEMP, names.SPHUM):
+        k = f"{v}_tendency_due_to_nudging"
+        out[k] = torch.as_tensor(diags[k].values).double()
+    physics = {k: x.double().cpu() for k, x in mdl._physics_diags.items()}
+    return out, physics, masks
+
+
+def phase_nudged_parity():
+    """One eager nudged step at C12 x 63 on the card against the CPU in
+    f32 and float64, and gfs_physics_step with the mass flux and the
+    gravity-wave drag (module docstring, 12)."""
+    n = 12
+    with tempfile.TemporaryDirectory() as root:
+        ref64, d64, _ = nudged_step(n, "cpu", "float64", root)
+        plain32, d32, m32 = nudged_step(n, "cpu", "float32", root)
+        got, dgot, mgot = nudged_step(n, "cuda", "float32", root)
+    for tag, x in (("f64", ref64), ("card", got)):
+        if not float(x["total_precip"].max()) > 0.0:
+            raise AssertionError(f"C12x63 nudged {tag}: no precipitation")
+    hold_flipped("C12x63 nudged", got, plain32, ref64, {
+        "gfs": flipped_columns(dgot, d32), "gfdl": gfdl_flips(mgot, m32)},
+        NUDGED_FLIP_BOUND)
+    # the options the wrapper does not reach, on the f64 initial state
+    st = nudged_case.restart_fields(n)
+    phys = []
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                          ("cuda", torch.float32)):
+        def t_(x):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        fields = [t_(st[k].values) for k in ("T", "sphum", "liq_wat")]
+        winds = [t_(st[k].values) for k in ("u", "v")]
+        delp = t_(st["delp"].values)
+        mp = [t_(st[k].values)
+              for k in ("ice_wat", "rainwat", "snowwat", "graupel")]
+        h_std = t_(400.0 * np.random.RandomState(12).rand(6, n, n))
+        cfg = gfs.GFSPhysicsConfig(convection_scheme="mass_flux",
+                                   microphysics_scheme="gfdl")
+        with gfdl_branches() as masks:
+            out, diags = gfs.gfs_physics_step(
+                *fields, *winds, delp, t_(np.full((6, n, n), 300.0)),
+                PTOP, DT_ATMOS, cfg=cfg, h_std=h_std, mp_tracers=mp)
+        out["total_precipitation"] = diags["total_precipitation"]
+        phys.append((
+            {k: x.double().cpu() for k, x in out.items()},
+            {k: x.double().cpu() for k, x in diags.items()}, masks))
+    (r, _, _), (p, dp, mp32), (g, dg, mg) = phys
+    fired = int((dg["convective_precipitation"] > 0).sum())
+    say(f"C12x63 mass flux: fires in {fired} columns on the card, "
+        f"{int((dp['convective_precipitation'] > 0).sum())} on the CPU; "
+        f"gwd surface stress up to {float(dg['gwd_surface_stress'].max()):.3e}"
+        f" Pa")
+    if not fired or not float(dg["gwd_surface_stress"].max()) > 0.0:
+        raise AssertionError("C12x63 mass flux / gwd: did not act")
+    pc, pp = dg["convective_precipitation"], dp["convective_precipitation"]
+    choice = (pc - pp).abs() > SAS_CHOICE_RTOL * torch.maximum(pc.abs(),
+                                                               pp.abs())
+    hold_flipped("C12x63 gfs mass flux + gwd", g, p, r, {
+        "gfs": flipped_columns(dg, dp), "gfdl": gfdl_flips(mg, mp32),
+        "mass flux choice": choice}, NUDGED_FLIP_BOUND)
+
+
+def phase_nudged_run():
+    """The nudged run at C48 x 63 on the card (module docstring, 13).
+    Returns the launches of one step."""
+    from fv3net_tpu_torch import data
+    from fv3net_tpu_torch.constants import LATENT_HEAT_VAPORIZATION
+    from fv3net_tpu_torch.io import restarts
+    from fv3net_tpu_torch.io.zarr_lite import ZarrLiteStore
+
+    n = 48
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    t0 = time.perf_counter()
+    wm, nudger = nudged_case.initialize(n, "cuda", root)
+    mdl = wm.get_model()
+    say(f"C48x63 nudged: case written and model initialised from "
+        f"{root}/run/INPUT in {time.perf_counter() - t0:.1f} s")
+    # ingest: the card's state against the CPU's ingest of the same files
+    want, phis = restarts.state_from_restarts(
+        restarts.open_restarts(os.path.join(root, "run"))["INPUT"], PTOP)
+    for k, w in want._asdict().items():
+        if not torch.equal(getattr(mdl.state, k).cpu(), torch.as_tensor(w)):
+            raise AssertionError(f"C48x63 nudged ingest: {k} differs")
+    if not torch.equal(mdl.phis.cpu(), torch.as_tensor(phis)):
+        raise AssertionError("C48x63 nudged ingest: phis differs")
+    say(f"C48x63 nudged ingest: {', '.join(want._fields)} and phis on the "
+        f"card equal the CPU's ingest bit for bit; q "
+        f"{tuple(mdl.state.q.shape)}, time {mdl.time}")
+
+    area = torch.as_tensor(mdl.area, dtype=torch.float64, device="cuda")
+    dry, water, hydro = [], [], []  # per step
+
+    def dry_mass_now():
+        st = mdl.state
+        return (st.delp.double() * (1.0 - st.q.double().sum(0))
+                * area[:, None]).sum()
+
+    def water_now():
+        st = mdl.state
+        return ((st.q.double().sum(0) * st.delp.double() / GRAV).sum(1)
+                * area).sum() + 1000.0 * (mdl.total_precip * area).sum()
+
+    def q_min():
+        return mdl.state.q[1:].amin(dim=(1, 2, 3, 4))
+
+    def q_mass(sign):  # [5] float64: sum(q+ or q-) dp area per species
+        q = mdl.state.q[1:].double()
+        q = q.clamp_min(0.0) if sign > 0 else q.clamp_max(0.0)
+        return (q * mdl.state.delp.double() * area[:, None]).sum(
+            dim=(1, 2, 3, 4))
+
+    def step_dynamics():
+        before = dry_mass_now()
+        wrapper._model.step_dynamics()
+        dry.append((before, dry_mass_now()))
+
+    def apply_physics():
+        before, qmin = water_now(), q_min()
+        neg, pos = q_mass(-1), q_mass(1)
+        wrapper._model.apply_physics()
+        evap = (mdl._physics_diags["latent_heat_flux"].double() * area).sum()
+        evap = evap / LATENT_HEAT_VAPORIZATION * mdl.config.dt_atmos
+        water.append((before, water_now(), evap))
+        hydro.append((qmin, q_min(), neg, pos))
+
+    patches = ((wrapper, "step_dynamics", step_dynamics),
+               (wrapper, "apply_physics", apply_physics))
+    originals = [getattr(mod, name) for mod, name, _ in patches]
+    tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
+                           mdl.config.dt_atmos, postphysics_stepper=nudger,
+                           n_steps=NUDGED_STEPS)
+    tl.timer = SyncTimer()
+    tend = [f"{v}_tendency_due_to_nudging" for v in (names.TEMP,
+                                                       names.SPHUM)]
+    rows = {v: [] for v in [names.TEMP, names.SPHUM] + tend}
+    precip_cols = []
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        for time_, diags in tl:
+            for v in (names.TEMP, names.SPHUM):
+                rows[v].append(tl.state[v].values)
+            for v in tend:
+                rows[v].append(np.asarray(diags[v].values))
+            precip_cols.append(int(
+                (mdl._physics_diags["large_scale_precipitation"] > 0).sum()))
+    finally:
+        for (mod, name, _), fn in zip(patches, originals):
+            setattr(mod, name, fn)
+    for i, c in enumerate(tl.timer.launches):
+        check_counts(f"C48x63 nudged step {i}", c, LAUNCHES_NUDGED)
+    report_nudged_times(tl.timer)
+    for k, x in mdl.state._asdict().items():
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"C48x63 nudged: non-finite {k}")
+    rel = [abs(float(a) / float(b) - 1.0) for b, a in dry]
+    say(f"C48x63 nudged dry mass across step_dynamics: max relative change "
+        f"{max(rel):.3e} over {len(rel)} steps (bound {MASS_BOUND})")
+    if not max(rel) <= MASS_BOUND:
+        raise AssertionError(f"nudged dry mass {max(rel):.3e}")
+    res = [abs(float(b - a - e) / float(a)) for a, b, e in water]
+    say(f"C48x63 nudged column water across apply_physics (six species + "
+        f"precipitation - evaporation): max relative residual "
+        f"{max(res):.3e} (bound {WATER_BOUND})")
+    if not max(res) <= WATER_BOUND:
+        raise AssertionError(f"nudged water budget {max(res):.3e}")
+    check_hydrometeors(hydro)
+    say(f"C48x63 nudged GFDL precipitation > 0 in {precip_cols} of "
+        f"{6 * n * n} columns (each step)")
+    if not min(precip_cols) > 0:
+        raise AssertionError("nudged: no GFDL precipitation")
+    t_tend = rows[tend[0]]
+    mean, big = float(np.mean(t_tend[0])), float(np.abs(t_tend).max())
+    say(f"C48x63 nudged T tendency: mean {mean:.4e} K/s, max|.| {big:.4e} "
+        f"(bound {10.0 / (3 * 3600.0):.4e})")
+    if not (mean > 0.0 and big < 10.0 / (3 * 3600.0)):
+        raise AssertionError("nudged T tendency out of bounds")
+    # the stores the nudged run ships, and the training batches
+    out = os.path.join(root, "out")
+    dims = ("time", "tile", "z", "y", "x")
+    for zarr, group in (("state_after_timestep.zarr",
+                         [names.TEMP, names.SPHUM]),
+                        ("nudging_tendencies.zarr", tend)):
+        store = ZarrLiteStore(os.path.join(out, zarr))
+        for v in group:
+            arr = np.stack(rows[v]).astype(np.float32)
+            store.create_array(v, shape=arr.shape,
+                               chunks=(1,) + arr.shape[1:],
+                               dtype=np.float32, dims=dims)
+            store.write_full(v, arr)
+    mapper = data.open_nudge_to_fine(out)
+    first = mapper[sorted(mapper.keys())[0]]
+    if not np.array_equal(first["dQ1"].values,
+                          t_tend[0].astype(np.float32)):
+        raise AssertionError("nudged: the mapper's dQ1 differs")
+    batches = data.batches_from_mapper(
+        "open_nudge_to_fine", {"url": out},
+        variable_names=[names.TEMP, "dQ1", "dQ2"])
+    say(f"C48x63 nudged: open_nudge_to_fine {len(mapper)} times, dQ1 bit "
+        f"for bit; batches_from_mapper {len(batches)} batches of "
+        f"{sorted(batches[0])}")
+    if len(batches) != NUDGED_STEPS:
+        raise AssertionError(f"nudged: {len(batches)} batches")
+    tmp.cleanup()
+    return tl.timer.launches[-1]
+
+
+def check_hydrometeors(hydro):
+    """The physics makes no hydrometeor more negative than it found it,
+    and the negative mass the dycore leaves in each species is at most
+    UNDERSHOOT_BOUND of its positive mass (phase 13)."""
+    worst = torch.zeros(5, dtype=torch.float64)
+    for qmin, after, neg, pos in hydro:
+        if bool((after < torch.clamp_max(qmin, 0.0)).any()):
+            raise AssertionError(f"nudged physics: hydrometeor minima "
+                                 f"{after.tolist()} below {qmin.tolist()}")
+        worst = torch.maximum(worst, (-neg / pos.clamp_min(1e-300)).cpu())
+    fmt = lambda xs: [f"{float(x):.3e}" for x in xs]  # noqa: E731
+    say(f"C48x63 nudged hydrometeors (liquid, ice, rain, snow, graupel): "
+        f"minima before physics {fmt(hydro[-1][0])}, after "
+        f"{fmt(hydro[-1][1])}; negative mass after the dycore at most "
+        f"{fmt(worst)} of the positive mass (bound {UNDERSHOOT_BOUND})")
+    if not float(worst.max()) <= UNDERSHOOT_BOUND:
+        raise AssertionError(f"nudged undershoot {float(worst.max()):.3e}")
+
+
+def report_nudged_times(timer):
+    """ms per step (mainloop) and per substep, median over the steps
+    after the first (each clock read after a synchronisation)."""
+    for name in ("mainloop", "dynamics", "physics", "postphysics",
+                 "tracers", "prephysics"):
+        samples = [1e3 * t for t in timer.times[name]][1:]
+        say(f"C48x63 nudged {name:11s} ms {statistics.median(samples):.3f} "
+            f"(median of {len(samples)}: {[round(t, 3) for t in samples]})")
+
+
 def width(name, n):
     """The width a kernel's phase-3 numbers are keyed by on the C<n> path:
     the interior n for the kernels that run on the interior columns (the
@@ -1352,7 +1723,7 @@ def width(name, n):
 
 
 def kernel_summary(stats, probe_launches, main_launches, fused_launches,
-                   coupled_launches, prognostic_launches):
+                   coupled_launches, prognostic_launches, nudged_launches):
     """The kernels' JSON entries: each kernel's launches from the path
     that runs it (K1-K5 from the coupled C48 path, K6 from the C192 path)
     beside its launches on every path, and its phase-3 numbers at that
@@ -1360,7 +1731,8 @@ def kernel_summary(stats, probe_launches, main_launches, fused_launches,
     bound) of each kernel on each path."""
     by_path = {"probe": probe_launches, "C48": main_launches,
                "C192 fused": fused_launches, "coupled C48": coupled_launches,
-               "prognostic C48": prognostic_launches}
+               "prognostic C48": prognostic_launches,
+               "nudged C48": nudged_launches}
     counted = dict(coupled_launches,
                    fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
                    probe_affine=probe_launches["probe_affine"],
@@ -1382,7 +1754,8 @@ def kernel_summary(stats, probe_launches, main_launches, fused_launches,
     for tag, launches, n in (("C48", main_launches, 48),
                              ("coupled C48", coupled_launches, 48),
                              ("C192 fused", fused_launches, 192),
-                             ("prognostic C48", prognostic_launches, 48)):
+                             ("prognostic C48", prognostic_launches, 48),
+                             ("nudged C48", nudged_launches, 48)):
         loss = {
             k: round(c * (stats[(k, width(k, n))]["ms"]
                           - stats[(k, width(k, n))]["bound_ms"]), 4)
@@ -1407,9 +1780,11 @@ def main():
     coupled_launches = phase_coupled_path()
     phase_hydrostatic_parity()
     prognostic_launches = phase_prognostic_run()
+    phase_nudged_parity()
+    nudged_launches = phase_nudged_run()
     kernels = kernel_summary(stats, probe_launches, main_launches,
                              fused_launches, coupled_launches,
-                             prognostic_launches)
+                             prognostic_launches, nudged_launches)
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

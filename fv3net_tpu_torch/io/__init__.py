@@ -1,4 +1,6 @@
-"""Host-side stores (numpy): the zarr-v2-compatible ``zarr_lite``."""
+"""Host-side stores and files (numpy): the zarr-v2-compatible
+``zarr_lite``, the NetCDF classic codec ``netcdf3`` and the Fortran
+restart files ``restarts``."""
 
 from .zarr_lite import ZarrLiteStore, open_zarr_lite
 

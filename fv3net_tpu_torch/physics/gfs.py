@@ -7,18 +7,19 @@ The default suite of the coupled step:
   * PBL vertical diffusion -- bulk-Richardson boundary-layer height, a
     K-profile diffusivity and a backward-Euler implicit vertical solve
     per column (``moninedmf`` role);
-  * Betts-Miller relaxed convection (SAS role) and non-precipitating
-    shallow convection (``gwd.shallow_convection``);
+  * Betts-Miller relaxed convection (SAS role), or the SAS-style mass
+    flux of ``convection.py`` (``convection_scheme="mass_flux"``), and
+    non-precipitating shallow convection (``gwd.shallow_convection``);
+  * the orographic gravity-wave drag (``gwd.gravity_wave_drag``), on when
+    ``h_std`` is passed;
   * Zhao-Carr microphysics: ``gscond`` condensation and ``precpd``
-    precipitation with re-evaporation of falling rain.
+    precipitation with re-evaporation of falling rain; or the GFDL
+    6-category scheme of ``gfdl_mp.py`` (``microphysics_scheme="gfdl"``),
+    with the four hydrometeors prognostic when ``mp_tracers`` is passed.
 
 Fields are [6, nz, n, n] (level 0 = top).  The JAX package's
 ``lax.scan`` recurrences over levels are Python loops over nz here, each
-step one [6, n, n] tensor operation.  The options that select other
-modules -- ``convection_scheme="mass_flux"`` (``convection.py``),
-``microphysics_scheme="gfdl"`` (``gfdl_mp.py``) and the gravity-wave drag
-(``gwd.gravity_wave_drag``, on when ``h_std`` is passed) -- are not
-ported and raise NotImplementedError (ROADMAP).
+step one [6, n, n] tensor operation.
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ from ..constants import (
 
 ZVIR = RVGAS / RDGAS - 1.0
 KARMAN = 0.4
+# the GFDL scheme's prognostic hydrometeors, in mp_tracers order
+MP_TRACER_NAMES = (
+    "cloud_ice_mixing_ratio",
+    "rain_mixing_ratio",
+    "snow_mixing_ratio",
+    "graupel_mixing_ratio",
+)
 LV_CP = LATENT_HEAT_VAPORIZATION / CP_AIR
 EPS = RDGAS / RVGAS
 
@@ -52,7 +60,7 @@ class GFSPhysicsConfig:
     k_background: float = 0.1   # free-atmosphere diffusivity (m^2/s)
     k_max: float = 800.0        # diffusivity cap (m^2/s)
     tau_bm: float = 7200.0      # Betts-Miller relaxation time (s)
-    convection_scheme: str = "betts_miller"  # "mass_flux" is not ported
+    convection_scheme: str = "betts_miller"  # or "mass_flux" (SAS-like)
     rh_bm: float = 0.8          # BM reference relative humidity
     tau_autoconv: float = 1800.0  # cloud->rain autoconversion time (s)
     evap_rain: float = 2.0e-5   # rain re-evaporation efficiency
@@ -62,7 +70,9 @@ class GFSPhysicsConfig:
     do_pbl: bool = True
     do_surface: bool = True
     do_microphysics: bool = True
-    microphysics_scheme: str = "zhao_carr"  # "gfdl" is not ported
+    # "zhao_carr" (gscond + precpd) or "gfdl" (the 6-category bulk
+    # scheme of gfdl_mp.py)
+    microphysics_scheme: str = "zhao_carr"
 
 
 # --------------------------------------------------------------------------
@@ -365,20 +375,6 @@ def _tendency_to_dgrid(du_a, dv_a):
     return pad_u, pad_v
 
 
-def check_config(cfg: GFSPhysicsConfig):
-    """Raise for the options whose modules are not ported."""
-    if cfg.do_convection and cfg.convection_scheme == "mass_flux":
-        raise NotImplementedError(
-            "convection_scheme='mass_flux' needs physics/convection.py, "
-            "which is not ported"
-        )
-    if cfg.do_microphysics and cfg.microphysics_scheme == "gfdl":
-        raise NotImplementedError(
-            "microphysics_scheme='gfdl' needs physics/gfdl_mp.py, which is "
-            "not ported"
-        )
-
-
 def gfs_physics_step(
     t, qv, qc, u_d, v_d, delp, tsfc, ptop, dt,
     cfg: GFSPhysicsConfig = GFSPhysicsConfig(),
@@ -386,20 +382,11 @@ def gfs_physics_step(
     mp_tracers=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One physics step.  Fields [6, nz, n, n] (winds D-grid staggered);
-    tsfc [6, n, n].  Returns (new_state, diagnostics).  h_std (gravity-
-    wave drag) and mp_tracers (prognostic GFDL hydrometeors) belong to
-    modules that are not ported and raise."""
-    check_config(cfg)
-    if cfg.do_gwd and h_std is not None:
-        raise NotImplementedError(
-            "gravity-wave drag (h_std) needs gwd.gravity_wave_drag, which "
-            "is not ported"
-        )
-    if mp_tracers is not None:
-        raise NotImplementedError(
-            "prognostic hydrometeors (mp_tracers) need physics/gfdl_mp.py, "
-            "which is not ported"
-        )
+    tsfc [6, n, n]; h_std: optional subgrid-orography standard deviation
+    [6, n, n] that turns on the gravity-wave drag.  mp_tracers: optional
+    (qi, qr, qs, qg) prognostic hydrometeors for the GFDL scheme, which
+    then takes qc as the cloud liquid and returns all six species.
+    Returns (new_state, diagnostics)."""
     shape2d = t.shape[:1] + t.shape[2:]
     zeros2d = dict(dtype=t.dtype, device=t.device)
 
@@ -461,7 +448,12 @@ def gfs_physics_step(
 
     precip_conv = torch.zeros(shape2d, **zeros2d)
     if cfg.do_convection:
-        t, qv, precip_conv = betts_miller(t, qv, p, delp, dt, cfg)
+        if cfg.convection_scheme == "mass_flux":
+            from .convection import sas_mass_flux
+
+            t, qv, precip_conv = sas_mass_flux(t, qv, p, pe, delp, dt)
+        else:
+            t, qv, precip_conv = betts_miller(t, qv, p, delp, dt, cfg)
 
     if cfg.do_shallow_convection:
         from .gwd import shallow_convection
@@ -469,10 +461,63 @@ def gfs_physics_step(
         t, qv, sc_diags = shallow_convection(t, qv, p, delp, dt)
         diags.update(sc_diags)
 
+    if cfg.do_gwd and h_std is not None:
+        from .gwd import gravity_wave_drag
+
+        ua2, va2 = _to_agrid(u_d, v_d)
+        du_a, dv_a, gwd_diags = gravity_wave_drag(
+            ua2, va2, t, p, delp, h_std, dt
+        )
+        du_d, dv_d = _tendency_to_dgrid(du_a, dv_a)
+        u_d = u_d + du_d
+        v_d = v_d + dv_d
+        diags.update(gwd_diags)
+
     precip_ls = torch.zeros(shape2d, **zeros2d)
+    mp_out = None
     if cfg.do_microphysics:
-        t, qv, qc = gscond(t, qv, qc, p, dt)
-        t, qv, qc, precip_ls = precpd(t, qv, qc, p, delp, dt, cfg)
+        if cfg.microphysics_scheme == "gfdl":
+            from .gfdl_mp import gfdl_cloud_microphysics, liquid_fraction
+
+            if mp_tracers is not None:
+                # prognostic 6-species state: qc is cloud liquid, the
+                # hydrometeors persist (and advect) between steps
+                qi0, qr0, qs0, qg0 = mp_tracers
+                ql0 = qc
+            else:
+                # 2-tracer form: partition the combined condensate by
+                # temperature each step
+                fl = liquid_fraction(t)
+                ql0 = fl * qc
+                qi0 = (1.0 - fl) * qc
+                qr0 = qs0 = qg0 = torch.zeros_like(qc)
+            mp_state, mp_diags = gfdl_cloud_microphysics(
+                t, qv, ql0, qi0, qr0, qs0, qg0, p, delp, dz, dt,
+            )
+            t = mp_state["air_temperature"]
+            qv = mp_state["specific_humidity"]
+            if mp_tracers is not None:
+                qc = mp_state["cloud_water_mixing_ratio"]
+                mp_out = {k: mp_state[k] for k in MP_TRACER_NAMES}
+            else:
+                # fold all suspended condensate back into qc
+                # (water-conserving)
+                qc = (
+                    mp_state["cloud_water_mixing_ratio"]
+                    + mp_state["cloud_ice_mixing_ratio"]
+                    + mp_state["rain_mixing_ratio"]
+                    + mp_state["snow_mixing_ratio"]
+                    + mp_state["graupel_mixing_ratio"]
+                )
+            diags.update({
+                k: mp_diags[k]
+                for k in ("rain_precipitation", "snow_precipitation",
+                          "graupel_precipitation")
+            })
+            precip_ls = mp_diags["total_precipitation_mp"]
+        else:
+            t, qv, qc = gscond(t, qv, qc, p, dt)
+            t, qv, qc, precip_ls = precpd(t, qv, qc, p, delp, dt, cfg)
 
     state = {
         "air_temperature": t,
@@ -481,6 +526,8 @@ def gfs_physics_step(
         "u_dgrid": u_d,
         "v_dgrid": v_d,
     }
+    if mp_out is not None:
+        state.update(mp_out)
     diags.update(
         sensible_heat_flux=shf,
         latent_heat_flux=lhf,

@@ -100,7 +100,7 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
     split=True also returns the three stage functions (dynamics,
     physics, postphysics) for per-stage timing.
     """
-    from ..physics.gfs import check_config, gfs_physics_step
+    from ..physics.gfs import MP_TRACER_NAMES, gfs_physics_step
     from ..wrapper import pressure_layers, pt_from_temperature, \
         temperature_from_pt
 
@@ -111,8 +111,6 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
     one_dt = mdl.run_step.one_dt
     gfs_cfg = mdl.gfs_config
     rad = mdl._radiation
-    if cfg.physics_suite == "gfs":
-        check_config(gfs_cfg)
     if ml_model is not None:
         _check_ml_model(ml_model, mdl.state.w is not None)
         ml_params = ml_model.params_on(mdl.device)
@@ -153,14 +151,21 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
             temp = temp + heating * dt
             diags.update(out)
         t_b, q_b = temp, qv
+        extra = []  # prognostic hydrometeors beyond (qv, qc)
         if cfg.physics_suite == "gfs":
+            prognostic_mp = (
+                st.q.shape[0] >= 6 and gfs_cfg.microphysics_scheme == "gfdl"
+            )
             pout, pdiags = gfs_physics_step(
                 temp, qv, qc, st.u, st.v, st.delp, tsfc, ptop, dt,
                 cfg=gfs_cfg,
+                mp_tracers=tuple(st.q[2:6]) if prognostic_mp else None,
             )
             temp = pout["air_temperature"]
             qv = pout["specific_humidity"]
             qc = pout["cloud_water_mixing_ratio"]
+            if prognostic_mp:
+                extra = [pout[k] for k in MP_TRACER_NAMES]
             st = st._replace(
                 u=pout["u_dgrid"].to(dtype), v=pout["v_dgrid"].to(dtype)
             )
@@ -180,10 +185,9 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         )
         total_precip = total_precip + precip / 1000.0  # kg/m2 -> m
         precip_rate = precip / dt
-        # tracers beyond (qv, qc) pass through unchanged
-        q_new = torch.cat(
-            [torch.stack([qv, qc]).to(dtype), st.q[2:]], dim=0
-        )
+        # tracers beyond the suite's prognostic set pass through unchanged
+        q_new = torch.stack([qv, qc] + extra).to(dtype)
+        q_new = torch.cat([q_new, st.q[q_new.shape[0]:]], dim=0)
         st = st._replace(
             pt=pt_from_temperature(st.delp, temp, qv, ptop).to(dtype),
             q=q_new,

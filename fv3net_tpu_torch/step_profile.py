@@ -1,12 +1,12 @@
 """Where the time of one C48 (or C192) x 63 dycore dt, of one coupled
-C48 step, or of one step of the eager prognostic run at C48, goes on the
-GPU.
+C48 step, or of one step of the eager prognostic run or of the nudged run
+at C48, goes on the GPU.
 
 Run on the GPU machine from the repository root:
 
     python -m fv3net_tpu_torch.step_profile [--n 48|192] [--fused]
-                                            [--coupled | --prognostic]
-                                            [--out DIR]
+                                            [--coupled | --prognostic
+                                             | --nudged] [--out DIR]
 
 Builds the benchmark configuration (bench.py ``_build_config``: C<n> x 63,
 k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
@@ -17,7 +17,12 @@ dycore + radiation + GFS physics + dense ML corrector, C48 only, its
 three stages labelled in the traced steps); or with --prognostic one
 step of the eager TimeLoop over the wrapper's phases (the default model:
 hydrostatic C48 x 63, simple suite, f32, from the wrapper's initial
-state; C48 only, its substeps labelled).  Warms up one dt, then:
+state; C48 only, its substeps labelled); or with --nudged one step of the
+nudged run (``runtime.nudged_case``: the wrapper initialised from restart
+files of a seeded moist state, nonhydrostatic, GFS suite with GFDL
+microphysics over six advected species, the nudger of T and humidity
+toward two snapshots; C48 only, its substeps labelled).  Warms up one
+dt, then:
   * times 5 dts with the host clock (synchronized), the step time a user
     sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
@@ -26,7 +31,7 @@ state; C48 only, its substeps labelled).  Warms up one dt, then:
     (torch's copy kernels and memcpy activities), the kernels by device
     time, and the host time of the dycore's stages (each stage wrapped in
     a record_function label for the traced dts only).
-Writes ``step_profile_c<n>[_fused|_coupled|_prognostic].json`` and
+Writes ``step_profile_c<n>[_fused|_coupled|_prognostic|_nudged].json`` and
 ``.txt`` under
 --out and prints the JSON summary.
 """
@@ -38,6 +43,7 @@ import functools
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -48,6 +54,7 @@ from .dycore import hydro
 from .grid import CubedSphereGrid
 from .ops import advection
 from .runtime import compiled_loop, coupled_bench, derived_state, loop
+from .runtime import nudged_case
 
 NZ, PTOP = 63, 300.0
 DT_ATMOS = {48: 900.0, 192: 225.0}
@@ -117,18 +124,27 @@ def _coupled_steps(N, out):
     return loop.step, traced_step
 
 
-def _prognostic_steps(N):
+def _prognostic_steps(N, nudged_root=None):
     """(step, traced step) of the eager prognostic run: one TimeLoop step
     of the default model (hydrostatic, simple suite, f32) at C<N> x 63,
-    its substeps labelled."""
-    wrapper.initialize(wrapper.ModelConfig(npx=N + 1, npz=NZ), device="cuda")
+    or with `nudged_root` of the nudged run written there, its substeps
+    labelled."""
+    nudger = None
+    if nudged_root is None:
+        wrapper.initialize(wrapper.ModelConfig(npx=N + 1, npz=NZ),
+                           device="cuda")
+    else:  # warm-up, 5 timed and 2 traced steps: 2 h at 900 s
+        _, nudger = nudged_case.initialize(N, "cuda", nudged_root,
+                                           window_hours=3.0)
     tl = loop.TimeLoop(
         wrapper, derived_state.DerivedModelState(wrapper),
-        wrapper.get_model().config.dt_atmos,
+        wrapper.get_model().config.dt_atmos, postphysics_stepper=nudger,
     )
     for name in ("_compute_column_integrated_tracers", "_step_dynamics",
                  "_step_prephysics", "_step_physics", "_step_postphysics"):
-        setattr(tl, name, _labelled(f"prognostic{name}", getattr(tl, name)))
+        setattr(tl, name, _labelled(
+            f"{'prognostic' if nudger is None else 'nudged'}{name}",
+            getattr(tl, name)))
     steps = iter(tl)
 
     def step():
@@ -146,6 +162,8 @@ def main(argv=None):
                     help="the coupled step of bench.py rung 3 (C48)")
     ap.add_argument("--prognostic", action="store_true",
                     help="one step of the eager prognostic run (C48)")
+    ap.add_argument("--nudged", action="store_true",
+                    help="one step of the nudged run (C48)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     N = args.n
@@ -156,15 +174,22 @@ def main(argv=None):
     if args.prognostic and (N != 48 or args.fused or args.coupled):
         raise ValueError("--prognostic runs the default model: C48, "
                          "hydrostatic, unfused")
+    if args.nudged and (N != 48 or args.fused or args.coupled
+                        or args.prognostic):
+        raise ValueError("--nudged runs the nudged case: C48, unfused")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
 
+    # the nudged case's restart files (~0.1 GB at C48) go to a temporary
+    # directory, not to --out
+    case = tempfile.TemporaryDirectory() if args.nudged else None
     step, traced_step = (
         _coupled_steps(N, args.out) if args.coupled
         else _prognostic_steps(N) if args.prognostic
+        else _prognostic_steps(N, case.name) if args.nudged
         else _dycore_steps(N, args.fused)
     )
     step()  # warm-up
@@ -229,7 +254,10 @@ def main(argv=None):
                   f"hord=5 kord=9 f32 fused_transport={args.fused}"
                   + (" coupled (bench.py rung 3)" if args.coupled else "")
                   + (" prognostic (eager TimeLoop, hydrostatic, simple "
-                     "suite)" if args.prognostic else ""),
+                     "suite)" if args.prognostic else "")
+                  + (" nudged (eager TimeLoop from restarts, "
+                     "nonhydrostatic, GFS suite, GFDL microphysics, six "
+                     "tracers, nudger)" if args.nudged else ""),
         "card": card,
         "host_ms_per_dt": host_ms,
         "host_ms_per_dt_median": host_med,
@@ -263,7 +291,8 @@ def main(argv=None):
     stem = os.path.join(
         args.out, f"step_profile_c{N}"
         + ("_fused" if args.fused else "_coupled" if args.coupled
-           else "_prognostic" if args.prognostic else "")
+           else "_prognostic" if args.prognostic
+           else "_nudged" if args.nudged else "")
     )
     with open(stem + ".json", "w") as f:
         json.dump(summary, f, indent=1)

@@ -13,12 +13,16 @@ surface:
 
 The model is the hydrostatic or nonhydrostatic dycore plus the simple
 suite (saturation adjustment, Held-Suarez forcing) or the GFS suite with
-gray radiation.  The prognostic state lives in tensors on the model's
-device (the CUDA device unless ``initialize`` is given another), and
-every phase runs there; host numpy is read only where the JAX package
-materialises too: the A-grid wind transforms (float64, on the host) and
-the emulation hooks' state dict.  Not ported (they raise):
-initialisation from Fortran restarts and the GFDL microphysics tracers.
+gray radiation (Zhao-Carr or GFDL microphysics, the GFDL hydrometeors
+optionally advected as dycore tracers).  It starts from the isothermal
+rest state or from a directory of Fortran restart files
+(``ModelConfig.restart_dir``).  The prognostic state lives in tensors on
+the model's device (the CUDA device unless ``initialize`` is given
+another), and every phase runs there; host numpy is read only where the
+JAX package materialises too: the restart files (read and converted to
+potential temperature in float64 on the host, io/restarts.py), the A-grid
+wind transforms (float64, on the host) and the emulation hooks' state
+dict.
 """
 
 from __future__ import annotations
@@ -169,10 +173,15 @@ class ModelConfig:
     do_sat_adj: bool = True
     physics_suite: str = "simple"  # "simple" | "gfs" | "none"
     do_radiation: bool = True  # gray radiation inside the gfs suite
-    microphysics_scheme: str = "zhao_carr"  # "gfdl" is not ported
+    # "zhao_carr" | "gfdl" (GFSPhysicsConfig.microphysics_scheme)
+    microphysics_scheme: str = "zhao_carr"
+    # carry ice/rain/snow/graupel as advected dycore tracers (the
+    # reference's in-dycore GFDL MP over the full tracer set)
     prognostic_mp_tracers: bool = False
     dtype: str = "float32"
     initial_time: str = "2016-08-01T00:00:00"
+    # FV3GFS run directory with INPUT/*.tile?.nc Fortran restarts; the
+    # prognostic state (and the time, from coupler.res) starts from it
     restart_dir: Optional[str] = None
 
 
@@ -198,11 +207,6 @@ class _Model:
                 "prognostic_mp_tracers requires physics_suite='gfs' "
                 "with microphysics_scheme='gfdl'"
             )
-        if cfg.restart_dir is not None:
-            raise NotImplementedError(
-                "initialisation from Fortran restarts (io/restarts.py) is "
-                "not ported"
-            )
         self.config = cfg
         self.device = torch.device(device)
         n = cfg.npx - 1
@@ -219,7 +223,56 @@ class _Model:
         self._init_state()
         self.step_count = 0
         self.time = datetime.datetime.fromisoformat(cfg.initial_time)
+        if cfg.restart_dir is not None:
+            self._init_from_restart(cfg.restart_dir)
         self.initialized = True
+
+    def _init_from_restart(self, rundir: str):
+        """Ingest a Fortran restart directory (INPUT/ preferred, else the
+        newest RESTART prefix) into the prognostic state on the model's
+        device.  The files are read, and T converted to pt, on the host
+        (io/restarts.py, float64, every field then rounded to float32 as
+        the JAX package rounds it)."""
+        import os
+
+        from .io.restarts import (
+            open_restarts,
+            read_coupler_res,
+            state_from_restarts,
+        )
+
+        opened = open_restarts(rundir)
+        if not opened:
+            raise FileNotFoundError(f"no restart files under {rundir}")
+        prefix = "INPUT" if "INPUT" in opened else sorted(opened)[-1]
+        st, phis = state_from_restarts(opened[prefix], self.config.ptop)
+        expect = (6, self.nz, self.n, self.n)
+        if st.delp.shape != expect:
+            raise ValueError(
+                f"restart resolution {st.delp.shape} does not match the "
+                f"configured model {expect}"
+            )
+        st = DycoreState(*[None if x is None else self._tensor(x)
+                           for x in st])
+        if not self.config.hydrostatic and st.w is None:
+            st = add_nonhydrostatic_fields(st, self.config.ptop)
+        nt = len(self.tracer_names)
+        zeros = dict(dtype=self.dtype, device=self.device)
+        if st.q is None:
+            st = st._replace(
+                q=torch.zeros((nt, 6, self.nz, self.n, self.n), **zeros)
+            )
+        elif st.q.shape[0] < nt:
+            # a restart with fewer species than the configured tracer
+            # set: the missing hydrometeors start at zero
+            pad = torch.zeros((nt - st.q.shape[0],) + st.q.shape[1:],
+                              **zeros)
+            st = st._replace(q=torch.cat([st.q, pad], dim=0))
+        self.state = st
+        self.phis = self._tensor(phis)
+        coupler = os.path.join(rundir, prefix, "coupler.res")
+        if os.path.exists(coupler):
+            self.time = read_coupler_res(coupler)
 
     def _tensor(self, x):
         """x (an array or a tensor on any device) in the model's dtype on
@@ -329,12 +382,11 @@ class _Model:
         self._radiation = None
         self._physics_diags: Dict[str, torch.Tensor] = {}
         if self.config.physics_suite == "gfs":
-            from .physics.gfs import GFSPhysicsConfig, check_config
+            from .physics.gfs import GFSPhysicsConfig
 
             self.gfs_config = GFSPhysicsConfig(
                 microphysics_scheme=self.config.microphysics_scheme
             )
-            check_config(self.gfs_config)
             if self.config.do_radiation:
                 from .physics.radiation import RadiationDriver
 
@@ -442,13 +494,18 @@ class _Model:
             self.precip_rate = precip / self.config.dt_atmos
 
     def _apply_gfs_physics(self):
-        """Run the GFS-style suite (PBL + convection + Zhao-Carr
+        """Run the GFS-style suite (PBL + convection + Zhao-Carr or GFDL
         microphysics), with online-emulation hook points around the
         microphysics like the reference's call_py_fort flow: the physics
         result is pushed into a host state dict under the Zhao-Carr
         names, hooks may write ``*_output`` keys that substitute it, and
         the store hook captures everything for training data."""
-        from .physics.gfs import gfs_physics_step, gscond, precpd
+        from .physics.gfs import (
+            MP_TRACER_NAMES,
+            gfs_physics_step,
+            gscond,
+            precpd,
+        )
 
         cfg = self.gfs_config
         dt = self.config.dt_atmos
@@ -462,9 +519,19 @@ class _Model:
         inline_micro = hooks is None
 
         run_cfg = dataclasses.replace(cfg, do_microphysics=inline_micro)
+        # the prognostic hydrometeors flow only through the inline GFDL
+        # scheme; with emulation hooks the microphysics is bypassed and
+        # they pass through unchanged (below)
+        mp_tracers = (
+            tuple(self.state.q[2:6])
+            if inline_micro
+            and len(self.tracer_names) >= 6
+            and cfg.microphysics_scheme == "gfdl"
+            else None
+        )
         out, diags = gfs_physics_step(
             t, qv, qc, self.state.u, self.state.v, delp, tsfc,
-            self.config.ptop, dt, cfg=run_cfg,
+            self.config.ptop, dt, cfg=run_cfg, mp_tracers=mp_tracers,
         )
         t2 = out["air_temperature"]
         qv2 = out["specific_humidity"]
@@ -514,10 +581,11 @@ class _Model:
             )
             store_hook(sd)
 
-        q_new = torch.stack([qv2, qc2])
-        if self.state.q.shape[0] > 2:
-            # hydrometeors beyond (qv, qc) pass through unchanged
-            q_new = torch.cat([q_new, self.state.q[2:]], dim=0)
+        extra = ([out[k] for k in MP_TRACER_NAMES]
+                 if mp_tracers is not None else [])
+        # species beyond the suite's prognostic set pass through unchanged
+        q_new = torch.stack([qv2, qc2] + extra)
+        q_new = torch.cat([q_new, self.state.q[q_new.shape[0]:]], dim=0)
         self.state = self.state._replace(
             q=q_new.to(dtype),
             u=out["u_dgrid"].to(dtype),

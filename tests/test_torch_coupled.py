@@ -184,15 +184,19 @@ def test_split_stages_compose_to_fused(dense_dir):
     assert set(df) == set(d1) | set(d2) | set(d3)
 
 
-@pytest.mark.parametrize("suite", ["simple", "none"])
+@pytest.mark.parametrize("suite", ["simple", "none", "gfs_gfdl"])
 def test_physics_stage_of_other_suites_matches_jax(suite):
     """The compiled step's "simple" (saturation adjustment) and "none"
-    physics branches: the JAX package's physics stage and the port's on
+    physics branches, and the GFS suite with GFDL microphysics over six
+    advected species: the JAX package's physics stage and the port's on
     the same moist, perturbed state."""
     from fv3net_tpu.runtime.compiled_loop import build_compiled_step
 
     kw = dict(npx=N + 1, npz=NZ, physics_suite=suite, hydrostatic=False,
               dt_atmos=DT, n_split=4, dtype="float64")
+    if suite == "gfs_gfdl":
+        kw.update(physics_suite="gfs", microphysics_scheme="gfdl",
+                  prognostic_mp_tracers=True, do_radiation=False)
     jwrapper.initialize(jwrapper.ModelConfig(**kw))
     jm = jwrapper.get_model()
     twrapper.initialize(twrapper.ModelConfig(**kw), device="cpu")
@@ -202,6 +206,7 @@ def test_physics_stage_of_other_suites_matches_jax(suite):
     q = np.asarray(jm.state.q).copy()
     q[0] = 2e-2 * rng.rand(6, NZ, N, N)  # supersaturated in places
     q[1] = 1e-4 * rng.rand(6, NZ, N, N)
+    q[2:] = 1e-4 * rng.rand(*q[2:].shape)  # the GFDL hydrometeors
     _, jstages = build_compiled_step(jm, None, split=True)
     _, tstages = tcl.build_compiled_step(tm, None, split=True)
     tsfc, tp0 = np.asarray(jm.tsfc), np.zeros((6, N, N))
@@ -223,8 +228,8 @@ def test_physics_stage_of_other_suites_matches_jax(suite):
     for name, got, want in (("total_precip", ttp, jtp),
                             ("precip_rate", tpr, jpr)):
         assert_close_scaled(got.numpy(), np.asarray(want), RTOL, name=name)
-    if suite == "simple":
-        assert (np.asarray(jpr) > 0).any()  # the adjustment rained
+    if suite in ("simple", "gfs_gfdl"):
+        assert (np.asarray(jpr) > 0).any()  # the physics rained
 
 
 @pytest.mark.parametrize("output", ["dQu", "dQv", "dQx_wind", "dQp"])

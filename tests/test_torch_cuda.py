@@ -557,3 +557,142 @@ def test_eager_gfs_step_on_card_fires_shallow_convection(dev):
         e_plain = float((p - w).abs().max())
         assert e_card <= 3.0 * e_plain + 1e-7 * float(w.abs().max()), (
             k, e_card, e_plain)
+
+
+# --- the nudged run (restarts, GFDL microphysics, mass-flux convection) ----
+
+
+def _restart_dir(path, n_, nz, seed=0):
+    """INPUT/ written by the port's write_restarts from a seeded state
+    with two species and no w or delz (numpy float64)."""
+    import datetime
+
+    from fv3net_tpu_torch.dycore.hydro import DycoreState
+    from fv3net_tpu_torch.io import restarts
+
+    rng = np.random.RandomState(seed)
+    ak = np.linspace(300.0, 0.0, nz + 1)
+    bk = np.linspace(0.0, 1.0, nz + 1)
+    pe = ak[:, None, None] + bk[:, None, None] * 1e5
+    delp = np.broadcast_to(pe[1:] - pe[:-1], (6, nz, n_, n_)).copy()
+    state = DycoreState(
+        delp, 300.0 + rng.randn(6, nz, n_, n_),
+        rng.randn(6, nz, n_ + 1, n_), rng.randn(6, nz, n_, n_ + 1),
+        1e-3 * rng.rand(2, 6, nz, n_, n_))
+    restarts.write_restarts(
+        restarts.restarts_from_state(state, np.zeros((6, n_, n_)), 300.0),
+        str(path), time=datetime.datetime(2016, 8, 1, 6), subdir="INPUT")
+    return str(path)
+
+
+def test_initialize_from_restart_lands_on_the_card(dev, tmp_path):
+    """With no device, initialize from restart files puts the state on
+    the card, equal to the CPU's ingest of the same files bit for bit."""
+    from fv3net_tpu_torch import wrapper
+
+    cfg = wrapper.ModelConfig(
+        npx=n + 1, npz=8, hydrostatic=False, physics_suite="gfs",
+        microphysics_scheme="gfdl", prognostic_mp_tracers=True,
+        restart_dir=_restart_dir(tmp_path, n, 8))
+    wrapper.initialize(cfg, device="cpu")
+    want = {k: x.clone() for k, x in wrapper.get_model().state._asdict()
+            .items()}
+    wrapper.initialize(cfg)
+    mdl = wrapper.get_model()
+    assert mdl.device.type == "cuda" and mdl.phis.is_cuda
+    assert mdl.state.q.shape[0] == 6 and mdl.time.hour == 6
+    for k, w in want.items():
+        g = getattr(mdl.state, k)
+        assert g.is_cuda, k
+        if k == "delz":  # integrated on each device from the same state
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=0.0)
+        else:
+            assert torch.equal(g.cpu(), w), k
+
+
+def _gfdl_rain_step(device, dtype):
+    """apply_physics of the GFDL suite with six species at C12 x 63 from
+    a dry state with a rain layer aloft, every other process off: the
+    rain falls (and partly evaporates) through the column within the
+    step.  The rain field and the rain reaching the surface, float64 on
+    the CPU."""
+    import dataclasses
+
+    from fv3net_tpu_torch import wrapper
+
+    wrapper.initialize(wrapper.ModelConfig(
+        npx=n + 1, npz=NZ, physics_suite="gfs", microphysics_scheme="gfdl",
+        prognostic_mp_tracers=True, do_radiation=False, hydrostatic=False,
+        dtype=dtype), device=device)
+    mdl = wrapper.get_model()
+    q = torch.zeros_like(mdl.state.q)
+    q[3, :, 20] = 2e-3  # rain at level 20 of 63
+    mdl.state = mdl.state._replace(q=q)
+    mdl.gfs_config = dataclasses.replace(
+        mdl.gfs_config, do_convection=False, do_shallow_convection=False,
+        do_pbl=False, do_surface=False)
+    wrapper.apply_physics()
+    rain = wrapper.get_diagnostic_by_name("rain_precipitation").values
+    return mdl.state.q[3].double().cpu(), torch.as_tensor(rain).double()
+
+
+def test_eager_gfdl_step_on_card_sediments_rain(dev):
+    """The card's GFDL step moves the seeded rain down and out of the
+    column as the CPU's does: at 63 levels every layer is thinner than
+    the rain's fall in a step (6 m/s x 900 s), so the rain reaches the
+    surface within the step, less what evaporates on the way.  Rain at
+    the surface in every column, within 1e-4 of the float64 CPU step
+    (the f32 roundoff of ~40 level updates), and no rain left aloft
+    beyond 1e-4 of the seeded amount."""
+    q_card, rain_card = _gfdl_rain_step(dev, "float32")
+    q_ref, rain_ref = _gfdl_rain_step("cpu", "float64")
+    print(f"rain at the surface on the card: {float(rain_card.min()):.4f}"
+          f"-{float(rain_card.max()):.4f} kg/m2, left aloft "
+          f"{float(q_card.abs().max()):.3e} (CPU float64: "
+          f"{float(rain_ref.min()):.4f}-{float(rain_ref.max()):.4f}, "
+          f"{float(q_ref.abs().max()):.3e})")
+    assert float(rain_card.min()) > 0.0
+    torch.testing.assert_close(rain_card, rain_ref, rtol=1e-4, atol=0.0)
+    assert float((q_card - q_ref).abs().max()) <= 1e-4 * 2e-3
+
+
+def test_sas_mass_flux_fires_on_card_as_on_cpu(dev):
+    """A seeded set of columns, half of them unstable: the SAS trigger
+    fires in the same columns on the card as on the CPU (f32), and the
+    card's f32 result is as close to the CPU's float64 one as the CPU's
+    f32 is (factor 3)."""
+    from fv3net_tpu_torch.physics.convection import sas_mass_flux
+
+    nz, n_ = 20, 8
+    rng = np.random.RandomState(2)
+    pe = np.linspace(100e2, 1000e2, nz + 1)
+    p = 0.5 * (pe[1:] + pe[:-1])
+    t_dry = 300.0 * (p / 1000e2) ** 0.286
+    unstable = rng.rand(6, 1, n_, n_) < 0.5
+
+    def tile(a):
+        return np.broadcast_to(a[None, :, None, None],
+                               (6, a.shape[0], n_, n_)).copy()
+
+    t = np.where(unstable, tile(t_dry - 6.0 * (1 - p / 1000e2)),
+                 tile(t_dry + 30.0 * (1 - p / 1000e2)))
+    t = t + 0.5 * rng.randn(6, nz, n_, n_)
+    qv = np.where(unstable, tile(np.where(p > 800e2, 0.018, 0.002)),
+                  1e-3) * rng.uniform(0.6, 1.1, size=(6, 1, n_, n_))
+    args = (t, qv, tile(p), tile(pe), tile(np.diff(pe)))
+    ref, plain, got = (
+        [x.double().cpu() for x in sas_mass_flux(
+            *(torch.as_tensor(a, dtype=dtype, device=device)
+              for a in args), 900.0)]
+        for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                              (dev, torch.float32)))
+    fired = got[2] > 0
+    print(f"SAS fires in {int(fired.sum())} of {fired.numel()} columns on "
+          f"the card ({int((plain[2] > 0).sum())} on the CPU)")
+    assert 0 < int(fired.sum()) < fired.numel()
+    assert torch.equal(fired, plain[2] > 0)
+    assert torch.equal(fired, ref[2] > 0)
+    for g, p_, r in zip(got, plain, ref):
+        e_card = float((g - r).abs().max())
+        e_plain = float((p_ - r).abs().max())
+        assert e_card <= 3.0 * e_plain + 1e-7 * float(r.abs().max())

@@ -78,8 +78,9 @@ def test_exchange_2d_field():
 
 def test_port_import_leaves_jax_out():
     """Every module of fv3net_tpu_torch (walked with pkgutil, so a new
-    module is covered without a hand list) imports without jax and
-    without fv3net_tpu."""
+    module is covered without a hand list; the host-code subpackages io/,
+    data/ and the physics/ modules of the nudged run among them) imports
+    without jax and without fv3net_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fv3net_tpu_torch as pkg\n"
@@ -88,6 +89,10 @@ def test_port_import_leaves_jax_out():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "assert len(mods) >= 40, mods\n"
+        "for sub in ('io.netcdf3', 'io.restarts', 'data.batches',"
+        " 'data.mappers', 'data.sequences', 'data.synth', 'physics.gfdl_mp',"
+        " 'physics.convection', 'physics.land', 'runtime.nudging'):\n"
+        "    assert 'fv3net_tpu_torch.' + sub in mods, sub\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fv3net_tpu' or m.startswith('fv3net_tpu.')]\n"
         "assert not bad, bad\n"

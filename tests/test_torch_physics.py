@@ -308,13 +308,27 @@ def test_gfs_physics_step(variant):
     (dict(microphysics_scheme="gfdl"), "gfdl_mp.py"),
 ])
 def test_gfs_unported_options_raise(kw, match):
-    args = [torch.as_tensor(C[k]) for k in
-            ("t", "qv", "qc", "u", "v", "delp", "tsfc")]
-    with pytest.raises(NotImplementedError, match=match):
-        tgfs.gfs_physics_step(*args, PTOP, DT,
-                              cfg=tgfs.GFSPhysicsConfig(**kw))
-    with pytest.raises(NotImplementedError, match="gravity_wave_drag"):
-        tgfs.gfs_physics_step(*args, PTOP, DT, h_std=args[-1])
+    """The options that raised before their modules were ported (the
+    mass-flux convection, the GFDL microphysics, the gravity-wave drag
+    through h_std) now run the module named by `match` and agree with the
+    JAX package (tests/test_torch_gfdl.py holds them in depth)."""
+    import sys
+
+    fields = [CONV[k] for k in ("t", "qv", "qc", "u", "v", "delp", "tsfc")]
+    h_std = 300.0 * np.random.RandomState(6).rand(*CONV["tsfc"].shape)
+    for extra in ({}, {"h_std": h_std}):
+        got, want = _run(
+            lambda *a: jgfs.gfs_physics_step(
+                *a[:-1], cfg=jgfs.GFSPhysicsConfig(**kw),
+                **({"h_std": a[-1]} if extra else {})),
+            lambda *a: tgfs.gfs_physics_step(
+                *a[:-1], cfg=tgfs.GFSPhysicsConfig(**kw),
+                **({"h_std": a[-1]} if extra else {})),
+            *fields, PTOP, DT, h_std,
+        )
+        _both(got, want, f"gfs_physics_step {kw} {sorted(extra)}")
+    assert "fv3net_tpu_torch.physics." + match[:-3] in sys.modules
+    assert "gwd_surface_stress" in got[1]
 
 
 def test_radiation_core_and_radupdate():
