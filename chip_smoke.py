@@ -52,9 +52,10 @@ Phases (any failure raises and the script exits non-zero):
      every state field and total_precip by phase 4's rule; columns where
      a physics threshold decided differently in the two f32 runs are
      counted, masked and bounded (FLIP_BOUND);
-  9. coupled path: bench.py rung 3 at C48 x 63 (the dense model written
-     from a seed in the JAX package's dump format, read back through
-     fit.load): per-step kernel launches, ms per step and simulated
+  9. coupled path: bench.py rung 3 at C48 x 63 (the dense model trained
+     on the card as bench.py trains it, runtime.coupled_bench, dumped in
+     the JAX package's format and read back through fit.load): per-step
+     kernel launches, ms per step and simulated
      years per day (CUDA events), ms per stage (dynamics, physics,
      postphysics), finite state, mass gates of each stage and the ML
      fill fractions.
@@ -107,10 +108,48 @@ Phases (any failure raises and the script exits non-zero):
      tendency of T; then state_after_timestep.zarr and
      nudging_tendencies.zarr written, open_nudge_to_fine (dQ1 equal to
      the stored tendency bit for bit) and batches_from_mapper (one batch
-     a step).
+     a step).  The case's directory stays for phases 14-16.
+ 14. training: the train CLI (fit.train.main, --device cuda) on phase
+     13's stores (batches_from_mapper over open_nudge_to_fine: air
+     temperature and specific humidity in, dQ1 and dQ2 out, 4 batches of
+     13824 columns, 126 features each way) with a dense model at
+     DenseHyperparameters' defaults (depth 3, width 64, 20 epochs of
+     batches of 512): ms per training step (fit._shared.train_step
+     between synchronisations, median), samples per second, the mean
+     loss of each epoch (the last below the first); one Adam step and
+     the first ten on the card against the CPU from the same init and
+     batches, held by the f32 spread of the CPU's own run against runs
+     from 1-ulp perturbations of the inputs (parity.f32_rule,
+     HELD_STEPS); the same hold for the transformed family on phase 16's
+     stored data (run in phase 16); the convolutional family on the same
+     batches (one cube a step): ms per step, the loss, and the halo
+     append's forward and backward alone.
+ 15. ML-corrected run: fit.load (no device: the card) of phase 14's
+     model, the wrapper from the case's INPUT/ (nonhydrostatic, GFS with
+     GFDL, six species), ML_STEPS TimeLoop steps with PureMLStepper:
+     launches and ms a step, finite state, dry mass across step_dynamics,
+     column water across apply_physics, the humidity limiter (no q + dQ2
+     dt below 0 where dQ2 dries) and the first step's applied dQ1/dQ2
+     against the CPU's float32 prediction by phase 4's rule (a float64
+     prediction the reference).
+ 16. emulated run: the case's INPUT/ again, with
+     get_hooks(EmulationConfig(storage=...)) storing the gscond inputs
+     and outputs (the Zhao-Carr path the hooks take) every step for
+     STORED_STEPS steps; train_transformed (EMULATOR: the spec of
+     tests/test_transformed_training.py at the family's default
+     architecture, the cloud input without its log) on
+     the card on the first three, held against the CPU as in 14; the
+     emulator (a DerivedModel giving its predictions the state's names,
+     the cloud from the humidity change, gscond_outputs) dumped and, on
+     the held-out step, its mean error against the no-change baseline;
+     then get_hooks(EmulationConfig(gscond=ModelConfig(path))) drives
+     EMULATED_STEPS steps: launches and ms a step, finite state, dry
+     mass, column water, cloud water after each apply_physics >=
+     CLOUD_BOUND.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path, on the coupled C48 path and on the nudged path, K6 on the
-C192 path, K1, K3, K4 and K5 on the prognostic path.  Each kernel's JSON
+C48 main path, on the coupled C48 path and on the nudged, ML-corrected
+and emulated paths, K6 on the C192 path, K1, K3, K4 and K5 on the
+prognostic path.  Each kernel's JSON
 entry holds its launches (from the coupled C48 path for K1-K5, the C192
 path for K6, the probe path for K7/K8; each path's in
 ``launches_by_path``) and its
@@ -1058,8 +1097,10 @@ def hold_flipped(tag, got, plain32, ref64, detectors, flip_bound):
 
 def phase_coupled_parity():
     """One coupled C12 step on the card in f32 against the CPU in f32 and
-    float64, from the same perturbed f32 state (module docstring, 8)."""
+    float64, from the same perturbed f32 state, all with the dense model
+    trained once on the card (module docstring, 8)."""
     n = 12
+    coupled_bench.train_dense_artifact(DENSE_DIR, NZ, "cuda")
     wm, _ = coupled_bench.initialize(n, "cpu", DENSE_DIR, "float32")
     st = wm.get_model().state
     rng = np.random.RandomState(8)
@@ -1093,6 +1134,7 @@ def global_sum(x, area):
 def phase_coupled_path():
     """bench.py rung 3 at C48 x 63 (module docstring, 9)."""
     n = 48
+    coupled_bench.train_dense_artifact(DENSE_DIR, NZ, "cuda")
     wm, model = coupled_bench.initialize(n, "cuda", DENSE_DIR)
     mdl = wm.get_model()
     loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
@@ -1542,9 +1584,9 @@ def phase_nudged_parity():
 
 def phase_nudged_run():
     """The nudged run at C48 x 63 on the card (module docstring, 13).
-    Returns the launches of one step."""
+    Returns the launches of one step and the case's directory (a
+    TemporaryDirectory, kept for phases 14-16)."""
     from fv3net_tpu_torch import data
-    from fv3net_tpu_torch.constants import LATENT_HEAT_VAPORIZATION
     from fv3net_tpu_torch.io import restarts
     from fv3net_tpu_torch.io.zarr_lite import ZarrLiteStore
 
@@ -1568,45 +1610,6 @@ def phase_nudged_run():
         f"card equal the CPU's ingest bit for bit; q "
         f"{tuple(mdl.state.q.shape)}, time {mdl.time}")
 
-    area = torch.as_tensor(mdl.area, dtype=torch.float64, device="cuda")
-    dry, water, hydro = [], [], []  # per step
-
-    def dry_mass_now():
-        st = mdl.state
-        return (st.delp.double() * (1.0 - st.q.double().sum(0))
-                * area[:, None]).sum()
-
-    def water_now():
-        st = mdl.state
-        return ((st.q.double().sum(0) * st.delp.double() / GRAV).sum(1)
-                * area).sum() + 1000.0 * (mdl.total_precip * area).sum()
-
-    def q_min():
-        return mdl.state.q[1:].amin(dim=(1, 2, 3, 4))
-
-    def q_mass(sign):  # [5] float64: sum(q+ or q-) dp area per species
-        q = mdl.state.q[1:].double()
-        q = q.clamp_min(0.0) if sign > 0 else q.clamp_max(0.0)
-        return (q * mdl.state.delp.double() * area[:, None]).sum(
-            dim=(1, 2, 3, 4))
-
-    def step_dynamics():
-        before = dry_mass_now()
-        wrapper._model.step_dynamics()
-        dry.append((before, dry_mass_now()))
-
-    def apply_physics():
-        before, qmin = water_now(), q_min()
-        neg, pos = q_mass(-1), q_mass(1)
-        wrapper._model.apply_physics()
-        evap = (mdl._physics_diags["latent_heat_flux"].double() * area).sum()
-        evap = evap / LATENT_HEAT_VAPORIZATION * mdl.config.dt_atmos
-        water.append((before, water_now(), evap))
-        hydro.append((qmin, q_min(), neg, pos))
-
-    patches = ((wrapper, "step_dynamics", step_dynamics),
-               (wrapper, "apply_physics", apply_physics))
-    originals = [getattr(mod, name) for mod, name, _ in patches]
     tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
                            mdl.config.dt_atmos, postphysics_stepper=nudger,
                            n_steps=NUDGED_STEPS)
@@ -1615,9 +1618,7 @@ def phase_nudged_run():
                                                        names.SPHUM)]
     rows = {v: [] for v in [names.TEMP, names.SPHUM] + tend}
     precip_cols = []
-    try:
-        for mod, name, fn in patches:
-            setattr(mod, name, fn)
+    with budgets(mdl) as rec:
         for time_, diags in tl:
             for v in (names.TEMP, names.SPHUM):
                 rows[v].append(tl.state[v].values)
@@ -1625,27 +1626,10 @@ def phase_nudged_run():
                 rows[v].append(np.asarray(diags[v].values))
             precip_cols.append(int(
                 (mdl._physics_diags["large_scale_precipitation"] > 0).sum()))
-    finally:
-        for (mod, name, _), fn in zip(patches, originals):
-            setattr(mod, name, fn)
-    for i, c in enumerate(tl.timer.launches):
-        check_counts(f"C48x63 nudged step {i}", c, LAUNCHES_NUDGED)
-    report_nudged_times(tl.timer)
-    for k, x in mdl.state._asdict().items():
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"C48x63 nudged: non-finite {k}")
-    rel = [abs(float(a) / float(b) - 1.0) for b, a in dry]
-    say(f"C48x63 nudged dry mass across step_dynamics: max relative change "
-        f"{max(rel):.3e} over {len(rel)} steps (bound {MASS_BOUND})")
-    if not max(rel) <= MASS_BOUND:
-        raise AssertionError(f"nudged dry mass {max(rel):.3e}")
-    res = [abs(float(b - a - e) / float(a)) for a, b, e in water]
-    say(f"C48x63 nudged column water across apply_physics (six species + "
-        f"precipitation - evaporation): max relative residual "
-        f"{max(res):.3e} (bound {WATER_BOUND})")
-    if not max(res) <= WATER_BOUND:
-        raise AssertionError(f"nudged water budget {max(res):.3e}")
-    check_hydrometeors(hydro)
+    check_run("C48x63 nudged", wm, tl, rec, LAUNCHES_NUDGED,
+              ("mainloop", "dynamics", "physics", "postphysics", "tracers",
+               "prephysics"))
+    check_hydrometeors(rec["hydro"])
     say(f"C48x63 nudged GFDL precipitation > 0 in {precip_cols} of "
         f"{6 * n * n} columns (each step)")
     if not min(precip_cols) > 0:
@@ -1682,8 +1666,7 @@ def phase_nudged_run():
         f"{sorted(batches[0])}")
     if len(batches) != NUDGED_STEPS:
         raise AssertionError(f"nudged: {len(batches)} batches")
-    tmp.cleanup()
-    return tl.timer.launches[-1]
+    return tl.timer.launches[-1], tmp
 
 
 def check_hydrometeors(hydro):
@@ -1705,14 +1688,516 @@ def check_hydrometeors(hydro):
         raise AssertionError(f"nudged undershoot {float(worst.max()):.3e}")
 
 
-def report_nudged_times(timer):
-    """ms per step (mainloop) and per substep, median over the steps
-    after the first (each clock read after a synchronisation)."""
-    for name in ("mainloop", "dynamics", "physics", "postphysics",
-                 "tracers", "prephysics"):
-        samples = [1e3 * t for t in timer.times[name]][1:]
-        say(f"C48x63 nudged {name:11s} ms {statistics.median(samples):.3f} "
-            f"(median of {len(samples)}: {[round(t, 3) for t in samples]})")
+# --- phases 14, 15 and 16 ---------------------------------------------------
+
+
+TRAIN_VARIABLES = ([names.TEMP, names.SPHUM], ["dQ1", "dQ2"])
+HELD_STEPS = (1, 10)  # Adam steps held against the CPU (phase 14)
+ML_STEPS = 4  # TimeLoop steps of the ML-corrected run (phase 15)
+STORED_STEPS, EMULATED_STEPS = 4, 3  # phase 16: storage steps, emulated
+# ... the emulated run's launches: the nudged case's dycore (six species)
+LAUNCHES_ML = LAUNCHES_EMULATED = LAUNCHES_NUDGED
+# phase 16's gscond emulator: tests/test_transformed_training.py's spec
+# (T and q differences, their loss, epochs, batches and learning rate;
+# lines 160-185) at the family's default architecture (dense, depth 2,
+# width 256), with one change: the cloud enters as itself, not as
+# log(cloud + 1e-10), since the dycore's tracer transport leaves cloud
+# below -1e-10 (phase 13), where the log is NaN
+EMULATOR_SPEC = [
+    {"to": "tdiff", "before": "air_temperature_input",
+     "after": "air_temperature_after_gscond"},
+    {"to": "qvdiff", "before": "specific_humidity_input",
+     "after": "specific_humidity_after_gscond"},
+]
+EMULATOR = dict(
+    tensor_transform=EMULATOR_SPEC,
+    model={"input_variables": ["air_temperature_input",
+                               "specific_humidity_input",
+                               "cloud_water_mixing_ratio_input"],
+           "direct_out_variables": ["tdiff", "qvdiff"]},
+    loss={"loss_variables": ["tdiff", "qvdiff"]},
+    epochs=50, batch_size=256, learning_rate=1e-3,
+)
+# the hook writes "<name>_output" and apply_physics reads the outputs under
+# the state's names: a DerivedModel gives the emulator's *_after_gscond
+# predictions those names, the cloud as the water the predicted humidity
+# change leaves (cloud_in + qv_in - qv), limited as the Zhao-Carr
+# emulators limit it (CloudLimiter): the emulator conserves water
+EMULATED = ("air_temperature", "specific_humidity",
+            "cloud_water_mixing_ratio")
+GSCOND_KEYS = tuple(f"{v}_{s}" for v in EMULATED
+                    for s in ("input", "after_gscond"))
+CLOUD_BOUND = -1e-10  # cloud water after apply_physics (phase 16)
+
+
+def gscond_outputs(X, out):
+    """The emulated T, q and cloud under the state's names (EMULATED), from
+    the hook's inputs X and the transformed model's predictions `out`."""
+    from fv3net_tpu_torch.emulation import transforms as tr
+
+    qv_in = np.asarray(X[tr.QV_INPUT].data, np.float64)
+    cloud_in = np.asarray(X[tr.CLOUD_INPUT].data, np.float64)
+    y = {tr.T_GSCOND: np.asarray(out[tr.T_GSCOND].data, np.float64),
+         tr.QV_GSCOND: np.asarray(out[tr.QV_GSCOND].data, np.float64)}
+    y[tr.CLOUD_GSCOND] = cloud_in + qv_in - y[tr.QV_GSCOND]
+    y = tr.CloudLimiter().backward(y)
+    ref = out[tr.T_GSCOND]
+    return {v: ref.with_data(y[f"{v}_after_gscond"]) for v in EMULATED}
+
+
+class StepClock:
+    """Replaces fit._shared.train_step: each step between synchronisations,
+    its ms and its loss recorded (phase 14)."""
+
+    def __init__(self):
+        self.ms, self.loss = [], []
+
+    def __enter__(self):
+        from fv3net_tpu_torch.fit import _shared
+
+        self.real = _shared.train_step
+
+        def step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = self.real(*args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.loss.append(float(loss))
+            return loss
+
+        _shared.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from fv3net_tpu_torch.fit import _shared
+
+        _shared.train_step = self.real
+
+
+def hold_training(tag, train, batch, steps_batch):
+    """One Adam step and the first 10 (HELD_STEPS) of `train(batches,
+    device)` on the card against the CPU from the same init and batches:
+    the card's parameters within the f32 spread of the CPU's (its f32 run
+    against runs from parity.SPREAD_RUNS 1-ulp perturbations of the
+    inputs, parity.f32_rule).  `batch` holds [sample, feature] arrays;
+    each hold trains on its first steps x steps_batch samples, one
+    epoch."""
+    from fv3net_tpu_torch.convert import module_flax_params
+
+    def params(model):
+        return {f"{layer}.{k}": torch.as_tensor(v)
+                for layer, p in module_flax_params(model.module).items()
+                for k, v in p.items()}
+
+    for steps in HELD_STEPS:
+        sub = {k: v[: steps * steps_batch] for k, v in batch.items()}
+        with StepClock() as clock:
+            got = params(train(sub, "cuda"))
+        if len(clock.ms) != steps:
+            raise AssertionError(f"{tag}: {len(clock.ms)} steps, not {steps}")
+        cpu = params(train(sub, "cpu"))
+        runs = [params(train(parity.perturb_ulp(sub, s), "cpu"))
+                for s in range(parity.SPREAD_RUNS)]
+        worst = ("", 0.0, 0.0)
+        for k, (err, bnd, _, errs, finite) in parity.f32_rule(
+                got, runs, cpu).items():
+            if not (finite and err <= bnd):
+                raise AssertionError(f"{tag} after {steps} steps: {k} "
+                                     f"{err:.3e} > {bnd:.3e} (spread {errs})")
+            worst = max(worst, (k, err, bnd), key=lambda w: w[1] / max(
+                w[2], 1e-300))
+        say(f"{tag}: {steps} Adam step(s) on the card against the CPU: "
+            f"worst {worst[0]} {worst[1]:.3e} (bound {worst[2]:.3e})")
+
+
+def train_dense_held(batch_q, device):
+    from fv3net_tpu_torch import fit
+
+    return fit.train_dense_model(
+        fit.DenseHyperparameters(epochs=1), [batch_q],
+        input_variables=TRAIN_VARIABLES[0],
+        output_variables=TRAIN_VARIABLES[1], device=device)
+
+
+def phase_training(root):
+    """The train CLI at full width on the nudged run's stores (module
+    docstring, 14).  Returns the model's directory."""
+    from fv3net_tpu_torch import data, fit
+    from fv3net_tpu_torch.fit import train as fit_train
+    from fv3net_tpu_torch.util.quantity import Quantity
+
+    out = os.path.join(root, "out")
+    data_cfg = {"function": "batches_from_mapper", "kwargs": {
+        "mapper_function": "open_nudge_to_fine",
+        "mapper_kwargs": {"url": out},
+        "variable_names": sum(TRAIN_VARIABLES, [])}}
+    train_cfg = {"model_type": "dense", "hyperparameters": {},
+                 "input_variables": TRAIN_VARIABLES[0],
+                 "output_variables": TRAIN_VARIABLES[1]}
+    paths = {}
+    for name, cfg in (("training", train_cfg), ("data", data_cfg)):
+        paths[name] = os.path.join(root, f"{name}.yml")
+        with open(paths[name], "w") as f:
+            json.dump(cfg, f)  # JSON is YAML
+    model_dir = os.path.join(root, "dense_model")
+    hp = fit.DenseHyperparameters()
+    batches = data.open_batches_from_config(data_cfg)
+    nsamp = sum(b[names.TEMP].shape[0] * b[names.TEMP].shape[2]
+                * b[names.TEMP].shape[3] for b in batches)
+    nfeat = sum(b[v].shape[1] for b in batches[:1]
+                for v in TRAIN_VARIABLES[0])
+    t0 = time.perf_counter()
+    with StepClock() as clock:
+        fit_train.main([paths["training"], paths["data"], model_dir,
+                        "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    per_epoch = -(-nsamp // hp.batch_size)
+    if len(clock.ms) != hp.epochs * per_epoch:
+        raise AssertionError(f"training: {len(clock.ms)} steps")
+    ms = statistics.median(clock.ms)
+    first = float(np.mean(clock.loss[:per_epoch]))
+    last = float(np.mean(clock.loss[-per_epoch:]))
+    say(f"C48 training (train CLI, dense depth {hp.depth} width {hp.width}, "
+        f"{len(batches)} batches, {nsamp} samples of {nfeat} features, "
+        f"{hp.epochs} epochs of {per_epoch} steps of {hp.batch_size}): ms "
+        f"per step {ms:.4f} (median of {len(clock.ms)}, "
+        f"{min(clock.ms):.4f}-{max(clock.ms):.4f}), samples/s "
+        f"{hp.batch_size / ms * 1e3:.1f}; whole CLI {wall:.1f} s "
+        f"({hp.epochs * nsamp / wall:.1f} samples/s)")
+    say(f"C48 training mean loss: first epoch {first:.6e}, last epoch "
+        f"{last:.6e} (each epoch: {[round(float(np.mean(clock.loss[i:i + per_epoch])), 6) for i in range(0, len(clock.loss), per_epoch)]})")
+    if not last < first:
+        raise AssertionError(f"training loss did not fall: {first} {last}")
+    # one step and the first ten against the CPU, on the CLI's samples
+    packers = [fit.ArrayPacker(v) for v in TRAIN_VARIABLES]
+    X, Y = (np.concatenate([p.to_array(b) for b in batches])
+            for p in packers)
+    dims = ("sample", "z")
+    rows = {v: a for p, M in zip(packers, (X, Y))
+            for v, a in zip(p.names, np.split(M, len(p.names), axis=1))}
+    hold_training(
+        "C48 dense training", lambda b, device: train_dense_held(
+            {k: Quantity(v, dims) for k, v in b.items()}, device),
+        rows, hp.batch_size)
+    train_convolutional(batches)
+    return model_dir
+
+
+def train_convolutional(batches):
+    """The convolutional family on the same batches (one cube a step, at
+    ConvolutionalHyperparameters' defaults): ms per step, the loss, and
+    the halo append's forward and backward alone (autograd's scatter-add
+    through the exchange's gather) at the step's shape."""
+    from fv3net_tpu_torch import fit
+
+    hp = fit.ConvolutionalHyperparameters()
+    with StepClock() as clock:
+        model = fit.train_convolutional_model(
+            hp, batches, input_variables=TRAIN_VARIABLES[0],
+            output_variables=TRAIN_VARIABLES[1], device="cuda")
+    n = len(batches)
+    first, last = np.mean(clock.loss[:n]), np.mean(clock.loss[-n:])
+    x = torch.randn(6, 48, 48, model.module.convs[0].in_channels,
+                    device="cuda", requires_grad=True)
+    h = model.n_halo
+    ct = torch.randn(6, 48 + 2 * h, 48 + 2 * h, x.shape[-1], device="cuda")
+
+    def halo_fwd_bwd():
+        x.grad = None
+        (fit.append_halos(x, h) * ct).sum().backward()
+
+    halo_ms = cuda_ms(halo_fwd_bwd)
+    fwd_ms = cuda_ms(lambda: fit.append_halos(x.detach(), h))
+    say(f"C48 convolutional training (filters {hp.filters}, depth "
+        f"{hp.depth}, kernel {hp.kernel_size}, halo {h}, {hp.epochs} "
+        f"epochs of {n} cubes): ms per step "
+        f"{statistics.median(clock.ms):.4f} (median of {len(clock.ms)}); "
+        f"mean loss first epoch {first:.6e}, last {last:.6e}; "
+        f"append_halos on [6, 48, 48, {x.shape[-1]}]: forward "
+        f"{fwd_ms:.4f} ms, forward + backward {halo_ms:.4f} ms")
+    if not (last < first and all(bool(torch.isfinite(p).all())
+                                  for p in model.module.parameters())):
+        raise AssertionError(f"convolutional training: {first} {last}")
+
+
+@contextlib.contextmanager
+def budgets(mdl):
+    """wrapper.step_dynamics and apply_physics patched to record, each
+    step: the dry mass before and after step_dynamics ("dry"), the column
+    water (six species + precipitation) before and after apply_physics
+    with the surface evaporation of the step ("water"), and the
+    hydrometeors' minima before and after apply_physics with their
+    negative and positive mass before it ("hydro"; phases 13, 15, 16).
+    Yields the dict of lists."""
+    from fv3net_tpu_torch.constants import LATENT_HEAT_VAPORIZATION
+
+    area = torch.as_tensor(mdl.area, dtype=torch.float64, device="cuda")
+    rec = {"dry": [], "water": [], "hydro": []}
+
+    def dry_mass_now():
+        st = mdl.state
+        return (st.delp.double() * (1.0 - st.q.double().sum(0))
+                * area[:, None]).sum()
+
+    def water_now():
+        st = mdl.state
+        return ((st.q.double().sum(0) * st.delp.double() / GRAV).sum(1)
+                * area).sum() + 1000.0 * (mdl.total_precip * area).sum()
+
+    def q_min():
+        return mdl.state.q[1:].amin(dim=(1, 2, 3, 4))
+
+    def q_mass(sign):  # [5] float64: sum(q+ or q-) dp area per species
+        q = mdl.state.q[1:].double()
+        q = q.clamp_min(0.0) if sign > 0 else q.clamp_max(0.0)
+        return (q * mdl.state.delp.double() * area[:, None]).sum(
+            dim=(1, 2, 3, 4))
+
+    def step_dynamics():
+        before = dry_mass_now()
+        real[0]()
+        rec["dry"].append((before, dry_mass_now()))
+
+    def apply_physics():
+        before, qmin = water_now(), q_min()
+        neg, pos = q_mass(-1), q_mass(1)
+        real[1]()
+        evap = (mdl._physics_diags["latent_heat_flux"].double() * area).sum()
+        evap = evap / LATENT_HEAT_VAPORIZATION * mdl.config.dt_atmos
+        rec["water"].append((before, water_now(), evap))
+        rec["hydro"].append((qmin, q_min(), neg, pos))
+
+    real = (wrapper.step_dynamics, wrapper.apply_physics)
+    wrapper.step_dynamics, wrapper.apply_physics = step_dynamics, apply_physics
+    try:
+        yield rec
+    finally:
+        wrapper.step_dynamics, wrapper.apply_physics = real
+
+
+def check_run(tag, wm, tl, rec, expected,
+              clocks=("mainloop", "dynamics", "physics", "postphysics")):
+    """Launches (`expected`) and ms of each step (the loop's SyncTimer;
+    the median after the first step), a finite state, dry mass across
+    step_dynamics (MASS_BOUND) and column water across apply_physics
+    (WATER_BOUND) from `rec` (budgets)."""
+    for i, c in enumerate(tl.timer.launches):
+        check_counts(f"{tag} step {i}", c, expected)
+    for name in clocks:
+        samples = [1e3 * t for t in tl.timer.times[name]][1:]
+        say(f"{tag} {name:11s} ms {statistics.median(samples):.3f} (median "
+            f"of {len(samples)}: {[round(t, 3) for t in samples]})")
+    for k, x in wm.get_model().state._asdict().items():
+        if x is not None and not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: non-finite {k}")
+    rel = [abs(float(a) / float(b) - 1.0) for b, a in rec["dry"]]
+    res = [abs(float(b - a - e) / float(a)) for a, b, e in rec["water"]]
+    say(f"{tag}: dry mass across step_dynamics {max(rel):.3e} (bound "
+        f"{MASS_BOUND}), column water (six species + precipitation - "
+        f"evaporation) across apply_physics {max(res):.3e} (bound "
+        f"{WATER_BOUND}), {len(rel)} steps")
+    if not (max(rel) <= MASS_BOUND and max(res) <= WATER_BOUND):
+        raise AssertionError(f"{tag}: budgets {max(rel)} {max(res)}")
+
+
+def dense_reference(model_cpu, inputs):
+    """The CPU's float32 prediction and a float64 one (the network in
+    float64) of dQ1 and dQ2 from `inputs` (name -> host array), each
+    through the stepper's humidity limiter."""
+    import copy
+
+    from fv3net_tpu_torch.runtime.steppers import non_negative_sphum
+    from fv3net_tpu_torch.util.quantity import Quantity
+
+    dims = ("tile", "z", "y", "x")
+    X = {k: Quantity(v, dims) for k, v in inputs.items()}
+    pred32 = model_cpu.predict(X)
+    x = model_cpu.scaler_in.normalize(model_cpu.packer_in.to_array(X))
+    with torch.no_grad():
+        yn = copy.deepcopy(model_cpu.module).double()(
+            torch.as_tensor(x, dtype=torch.float64))
+    pred64 = model_cpu.packer_out.to_state(
+        model_cpu.scaler_out.denormalize(yn.numpy()), model_cpu._templates(X))
+    out = []
+    for p in (pred32, pred64):
+        q = torch.as_tensor(inputs[names.SPHUM], dtype=torch.float64)
+        d1, d2 = non_negative_sphum(
+            q, *(torch.as_tensor(p[k].values, dtype=torch.float64)
+                 for k in ("dQ1", "dQ2")), dt=DT_ATMOS)
+        out.append({"dQ1": d1, "dQ2": d2})
+    return out
+
+
+class FirstCall:
+    """A postphysics stepper that records its first call's inputs (host
+    arrays) and the tendencies it returns (float64, on the CPU)."""
+
+    def __init__(self, stepper, input_variables):
+        self.stepper = stepper
+        self.label = stepper.label
+        self.input_variables = input_variables
+        self.first = None
+
+    def __call__(self, time_, state):
+        out = self.stepper(time_, state)
+        if self.first is None:
+            self.first = (
+                {k: state[k].values for k in self.input_variables},
+                {k: torch.as_tensor(q.data).double().cpu()
+                 for k, q in out[0].items()})
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.stepper, name)
+
+
+def phase_ml_run(root, model_dir):
+    """The ML-corrected C48 run with the trained model (module
+    docstring, 15).  Returns the launches of one step."""
+    from fv3net_tpu_torch import fit
+    from fv3net_tpu_torch.runtime import steppers
+
+    model = fit.load(model_dir)  # no device: the card, as a user's run
+    devices = {p.device.type for p in model.module.parameters()}
+    if devices != {"cuda"}:
+        raise AssertionError(f"fit.load put the model on {devices}")
+    wm, _ = nudged_case.initialize(48, "cuda", root)
+    mdl = wm.get_model()
+    stepper = FirstCall(steppers.PureMLStepper(model, dt=mdl.config.dt_atmos),
+                        model.input_variables)
+    tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
+                           mdl.config.dt_atmos, postphysics_stepper=stepper,
+                           n_steps=ML_STEPS)
+    tl.timer = SyncTimer()
+    with budgets(mdl) as rec:
+        for _ in tl:
+            pass
+    check_run("C48x63 ML-corrected", wm, tl, rec, LAUNCHES_ML)
+    # the humidity limiter: no humidity below 0 where the tendency dries
+    inputs, applied = stepper.first
+    drying = applied["dQ2"].numpy() < 0
+    q_after = (inputs[names.SPHUM] + DT_ATMOS * applied["dQ2"].numpy())
+    low = float(q_after[drying].min()) if drying.any() else 0.0
+    say(f"C48x63 ML-corrected: dQ2 dries {int(drying.sum())} of "
+        f"{drying.size} cells, q + dQ2 dt there >= {low:.3e}; q after "
+        f"{ML_STEPS} steps >= {float(mdl.state.q[0].min()):.3e}")
+    if not low >= 0.0:
+        raise AssertionError("ML-corrected: the limiter left q < 0")
+    cpu32, ref64 = dense_reference(fit.load(model_dir, "cpu"), inputs)
+    for k, (err, bnd, scale, errs, finite) in parity.f32_rule(
+            applied, [cpu32], ref64).items():
+        say(f"C48x63 ML-corrected step 0 applied {k}: card vs f64 "
+            f"{err:.3e} (bound {bnd:.3e}, CPU f32 {errs[0]:.3e}, scale "
+            f"{scale:.3e})")
+        if not (finite and err <= bnd):
+            raise AssertionError(f"ML-corrected {k}: {err} > {bnd}")
+    return tl.timer.launches[-1]
+
+
+def gscond_batch(store, steps):
+    """The stored gscond inputs and outputs (GSCOND_KEYS) of `steps` as
+    one dict of [sample, z] float32 columns."""
+    return {k: np.concatenate([
+        np.moveaxis(store.read(k)[t], 1, -1).reshape(-1, NZ)
+        for t in steps]) for k in GSCOND_KEYS}
+
+
+def train_emulator(batch, device, epochs=None):
+    from fv3net_tpu_torch.fit import transformed
+
+    hp = transformed.TransformedParameters.from_dict(
+        dict(EMULATOR, epochs=EMULATOR["epochs"] if epochs is None
+             else epochs))
+    return transformed.train_transformed(hp, [batch], device=device)
+
+
+def phase_emulated_run(root):
+    """The emulated C48 run (module docstring, 16).  Returns the launches
+    of one emulated step."""
+    from fv3net_tpu_torch import emulation, fit
+    from fv3net_tpu_torch.io.zarr_lite import ZarrLiteStore
+    from fv3net_tpu_torch.util.quantity import Quantity
+
+    def run(hooks, n_steps, tag):
+        wm, _ = nudged_case.initialize(48, "cuda", root)
+        mdl = wm.get_model()
+        mdl.emulation_hooks = hooks
+        tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
+                               mdl.config.dt_atmos, n_steps=n_steps)
+        tl.timer = SyncTimer()
+        with budgets(mdl) as rec:
+            for _ in tl:
+                pass
+        check_run(tag, wm, tl, rec, LAUNCHES_EMULATED)
+        # the cloud water's minimum after each apply_physics
+        return tl, [float(after[0]) for _, after, _, _ in rec["hydro"]]
+
+    store_dir = os.path.join(root, "emulation")
+    os.makedirs(store_dir)
+    with contextlib.chdir(store_dir):  # the storage hook writes to "."
+        run(emulation.get_hooks(emulation.EmulationConfig(
+            storage=emulation.StorageConfig(output_freq_sec=int(DT_ATMOS)))),
+            STORED_STEPS, "C48x63 storage (Zhao-Carr gscond)")
+    store = ZarrLiteStore(os.path.join(store_dir, "state_output.zarr"))
+    stored = store.read(GSCOND_KEYS[0]).shape[0]
+    if stored != STORED_STEPS:
+        raise AssertionError(f"storage hook: {stored} steps stored")
+    train = gscond_batch(store, range(STORED_STEPS - 1))
+    held = gscond_batch(store, [STORED_STEPS - 1])
+    cond = np.abs(train["cloud_water_mixing_ratio_after_gscond"]
+                  - train["cloud_water_mixing_ratio_input"]) > 1e-15
+    say(f"C48x63 storage: {stored} steps of {sorted(store.arrays())}; "
+        f"gscond changes the cloud in {int(cond.sum())} of {cond.size} "
+        f"training cells")
+    if not cond.any():
+        raise AssertionError("emulated run: the stored state does not "
+                             "condense")
+    hold_training("C48 transformed training",
+                  lambda b, device: train_emulator(b, device, epochs=1),
+                  train, EMULATOR["batch_size"])
+    with StepClock() as clock:
+        t0 = time.perf_counter()
+        emulator = train_emulator(train, "cuda")
+        wall = time.perf_counter() - t0
+    ms = statistics.median(clock.ms)
+    nsamp = len(train[GSCOND_KEYS[0]])
+    per_epoch = -(-nsamp // EMULATOR["batch_size"])
+    say(f"C48 transformed training (dense depth 2 width 256, {nsamp} "
+        f"columns, {EMULATOR['epochs']} epochs of {per_epoch} steps of "
+        f"{EMULATOR['batch_size']}): ms per step {ms:.4f} (median of "
+        f"{len(clock.ms)}), samples/s {EMULATOR['batch_size'] / ms * 1e3:.1f};"
+        f" {wall:.1f} s; mean loss first epoch "
+        f"{np.mean(clock.loss[:per_epoch]):.6e}, last "
+        f"{np.mean(clock.loss[-per_epoch:]):.6e}")
+    for v in EMULATED:
+        fit.DerivedModel.DERIVED_FUNCTIONS[v] = (
+            lambda X, out, v=v: gscond_outputs(X, out)[v])
+    path = os.path.join(root, "gscond_emulator")
+    fit.dump(fit.DerivedModel(emulator, list(EMULATED)), path)
+    # the held-out step: the emulator's error against no change
+    loaded = fit.load(path)
+    X = {k: Quantity(held[k], ("sample", "z")) for k in GSCOND_KEYS
+         if k.endswith("_input")}
+    pred = loaded.predict(X)
+    ratios = {}
+    for v in EMULATED:
+        truth = held[f"{v}_after_gscond"].astype(np.float64)
+        err = np.abs(np.asarray(pred[v].data) - truth).mean()
+        base = np.abs(held[f"{v}_input"] - truth).mean()
+        ratios[v] = err / base
+    say(f"C48x63 emulator on the held-out step: mean error / no-change "
+        f"baseline {', '.join(f'{k} {r:.4f}' for k, r in ratios.items())}")
+    if not ratios["specific_humidity"] < 1.0:
+        raise AssertionError(f"emulator: {ratios}")
+    tl, cloud = run(emulation.get_hooks(emulation.EmulationConfig(
+        gscond=emulation.ModelConfig(path=path))), EMULATED_STEPS,
+        "C48x63 emulated")
+    say(f"C48x63 emulated: cloud water after each apply_physics >= "
+        f"{[f'{c:.3e}' for c in cloud]} (bound {CLOUD_BOUND})")
+    if not min(cloud) >= CLOUD_BOUND:
+        raise AssertionError(f"emulated: cloud water {min(cloud)}")
+    return tl.timer.launches[-1]
 
 
 def width(name, n):
@@ -1722,19 +2207,16 @@ def width(name, n):
     return n if name in INTERIOR else n + 2 * H
 
 
-def kernel_summary(stats, probe_launches, main_launches, fused_launches,
-                   coupled_launches, prognostic_launches, nudged_launches):
+def kernel_summary(stats, probe_launches, paths):
     """The kernels' JSON entries: each kernel's launches from the path
     that runs it (K1-K5 from the coupled C48 path, K6 from the C192 path)
-    beside its launches on every path, and its phase-3 numbers at that
-    path's shapes (the probes at theirs); prints launches x (time -
-    bound) of each kernel on each path."""
-    by_path = {"probe": probe_launches, "C48": main_launches,
-               "C192 fused": fused_launches, "coupled C48": coupled_launches,
-               "prognostic C48": prognostic_launches,
-               "nudged C48": nudged_launches}
-    counted = dict(coupled_launches,
-                   fv_tp_2d_multi5=fused_launches["fv_tp_2d_multi5"],
+    beside its launches on every path (`paths`: name -> launches a step,
+    all at C48 but "C192 fused"), and its phase-3 numbers at that path's
+    shapes (the probes at theirs); prints launches x (time - bound) of
+    each kernel on each path."""
+    by_path = dict({"probe": probe_launches}, **paths)
+    counted = dict(paths["coupled C48"],
+                   fv_tp_2d_multi5=paths["C192 fused"]["fv_tp_2d_multi5"],
                    probe_affine=probe_launches["probe_affine"],
                    probe_stencil=probe_launches["probe_stencil"])
     shape = dict({k: width(k, 48) for k in META}, fv_tp_2d_multi5=198,
@@ -1751,11 +2233,8 @@ def kernel_summary(stats, probe_launches, main_launches, fused_launches,
             "host_ms": r["host_ms"],
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         })
-    for tag, launches, n in (("C48", main_launches, 48),
-                             ("coupled C48", coupled_launches, 48),
-                             ("C192 fused", fused_launches, 192),
-                             ("prognostic C48", prognostic_launches, 48),
-                             ("nudged C48", nudged_launches, 48)):
+    for tag, launches in paths.items():
+        n = 192 if tag == "C192 fused" else 48
         loss = {
             k: round(c * (stats[(k, width(k, n))]["ms"]
                           - stats[(k, width(k, n))]["bound_ms"]), 4)
@@ -1781,10 +2260,16 @@ def main():
     phase_hydrostatic_parity()
     prognostic_launches = phase_prognostic_run()
     phase_nudged_parity()
-    nudged_launches = phase_nudged_run()
-    kernels = kernel_summary(stats, probe_launches, main_launches,
-                             fused_launches, coupled_launches,
-                             prognostic_launches, nudged_launches)
+    nudged_launches, case = phase_nudged_run()
+    model_dir = phase_training(case.name)
+    ml_launches = phase_ml_run(case.name, model_dir)
+    emulated_launches = phase_emulated_run(case.name)
+    case.cleanup()
+    kernels = kernel_summary(stats, probe_launches, {
+        "C48": main_launches, "C192 fused": fused_launches,
+        "coupled C48": coupled_launches,
+        "prognostic C48": prognostic_launches, "nudged C48": nudged_launches,
+        "ML-corrected C48": ml_launches, "emulated C48": emulated_launches})
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

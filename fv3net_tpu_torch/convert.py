@@ -5,8 +5,9 @@ The dycore has no trained weights: its "weights" are the metric terms
 plain numpy arrays -- e.g. ``np.asarray`` of every array field of a JAX
 ``SWMetrics`` or ``DycoreState`` -- so that both packages can step with
 identical inputs.  The dense ML model's flax parameters (the JAX
-package's ``fit/dense.py`` dump format) map onto the port's ``nn.Linear``
-layers.  Nothing here imports JAX.
+package's ``fit`` dump format: dense, precipitative, transformed and
+convolutional families) map onto the port's ``nn.Linear`` and
+``nn.Conv2d`` layers.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -66,56 +67,88 @@ def state_to_numpy(state: DycoreState) -> dict:
     }
 
 
-# --- dense ML models --------------------------------------------------------
+# --- ML models ---------------------------------------------------------------
+#
+# The JAX package dumps a flax model's parameters as ``params.npy``, the
+# ``ravel_pytree`` vector of its params dict: dict keys sorted as strings at
+# every level (so ``Dense_10`` comes before ``Dense_2``, and named heads such
+# as ``q1_head`` after every ``Dense_i``), and within a layer ``bias`` before
+# ``kernel``.  A Dense kernel is [in, out] (``nn.Linear``'s weight
+# transposed), a Conv kernel [kh, kw, in, out] (HWIO; torch's Conv2d weight
+# is OIHW).  ``shapes`` maps each flax layer name to its kernel shape; the
+# bias has the kernel's last extent.
 
 
-def _dense_layer_names(n_layers: int):
-    """flax names of an MLP's Dense layers in jax.tree_util's flattening
-    order: dict keys sorted as strings, so Dense_10 comes before Dense_2."""
-    return sorted(f"Dense_{i}" for i in range(n_layers))
-
-
-def flax_dense_params_from_flat(flat: np.ndarray, n_in: int,
-                                widths, n_out: int) -> dict:
-    """Unravel ``params.npy`` of the JAX package's ``DenseModel.dump``
-    (``ravel_pytree`` of the flax params) into {"Dense_i": {"bias",
-    "kernel"}} numpy arrays, kernel [in, out].  Within a layer the
-    flattening order is bias, then kernel."""
-    sizes = [n_in] + list(widths) + [n_out]
+def flax_params_from_flat(flat: np.ndarray, shapes: Mapping) -> dict:
+    """Unravel a ``params.npy`` vector into {name: {"bias", "kernel"}}
+    numpy arrays, the layers of `shapes` ({name: kernel shape})."""
     flat = np.asarray(flat)
     params, i = {}, 0
-    for name in _dense_layer_names(len(sizes) - 1):
-        k = int(name.split("_")[1])
-        fan_in, fan_out = sizes[k], sizes[k + 1]
-        bias = flat[i : i + fan_out]
-        i += fan_out
-        kernel = flat[i : i + fan_in * fan_out].reshape(fan_in, fan_out)
-        i += fan_in * fan_out
+    for name in sorted(shapes):
+        kshape = tuple(shapes[name])
+        bias = flat[i : i + kshape[-1]]
+        i += kshape[-1]
+        size = int(np.prod(kshape))
+        kernel = flat[i : i + size].reshape(kshape)
+        i += size
         params[name] = {"bias": bias, "kernel": kernel}
     if i != flat.size:
         raise ValueError(
-            f"params.npy holds {flat.size} values, the MLP {sizes} needs {i}"
+            f"params.npy holds {flat.size} values, the layers {dict(shapes)}"
+            f" need {i}"
         )
     return params
 
 
-def flax_dense_params_to_flat(params: Mapping) -> np.ndarray:
-    """Inverse of flax_dense_params_from_flat: the ``params.npy`` vector
-    of a {"Dense_i": {"bias", "kernel"}} dict."""
+def flax_params_to_flat(params: Mapping) -> np.ndarray:
+    """Inverse of flax_params_from_flat: the ``params.npy`` vector of a
+    {name: {"bias", "kernel"}} dict."""
     return np.concatenate([
         np.asarray(params[name][k]).ravel()
-        for name in _dense_layer_names(len(params))
-        for k in ("bias", "kernel")
+        for name in sorted(params) for k in ("bias", "kernel")
     ])
 
 
-def dense_state_dict_from_flax(params: Mapping) -> dict:
-    """A flax MLP params dict (numpy) -> the state dict of the port's
-    ``fit.dense._MLP`` (``layers.i`` = flax ``Dense_i``; nn.Linear's weight
-    is the flax kernel transposed)."""
-    out = {}
-    for name, p in params.items():
-        i = int(name.split("_")[1])
-        out[f"layers.{i}.weight"] = torch.tensor(np.asarray(p["kernel"]).T)
-        out[f"layers.{i}.bias"] = torch.tensor(np.asarray(p["bias"]))
-    return out
+def _weight_from_kernel(kernel) -> torch.Tensor:
+    kernel = np.asarray(kernel)
+    if kernel.ndim == 4:  # HWIO -> OIHW
+        return torch.tensor(kernel.transpose(3, 2, 0, 1).copy())
+    return torch.tensor(kernel.T.copy())
+
+
+def _kernel_from_weight(weight) -> np.ndarray:
+    w = weight.detach().cpu().numpy()
+    if w.ndim == 4:  # OIHW -> HWIO
+        return w.transpose(2, 3, 1, 0).copy()
+    return w.T.copy()
+
+
+def module_flax_params(module) -> dict:
+    """The flax params dict {name: {"bias", "kernel"}} (numpy) of one of
+    the port's models: a module whose ``flax_layers()`` maps each flax
+    layer name to its nn.Linear or nn.Conv2d."""
+    return {
+        name: {"bias": m.bias.detach().cpu().numpy(),
+               "kernel": _kernel_from_weight(m.weight)}
+        for name, m in module.flax_layers().items()
+    }
+
+
+def module_from_flax(module, params: Mapping) -> None:
+    """Load a flax params dict (numpy) into one of the port's models."""
+    with torch.no_grad():
+        for name, m in module.flax_layers().items():
+            m.weight.copy_(_weight_from_kernel(params[name]["kernel"]))
+            m.bias.copy_(torch.as_tensor(np.asarray(params[name]["bias"])))
+
+
+def module_to_flat(module) -> np.ndarray:
+    """The ``params.npy`` vector of one of the port's models."""
+    return flax_params_to_flat(module_flax_params(module))
+
+
+def module_from_flat(module, flat: np.ndarray) -> None:
+    """Load a ``params.npy`` vector into one of the port's models."""
+    shapes = {name: tuple(_kernel_from_weight(m.weight).shape)
+              for name, m in module.flax_layers().items()}
+    module_from_flax(module, flax_params_from_flat(flat, shapes))

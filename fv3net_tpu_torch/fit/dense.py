@@ -1,15 +1,16 @@
-"""Dense-network predictor (the JAX package's ``fit/dense.py``, serving
-only).
+"""Dense-network trainer and predictor (the JAX package's ``fit/dense.py``,
+the ``dense`` training function; fv3fit/keras/_models/dense.py:90).
 
-``DenseModel.load`` reads the directory the JAX package's
-``DenseModel.dump`` writes (``meta.json``, ``params.npy``,
-``packer_{in,out}.json``, ``scaler_{in,out}.npz``); the flax MLP becomes
-an ``nn.Module`` of ``nn.Linear`` layers.  ``train_dense_model`` waits for
-the training slice (ROADMAP).
+The flax MLP becomes an ``nn.Module`` of ``nn.Linear`` layers (flax
+``Dense_i`` is ``layers[i]``), optax's Adam ``torch.optim.Adam``
+(``_shared.adam``).  ``DenseModel.dump`` writes, and ``DenseModel.load``
+reads, the JAX package's directory (``meta.json``, ``params.npy``,
+``packer_{in,out}.json``, ``scaler_{in,out}.npz``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Dict, Sequence
@@ -18,8 +19,28 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..convert import module_from_flat, module_to_flat
 from ..util.quantity import Quantity
-from ._shared import ArrayPacker, Predictor, StandardScaler, register
+from . import _shared
+from ._shared import (
+    ArrayPacker,
+    Predictor,
+    StandardScaler,
+    register,
+    register_training_function,
+)
+
+
+@dataclasses.dataclass
+class DenseHyperparameters:
+    """(fv3fit DenseHyperparameters subset)"""
+
+    depth: int = 3
+    width: int = 64
+    epochs: int = 20
+    batch_size: int = 512
+    learning_rate: float = 1e-3
+    seed: int = 0
 
 
 class _MLP(nn.Module):
@@ -39,6 +60,9 @@ class _MLP(nn.Module):
         for layer in self.layers[:-1]:
             x = torch.relu(layer(x))
         return self.layers[-1](x)
+
+    def flax_layers(self):
+        return {f"Dense_{i}": m for i, m in enumerate(self.layers)}
 
 
 @register("dense")
@@ -111,7 +135,8 @@ class DenseModel(Predictor):
 
     def predict(self, X):
         """Predict from a State; a tensor state runs ``pure_fn`` on its
-        device, a numpy state goes through the packers on the host."""
+        device, a numpy state goes through the packers and host scalers,
+        the MLP on the model's device, and comes back as numpy."""
         ref = X[self.input_variables[0]]
         if isinstance(ref.data, torch.Tensor):
             outs = self.pure_fn(
@@ -122,10 +147,7 @@ class DenseModel(Predictor):
             return {k: templates[k].with_data(v) for k, v in outs.items()}
         x = self.packer_in.to_array(X)
         xn = self.scaler_in.normalize(x)
-        with torch.no_grad():
-            yn = self.module(
-                torch.as_tensor(np.asarray(xn, np.float32))
-            ).numpy()
+        yn = _shared.run_on_device(self.module, xn)
         y = self.scaler_out.denormalize(yn)
         return self.packer_out.to_state(y, self._templates(X))
 
@@ -146,21 +168,28 @@ class DenseModel(Predictor):
             out[name] = Quantity(np.zeros(shape, np.float32), dims, "")
         return out
 
-    @classmethod
-    def load(cls, path: str) -> "DenseModel":
-        from ..convert import (
-            dense_state_dict_from_flax,
-            flax_dense_params_from_flat,
-        )
+    def dump(self, path: str):
+        self.packer_in.dump(os.path.join(path, "packer_in.json"))
+        self.packer_out.dump(os.path.join(path, "packer_out.json"))
+        self.scaler_in.dump(os.path.join(path, "scaler_in.npz"))
+        self.scaler_out.dump(os.path.join(path, "scaler_out.npz"))
+        np.save(os.path.join(path, "params.npy"), module_to_flat(self.module))
+        meta = {
+            "input_variables": self.input_variables,
+            "output_variables": self.output_variables,
+            "widths": list(self.module.widths),
+            "n_out": self.module.n_out,
+            "n_in": int(self.scaler_in.mean.shape[0]),
+        }
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
 
+    @classmethod
+    def load(cls, path: str, device) -> "DenseModel":
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         module = _MLP(meta["n_in"], meta["widths"], meta["n_out"])
-        params = flax_dense_params_from_flat(
-            np.load(os.path.join(path, "params.npy")),
-            meta["n_in"], meta["widths"], meta["n_out"],
-        )
-        module.load_state_dict(dense_state_dict_from_flax(params))
+        module_from_flat(module, np.load(os.path.join(path, "params.npy")))
         return cls(
             meta["input_variables"],
             meta["output_variables"],
@@ -170,5 +199,51 @@ class DenseModel(Predictor):
             StandardScaler.load_from(
                 os.path.join(path, "scaler_out.npz")
             ),
-            module,
+            module.to(device),
         )
+
+
+def _mse(module, xb, yb):
+    return torch.mean((module(xb) - yb) ** 2)
+
+
+@register_training_function("dense", DenseHyperparameters)
+def train_dense_model(
+    hyperparameters: DenseHyperparameters,
+    train_batches,
+    validation_batches=None,
+    input_variables=None,
+    output_variables=None,
+    device=None,
+) -> DenseModel:
+    """Train an MLP mapping stacked input columns to output columns, in
+    float32 on `device` (the CUDA device unless the caller names one).
+
+    train_batches: iterable of State dicts (each a batch).
+    """
+    hp = hyperparameters
+    device = _shared.train_device(device, "train_dense_model")
+    batches = list(train_batches)
+    packer_in = ArrayPacker(list(input_variables))
+    packer_out = ArrayPacker(list(output_variables))
+    X = np.concatenate([packer_in.to_array(b) for b in batches])
+    Y = np.concatenate([packer_out.to_array(b) for b in batches])
+    scaler_in = StandardScaler().fit(X)
+    scaler_out = StandardScaler().fit(Y)
+    Xn = scaler_in.normalize(X).astype(np.float32)
+    Yn = scaler_out.normalize(Y).astype(np.float32)
+
+    module = _MLP(X.shape[1], (hp.width,) * hp.depth, Y.shape[1])
+    _shared.init_params(module, hp.seed)
+    module.to(device)
+    optimizer = _shared.adam(module, hp.learning_rate)
+    _shared.fit_epochs(
+        module, optimizer, _mse,
+        (torch.as_tensor(Xn, device=device),
+         torch.as_tensor(Yn, device=device)),
+        hp.batch_size, hp.epochs, hp.seed,
+    )
+    return DenseModel(
+        list(input_variables), list(output_variables), packer_in,
+        packer_out, scaler_in, scaler_out, module,
+    )

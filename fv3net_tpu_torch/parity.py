@@ -113,15 +113,17 @@ def moist_inputs(n, nz, noisy=False, seed=10):
 
 
 def perturb_ulp(inputs, seed):
-    """`inputs` (moist_inputs) with every value moved by one f32 ulp, up
-    or down at random (seeded)."""
+    """`inputs` (name -> Quantity, as moist_inputs gives, or name -> host
+    array) with every value moved by one f32 ulp, up or down at random
+    (seeded)."""
     rng = np.random.RandomState(seed)
     out = {}
     for k, q in sorted(inputs.items()):
-        x = np.asarray(q.values, dtype=np.float32)
+        x = np.asarray(getattr(q, "values", q), dtype=np.float32)
         up = rng.rand(*x.shape) < 0.5
         to = np.where(up, np.float32(np.inf), np.float32(-np.inf))
-        out[k] = q.with_data(np.nextafter(x, to).astype(np.float32))
+        y = np.nextafter(x, to).astype(np.float32)
+        out[k] = q.with_data(y) if hasattr(q, "with_data") else y
     return out
 
 

@@ -102,9 +102,9 @@ def _dycore_steps(N, fused):
 def _coupled_steps(N, out):
     """(step, traced step) of the coupled configuration: the fused step
     through CompiledTimeLoop, and its three stages in turn, labelled."""
-    wm, model = coupled_bench.initialize(
-        N, "cuda", os.path.join(out, f"dense_c{N}")
-    )
+    dense = coupled_bench.train_dense_artifact(
+        os.path.join(out, f"dense_c{N}"), NZ, "cuda")
+    wm, model = coupled_bench.initialize(N, "cuda", dense)
     loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
     mdl = loop.mdl
     _, stages = compiled_loop.build_compiled_step(mdl, model, split=True)

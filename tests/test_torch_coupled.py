@@ -113,7 +113,7 @@ def two_steps(dense_dir):
 
     tm = _init_torch()
     loop = tcl.CompiledTimeLoop(
-        twrapper, ml_model=tfit.load(dense_dir), n_steps=2
+        twrapper, ml_model=tfit.load(dense_dir, "cpu"), n_steps=2
     )
     tsteps = [(_snapshot(tm, lambda x: x.numpy()), d) for _, d in loop]
     assert tm.time == jtime
@@ -168,7 +168,7 @@ def test_coupled_diagnostics_match_jax(two_steps, key):
 def test_split_stages_compose_to_fused(dense_dir):
     """The three stage functions, run in turn, give the fused step bit
     for bit, and their diagnostics together are the fused step's."""
-    model = tfit.load(dense_dir)
+    model = tfit.load(dense_dir, "cpu")
     mdl = _init_torch()
     fused, stages = tcl.build_compiled_step(mdl, model, split=True)
     tsfc = torch.as_tensor(mdl.tsfc)
@@ -236,7 +236,7 @@ def test_physics_stage_of_other_suites_matches_jax(suite):
 def test_dropped_tendency_outputs_raise_at_build(dense_dir, output):
     """The JAX package fills and then drops wind and delp tendencies;
     the port refuses a model with such outputs when the step is built."""
-    model = copy.copy(tfit.load(dense_dir))
+    model = copy.copy(tfit.load(dense_dir, "cpu"))
     model.output_variables = ["dQ1", output]
     with pytest.raises(NotImplementedError, match=output):
         tcl.build_compiled_step(_init_torch(), model)

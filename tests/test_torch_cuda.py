@@ -403,8 +403,8 @@ def test_time_loop_steppers_on_cuda_state(dev, tmp_path, model):
     sst = Quantity(np.full((6, n, n), 295.0), ("tile", "y", "x"))
     target = state["x_wind"].values + 3.0
     if model == "dense":
-        ml = fit.load(coupled_bench.write_dense_artifact(
-            str(tmp_path / "dense"), NZ))
+        ml = fit.load(coupled_bench.train_dense_artifact(
+            str(tmp_path / "dense"), NZ, dev))
     else:
         ml = _ConstantTendency()
     post = steppers.CombinedStepper([
@@ -696,3 +696,75 @@ def test_sas_mass_flux_fires_on_card_as_on_cpu(dev):
         e_card = float((g - r).abs().max())
         e_plain = float((p_ - r).abs().max())
         assert e_card <= 3.0 * e_plain + 1e-7 * float(r.abs().max())
+
+
+def test_fit_load_defaults_to_the_card(dev, tmp_path):
+    """fit.load without a device puts the model's parameters on the card,
+    and a numpy state's prediction (run there, returned as numpy) is as
+    close to the float64 prediction as the CPU's float32 one is
+    (parity.f32_rule)."""
+    import copy
+
+    from fv3net_tpu_torch import fit, parity
+    from fv3net_tpu_torch.runtime import coupled_bench
+
+    path = coupled_bench.train_dense_artifact(str(tmp_path / "dense"), NZ,
+                                              "cpu")
+    card, cpu = fit.load(path), fit.load(path, "cpu")
+    assert {p.device.type for p in card.module.parameters()} == {"cuda"}
+    rng = np.random.RandomState(11)
+    dims = ("tile", "z", "y", "x")
+    X = {"air_temperature": Quantity(
+             260.0 + 10.0 * rng.randn(6, NZ, n, n), dims),
+         "specific_humidity": Quantity(
+             5e-3 + 1e-3 * rng.randn(6, NZ, n, n), dims)}
+    got, want32 = card.predict(X), cpu.predict(X)
+    x = cpu.scaler_in.normalize(cpu.packer_in.to_array(X))
+    with torch.no_grad():
+        yn = copy.deepcopy(cpu.module).double()(
+            torch.as_tensor(x, dtype=torch.float64)).numpy()
+    ref64 = cpu.packer_out.to_state(cpu.scaler_out.denormalize(yn),
+                                    cpu._templates(X))
+    for k in ("dQ1", "dQ2"):
+        assert isinstance(got[k].data, np.ndarray)
+    as_t = lambda s: {k: torch.as_tensor(np.asarray(q.data))  # noqa: E731
+                      for k, q in s.items()}
+    for k, (err, bound, scale, errs, finite) in parity.f32_rule(
+            as_t(got), [as_t(want32)], as_t(ref64)).items():
+        assert finite and err <= bound, (k, err, bound, errs)
+
+
+@pytest.mark.parametrize("family", ["dense", "convolutional"])
+def test_training_step_on_card_matches_cpu(dev, family):
+    """One Adam step of a family on the card and on the CPU from the same
+    seeded init and batch: the parameters agree to 1e-5 of each array's
+    magnitude (float32 on both; the convolutions in IEEE float32 on the
+    card, not TF32)."""
+    from fv3net_tpu_torch import fit
+    from fv3net_tpu_torch.convert import module_flax_params
+
+    rng = np.random.RandomState(12)
+    dims = ("tile", "z", "y", "x")
+    a = rng.randn(6, 8, n, n).astype(np.float32)
+    batch = {"a": Quantity(a, dims),
+             "b": Quantity(2.0 * a + 0.1 * rng.randn(*a.shape).astype(
+                 np.float32), dims)}
+    if family == "dense":
+        def train(device):
+            return fit.train_dense_model(
+                fit.DenseHyperparameters(epochs=1, batch_size=6 * n * n),
+                [batch], input_variables=["a"], output_variables=["b"],
+                device=device)
+    else:
+        def train(device):
+            return fit.train_convolutional_model(
+                fit.ConvolutionalHyperparameters(epochs=1), [batch],
+                input_variables=["a"], output_variables=["b"],
+                device=device)
+    got = module_flax_params(train(dev).module)
+    want = module_flax_params(train("cpu").module)
+    for layer, p in want.items():
+        for k, w in p.items():
+            scale = np.abs(p["kernel"]).max()
+            err = np.abs(got[layer][k] - w).max()
+            assert err <= 1e-5 * scale, (layer, k, err, scale)

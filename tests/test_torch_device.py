@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from fv3net_tpu_torch import convert, wrapper
+from fv3net_tpu_torch import convert, fit, wrapper
 from fv3net_tpu_torch.device import default_device
+from fv3net_tpu_torch.fit import train as fit_train
+from fv3net_tpu_torch.fit import transformed as fit_transformed
 from fv3net_tpu_torch.dycore import hydro, sw
 from fv3net_tpu_torch.grid import CubedSphereGrid
 from fv3net_tpu_torch.runtime import cli, segmented_run
@@ -39,6 +41,18 @@ ENTRY_POINTS = {
     "runfv3 append": lambda: cli.main(["append", "no-such-run"]),
     "runfv3 run-native": lambda: cli.main(
         ["run-native", "no-such-config.yml", "no-such-run"]),
+    "fit.load": lambda: fit.load("no-such-model"),
+    "fit.train": lambda: fit_train.main(
+        ["no-such-training.yml", "no-such-data.yml", "no-such-out"]),
+    "train_dense_model": lambda: fit.train_dense_model(
+        fit.DenseHyperparameters(), []),
+    "train_precipitative_model": lambda: fit.train_precipitative_model(
+        fit.PrecipitativeHyperparameters(), [],
+        input_variables=["pressure_thickness_of_atmospheric_layer"]),
+    "train_convolutional_model": lambda: fit.train_convolutional_model(
+        fit.ConvolutionalHyperparameters(), []),
+    "train_transformed": lambda: fit.train_transformed(
+        fit_transformed.TransformedParameters(), []),
 }
 
 

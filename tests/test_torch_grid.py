@@ -79,8 +79,9 @@ def test_exchange_2d_field():
 def test_port_import_leaves_jax_out():
     """Every module of fv3net_tpu_torch (walked with pkgutil, so a new
     module is covered without a hand list; the host-code subpackages io/,
-    data/ and the physics/ modules of the nudged run among them) imports
-    without jax and without fv3net_tpu."""
+    data/ and the physics/ modules of the nudged run among them, and every
+    module file of fit/ and emulation/) imports without jax and without
+    fv3net_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fv3net_tpu_torch as pkg\n"
@@ -93,6 +94,15 @@ def test_port_import_leaves_jax_out():
         " 'data.mappers', 'data.sequences', 'data.synth', 'physics.gfdl_mp',"
         " 'physics.convection', 'physics.land', 'runtime.nudging'):\n"
         "    assert 'fv3net_tpu_torch.' + sub in mods, sub\n"
+        "import glob, os\n"
+        "for pkg_dir in ('fit', 'emulation'):\n"
+        "    files = glob.glob(os.path.join(pkg.__path__[0], pkg_dir, '*.py'))\n"
+        "    assert len(files) >= 5, files\n"
+        "    for f in files:\n"
+        "        stem = os.path.basename(f)[:-3]\n"
+        "        name = 'fv3net_tpu_torch.' + pkg_dir + (\n"
+        "            '' if stem == '__init__' else '.' + stem)\n"
+        "        assert name in mods + ['fv3net_tpu_torch.' + pkg_dir], name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fv3net_tpu' or m.startswith('fv3net_tpu.')]\n"
         "assert not bad, bad\n"

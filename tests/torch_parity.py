@@ -50,3 +50,51 @@ def assert_close_scaled(got, want, rtol, name=""):
     assert err <= rtol * scale, (
         f"{name}: max abs err {err:.3e} > {rtol} * {scale:.3e}"
     )
+
+
+def use_jax_init(monkeypatch, jmodule, shape, seed=0):
+    """Make the port's next trainings start from the JAX package's initial
+    parameters: flax's ``jmodule.init(PRNGKey(seed), zeros(shape))``, as
+    the JAX package's training functions draw them, replaces
+    ``fv3net_tpu_torch.fit._shared.init_params`` (JAX's threefry draws
+    cannot be matched).  Returns the flax params as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from fv3net_tpu_torch import convert
+    from fv3net_tpu_torch.fit import _shared
+
+    params = jmodule.init(jax.random.PRNGKey(seed), jnp.zeros(shape))
+    params = flax_numpy(params["params"])
+    monkeypatch.setattr(
+        _shared, "init_params",
+        lambda module, seed: convert.module_from_flax(module, params),
+    )
+    return params
+
+
+def flax_numpy(params):
+    """A flax params dict {layer: {"bias", "kernel"}} as numpy arrays."""
+    return {name: {k: np.asarray(v) for k, v in p.items()}
+            for name, p in params.items()}
+
+
+def assert_params_close(jparams, tmodule, rtol, name=""):
+    """Each layer's bias and kernel of one of the port's models against a
+    flax params dict: max|diff| <= rtol * max|flax value| per array."""
+    from fv3net_tpu_torch.convert import module_flax_params
+
+    got = module_flax_params(tmodule)
+    want = flax_numpy(jparams)
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for layer in want:
+        for k in ("bias", "kernel"):
+            assert got[layer][k].shape == want[layer][k].shape
+            w = want[layer][k]
+            if not np.abs(w).max() > 0.0:  # zero biases of one step
+                w = want[layer]["kernel"]
+            err = np.abs(got[layer][k] - want[layer][k]).max()
+            assert err <= rtol * np.abs(w).max(), (
+                f"{name} {layer}.{k}: max abs err {err:.3e} > {rtol} * "
+                f"{np.abs(w).max():.3e}"
+            )
