@@ -53,8 +53,9 @@ Phases (any failure raises and the script exits non-zero):
      a physics threshold decided differently in the two f32 runs are
      counted, masked and bounded (FLIP_BOUND);
   9. coupled path: bench.py rung 3 at C48 x 63 (the dense model trained
-     on the card as bench.py trains it, runtime.coupled_bench, dumped in
-     the JAX package's format and read back through fit.load): per-step
+     on the card as bench.py trains it, but on waves mapped onto physical
+     sizes, so it is not bench.py's model: runtime.coupled_bench, dumped
+     in the JAX package's format and read back through fit.load): per-step
      kernel launches, ms per step and simulated
      years per day (CUDA events), ms per stage (dynamics, physics,
      postphysics), finite state, mass gates of each stage and the ML
@@ -114,16 +115,20 @@ Phases (any failure raises and the script exits non-zero):
      temperature and specific humidity in, dQ1 and dQ2 out, 4 batches of
      13824 columns, 126 features each way) with a dense model at
      DenseHyperparameters' defaults (depth 3, width 64, 20 epochs of
-     batches of 512): ms per training step (fit._shared.train_step
-     between synchronisations, median), samples per second, the mean
-     loss of each epoch (the last below the first); one Adam step and
-     the first ten on the card against the CPU from the same init and
-     batches, held by the f32 spread of the CPU's own run against runs
-     from 1-ulp perturbations of the inputs (parity.f32_rule,
-     HELD_STEPS); the same hold for the transformed family on phase 16's
-     stored data (run in phase 16); the convolutional family on the same
-     batches (one cube a step): ms per step, the loss, and the halo
-     append's forward and backward alone.
+     batches of 512): the loop of training steps (fit._shared.run_steps)
+     timed between one pair of synchronisations, ms per step and samples
+     per second over it (TrainClock), the mean loss of each epoch (the
+     last below the first); one epoch with each step between
+     synchronisations (its median, a per-layer statistic, StepClock); one
+     Adam step and the first ten on the card against the CPU from the
+     same init and batches, held by the f32 spread of the CPU's own run
+     against runs from 1-ulp perturbations of the inputs
+     (parity.f32_rule, HELD_STEPS): the parameters leaf by leaf and the
+     predictions on a fixed batch (the last HOLD_ROWS samples); the same
+     hold for the transformed family on phase 16's stored data (run in
+     phase 16); the convolutional family on the same batches (one cube a
+     step): ms per step, the loss, and the halo append's forward and
+     backward alone.
  15. ML-corrected run: fit.load (no device: the card) of phase 14's
      model, the wrapper from the case's INPUT/ (nonhydrostatic, GFS with
      GFDL, six species), ML_STEPS TimeLoop steps with PureMLStepper:
@@ -140,7 +145,7 @@ Phases (any failure raises and the script exits non-zero):
      architecture, the cloud input without its log) on
      the card on the first three, held against the CPU as in 14; the
      emulator (a DerivedModel giving its predictions the state's names,
-     the cloud from the humidity change, gscond_outputs) dumped and, on
+     the cloud from the humidity change: emulation.gscond) dumped and, on
      the held-out step, its mean error against the no-change baseline;
      then get_hooks(EmulationConfig(gscond=ModelConfig(path))) drives
      EMULATED_STEPS steps: launches and ms a step, finite state, dry
@@ -176,6 +181,7 @@ from fv3net_tpu_torch import parity, probe, wrapper
 from fv3net_tpu_torch.constants import GRAV
 from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.dycore.hydro import benchmark_state, make_dycore_stepper
+from fv3net_tpu_torch.emulation import gscond
 from fv3net_tpu_torch.grid import CubedSphereGrid, halo_exchange
 from fv3net_tpu_torch.grid import halo as halo_mod
 from fv3net_tpu_torch.kernel_times import _halo_padded
@@ -1161,7 +1167,9 @@ def phase_coupled_path():
     dt = mdl.config.dt_atmos
     say(f"C48x63 coupled ms/step {ms:.3f} (median of {len(times)}: "
         f"{[round(t, 3) for t in times]}) simulated years/day "
-        f"{dt / (ms / 1e3) / 365.25:.4f}")
+        f"{dt / (ms / 1e3) / 365.25:.4f} (the MLP trained on waves mapped "
+        f"onto physical sizes, not bench.py's raw waves: "
+        f"coupled_bench.PHYSICAL)")
 
     _, stages = compiled_loop.build_compiled_step(mdl, model, split=True)
     stage_ms = {k: [] for k in stages}
@@ -1720,37 +1728,64 @@ EMULATOR = dict(
 )
 # the hook writes "<name>_output" and apply_physics reads the outputs under
 # the state's names: a DerivedModel gives the emulator's *_after_gscond
-# predictions those names, the cloud as the water the predicted humidity
-# change leaves (cloud_in + qv_in - qv), limited as the Zhao-Carr
-# emulators limit it (CloudLimiter): the emulator conserves water
-EMULATED = ("air_temperature", "specific_humidity",
-            "cloud_water_mixing_ratio")
-GSCOND_KEYS = tuple(f"{v}_{s}" for v in EMULATED
+# predictions those names (fv3net_tpu_torch.emulation.gscond, ROADMAP
+# quirk (m)); the emulator conserves water
+GSCOND_KEYS = tuple(f"{v}_{s}" for v in gscond.EMULATED
                     for s in ("input", "after_gscond"))
 CLOUD_BOUND = -1e-10  # cloud water after apply_physics (phase 16)
+HOLD_ROWS = 4096  # the fixed batch the held models predict (phase 14)
 
 
-def gscond_outputs(X, out):
-    """The emulated T, q and cloud under the state's names (EMULATED), from
-    the hook's inputs X and the transformed model's predictions `out`."""
-    from fv3net_tpu_torch.emulation import transforms as tr
+class TrainClock:
+    """Replaces fit._shared.run_steps, the loop of training steps: each
+    call timed between one pair of synchronisations, its steps' losses
+    read after it (nothing in the loop waits for the card).  `seconds`,
+    `steps` and `loss` (host floats) over every call."""
 
-    qv_in = np.asarray(X[tr.QV_INPUT].data, np.float64)
-    cloud_in = np.asarray(X[tr.CLOUD_INPUT].data, np.float64)
-    y = {tr.T_GSCOND: np.asarray(out[tr.T_GSCOND].data, np.float64),
-         tr.QV_GSCOND: np.asarray(out[tr.QV_GSCOND].data, np.float64)}
-    y[tr.CLOUD_GSCOND] = cloud_in + qv_in - y[tr.QV_GSCOND]
-    y = tr.CloudLimiter().backward(y)
-    ref = out[tr.T_GSCOND]
-    return {v: ref.with_data(y[f"{v}_after_gscond"]) for v in EMULATED}
+    def __init__(self):
+        self.seconds, self.loss = 0.0, []
+
+    @property
+    def steps(self):
+        return len(self.loss)
+
+    def __enter__(self):
+        from fv3net_tpu_torch.fit import _shared
+
+        self.real = _shared.run_steps
+
+        def run_steps(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = self.real(*args)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.loss += torch.stack(losses).cpu().tolist() if losses else []
+            return losses
+
+        _shared.run_steps = run_steps
+        return self
+
+    def __exit__(self, *exc):
+        from fv3net_tpu_torch.fit import _shared
+
+        _shared.run_steps = self.real
+
+    def report(self, samples):
+        """ms per step and samples/s over the loop's time (`samples` the
+        samples of all its epochs)."""
+        return (f"ms per step {1e3 * self.seconds / self.steps:.4f} "
+                f"({self.steps} steps in {self.seconds:.4f} s), samples/s "
+                f"{samples / self.seconds:.1f}")
 
 
 class StepClock:
-    """Replaces fit._shared.train_step: each step between synchronisations,
-    its ms and its loss recorded (phase 14)."""
+    """Replaces fit._shared.train_step: each step between two
+    synchronisations and its ms recorded, a per-layer statistic (the
+    loop's own time is TrainClock's)."""
 
     def __init__(self):
-        self.ms, self.loss = [], []
+        self.ms = []
 
     def __enter__(self):
         from fv3net_tpu_torch.fit import _shared
@@ -1763,7 +1798,6 @@ class StepClock:
             loss = self.real(*args)
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
-            self.loss.append(float(loss))
             return loss
 
         _shared.train_step = step
@@ -1775,14 +1809,21 @@ class StepClock:
         _shared.train_step = self.real
 
 
-def hold_training(tag, train, batch, steps_batch):
+def hold_training(tag, train, batch, steps_batch, predict, lr,
+                  perturb=parity.perturb_ulp):
     """One Adam step and the first 10 (HELD_STEPS) of `train(batches,
-    device)` on the card against the CPU from the same init and batches:
-    the card's parameters within the f32 spread of the CPU's (its f32 run
-    against runs from parity.SPREAD_RUNS 1-ulp perturbations of the
-    inputs, parity.f32_rule).  `batch` holds [sample, feature] arrays;
-    each hold trains on its first steps x steps_batch samples, one
-    epoch."""
+    device)` on the card against the CPU from the same init and batches,
+    by the f32 spread of the CPU's f32 run against runs from
+    parity.SPREAD_RUNS 1-ulp perturbations of the inputs
+    (parity.f32_rule): the parameters leaf by leaf, and the predictions
+    `predict(model)` (name -> array) on a fixed batch output by output.
+    A 1-ulp input change moves a few parameter elements by a good part of
+    an Adam step (`lr`): they set their leaf's bound, and they are
+    counted.  The
+    predictions sum over every parameter, so their bound stays tight.
+    `batch` holds [sample, feature] arrays; each hold trains on its first
+    steps x steps_batch samples, one epoch; `perturb(batch, seed)` moves
+    every value of it by one ulp."""
     from fv3net_tpu_torch.convert import module_flax_params
 
     def params(model):
@@ -1790,25 +1831,37 @@ def hold_training(tag, train, batch, steps_batch):
                 for layer, p in module_flax_params(model.module).items()
                 for k, v in p.items()}
 
+    def outputs(model):
+        return params(model), {k: torch.as_tensor(np.asarray(v))
+                               for k, v in predict(model).items()}
+
     for steps in HELD_STEPS:
         sub = {k: v[: steps * steps_batch] for k, v in batch.items()}
-        with StepClock() as clock:
-            got = params(train(sub, "cuda"))
-        if len(clock.ms) != steps:
-            raise AssertionError(f"{tag}: {len(clock.ms)} steps, not {steps}")
-        cpu = params(train(sub, "cpu"))
-        runs = [params(train(parity.perturb_ulp(sub, s), "cpu"))
+        with TrainClock() as clock:
+            got = outputs(train(sub, "cuda"))
+        if clock.steps != steps:
+            raise AssertionError(f"{tag}: {clock.steps} steps, not {steps}")
+        cpu = outputs(train(sub, "cpu"))
+        runs = [outputs(train(perturb(sub, s), "cpu"))
                 for s in range(parity.SPREAD_RUNS)]
-        worst = ("", 0.0, 0.0)
-        for k, (err, bnd, _, errs, finite) in parity.f32_rule(
-                got, runs, cpu).items():
-            if not (finite and err <= bnd):
-                raise AssertionError(f"{tag} after {steps} steps: {k} "
-                                     f"{err:.3e} > {bnd:.3e} (spread {errs})")
-            worst = max(worst, (k, err, bnd), key=lambda w: w[1] / max(
-                w[2], 1e-300))
-        say(f"{tag}: {steps} Adam step(s) on the card against the CPU: "
-            f"worst {worst[0]} {worst[1]:.3e} (bound {worst[2]:.3e})")
+        moved = sum(int((torch.stack([(r[0][k].double() - v.double()).abs()
+                                      for r in runs]).amax(0)
+                         > 0.1 * lr).sum()) for k, v in cpu[0].items())
+        size = sum(v.numel() for v in cpu[0].values())
+        for what, i in (("parameters", 0), ("predictions", 1)):
+            held = parity.f32_rule(got[i], [r[i] for r in runs], cpu[i])
+            for k, (err, bnd, _, errs, finite) in held.items():
+                if not (finite and err <= bnd):
+                    raise AssertionError(
+                        f"{tag} after {steps} steps: {what} {k} {err:.3e} "
+                        f"> {bnd:.3e} (spread {errs})")
+            say(f"{tag}: {steps} Adam step(s) on the card against the CPU, "
+                f"{what} (card - CPU, bound, max|CPU|): " + ", ".join(
+                    f"{k} {e:.3e} {b:.3e} {s:.3e}"
+                    for k, (e, b, s, _, _) in held.items()))
+        say(f"{tag}: {steps} Adam step(s): a 1-ulp input change moved "
+            f"{moved} of {size} parameters by more than a tenth of one "
+            f"step (lr {lr:g})")
 
 
 def train_dense_held(batch_q, device):
@@ -1848,38 +1901,47 @@ def phase_training(root):
     nfeat = sum(b[v].shape[1] for b in batches[:1]
                 for v in TRAIN_VARIABLES[0])
     t0 = time.perf_counter()
-    with StepClock() as clock:
+    with TrainClock() as clock:
         fit_train.main([paths["training"], paths["data"], model_dir,
                         "--device", "cuda"])
     wall = time.perf_counter() - t0
     per_epoch = -(-nsamp // hp.batch_size)
-    if len(clock.ms) != hp.epochs * per_epoch:
-        raise AssertionError(f"training: {len(clock.ms)} steps")
-    ms = statistics.median(clock.ms)
-    first = float(np.mean(clock.loss[:per_epoch]))
-    last = float(np.mean(clock.loss[-per_epoch:]))
+    if clock.steps != hp.epochs * per_epoch:
+        raise AssertionError(f"training: {clock.steps} steps")
+    epochs = [float(np.mean(clock.loss[i:i + per_epoch]))
+              for i in range(0, clock.steps, per_epoch)]
     say(f"C48 training (train CLI, dense depth {hp.depth} width {hp.width}, "
         f"{len(batches)} batches, {nsamp} samples of {nfeat} features, "
-        f"{hp.epochs} epochs of {per_epoch} steps of {hp.batch_size}): ms "
-        f"per step {ms:.4f} (median of {len(clock.ms)}, "
-        f"{min(clock.ms):.4f}-{max(clock.ms):.4f}), samples/s "
-        f"{hp.batch_size / ms * 1e3:.1f}; whole CLI {wall:.1f} s "
+        f"{hp.epochs} epochs of {per_epoch} steps of {hp.batch_size}): "
+        f"{clock.report(hp.epochs * nsamp)}; whole CLI {wall:.1f} s "
         f"({hp.epochs * nsamp / wall:.1f} samples/s)")
-    say(f"C48 training mean loss: first epoch {first:.6e}, last epoch "
-        f"{last:.6e} (each epoch: {[round(float(np.mean(clock.loss[i:i + per_epoch])), 6) for i in range(0, len(clock.loss), per_epoch)]})")
-    if not last < first:
-        raise AssertionError(f"training loss did not fall: {first} {last}")
-    # one step and the first ten against the CPU, on the CLI's samples
+    say(f"C48 training mean loss: first epoch {epochs[0]:.6e}, last epoch "
+        f"{epochs[-1]:.6e} (each epoch: {[round(e, 6) for e in epochs]})")
+    if not epochs[-1] < epochs[0]:
+        raise AssertionError(f"training loss did not fall: {epochs}")
+    # the samples as the CLI packs them: one step and the first ten
+    # against the CPU, and one epoch with every step between
+    # synchronisations (a per-layer statistic)
     packers = [fit.ArrayPacker(v) for v in TRAIN_VARIABLES]
     X, Y = (np.concatenate([p.to_array(b) for b in batches])
             for p in packers)
     dims = ("sample", "z")
     rows = {v: a for p, M in zip(packers, (X, Y))
             for v, a in zip(p.names, np.split(M, len(p.names), axis=1))}
+    fixed = {v: Quantity(rows[v][-HOLD_ROWS:], dims)
+             for v in TRAIN_VARIABLES[0]}
     hold_training(
         "C48 dense training", lambda b, device: train_dense_held(
             {k: Quantity(v, dims) for k, v in b.items()}, device),
-        rows, hp.batch_size)
+        rows, hp.batch_size,
+        lambda m: {k: q.data for k, q in m.predict(fixed).items()},
+        hp.learning_rate)
+    with StepClock() as steps:
+        train_dense_held({k: Quantity(v, dims) for k, v in rows.items()},
+                         "cuda")
+    say(f"C48 dense training step alone (one epoch, each step between "
+        f"synchronisations): ms {statistics.median(steps.ms):.4f} (median "
+        f"of {len(steps.ms)}, {min(steps.ms):.4f}-{max(steps.ms):.4f})")
     train_convolutional(batches)
     return model_dir
 
@@ -1892,11 +1954,13 @@ def train_convolutional(batches):
     from fv3net_tpu_torch import fit
 
     hp = fit.ConvolutionalHyperparameters()
-    with StepClock() as clock:
+    with TrainClock() as clock:
         model = fit.train_convolutional_model(
             hp, batches, input_variables=TRAIN_VARIABLES[0],
             output_variables=TRAIN_VARIABLES[1], device="cuda")
     n = len(batches)
+    if clock.steps != hp.epochs * n:
+        raise AssertionError(f"convolutional training: {clock.steps} steps")
     first, last = np.mean(clock.loss[:n]), np.mean(clock.loss[-n:])
     x = torch.randn(6, 48, 48, model.module.convs[0].in_channels,
                     device="cuda", requires_grad=True)
@@ -1911,8 +1975,8 @@ def train_convolutional(batches):
     fwd_ms = cuda_ms(lambda: fit.append_halos(x.detach(), h))
     say(f"C48 convolutional training (filters {hp.filters}, depth "
         f"{hp.depth}, kernel {hp.kernel_size}, halo {h}, {hp.epochs} "
-        f"epochs of {n} cubes): ms per step "
-        f"{statistics.median(clock.ms):.4f} (median of {len(clock.ms)}); "
+        f"epochs of {n} cubes): {clock.report(hp.epochs * n * 6 * 48 * 48)}"
+        f" (samples: columns); "
         f"mean loss first epoch {first:.6e}, last {last:.6e}; "
         f"append_halos on [6, 48, 48, {x.shape[-1]}]: forward "
         f"{fwd_ms:.4f} ms, forward + backward {halo_ms:.4f} ms")
@@ -2153,46 +2217,56 @@ def phase_emulated_run(root):
     if not cond.any():
         raise AssertionError("emulated run: the stored state does not "
                              "condense")
+    fixed = {k: Quantity(train[k][-HOLD_ROWS:], ("sample", "z"))
+             for k in GSCOND_KEYS if k.endswith("_input")}
+    # the emulator learns the differences of the input and after-gscond
+    # snapshots, zero where gscond left a cell as it was: both snapshots
+    # of a field move in the same direction, so those zeros stay zeros
     hold_training("C48 transformed training",
                   lambda b, device: train_emulator(b, device, epochs=1),
-                  train, EMULATOR["batch_size"])
-    with StepClock() as clock:
-        t0 = time.perf_counter()
+                  train, EMULATOR["batch_size"],
+                  lambda m: {k: q.data for k, q in m.predict(fixed).items()},
+                  EMULATOR["learning_rate"],
+                  lambda b, seed: parity.perturb_ulp_grouped(
+                      b, seed, lambda k: re.sub("_(input|after_gscond)$",
+                                                "", k)))
+    t0 = time.perf_counter()
+    with TrainClock() as clock:
         emulator = train_emulator(train, "cuda")
-        wall = time.perf_counter() - t0
-    ms = statistics.median(clock.ms)
+    wall = time.perf_counter() - t0
     nsamp = len(train[GSCOND_KEYS[0]])
     per_epoch = -(-nsamp // EMULATOR["batch_size"])
+    if clock.steps != EMULATOR["epochs"] * per_epoch:
+        raise AssertionError(f"transformed training: {clock.steps} steps")
     say(f"C48 transformed training (dense depth 2 width 256, {nsamp} "
         f"columns, {EMULATOR['epochs']} epochs of {per_epoch} steps of "
-        f"{EMULATOR['batch_size']}): ms per step {ms:.4f} (median of "
-        f"{len(clock.ms)}), samples/s {EMULATOR['batch_size'] / ms * 1e3:.1f};"
-        f" {wall:.1f} s; mean loss first epoch "
+        f"{EMULATOR['batch_size']}): "
+        f"{clock.report(EMULATOR['epochs'] * nsamp)}; {wall:.1f} s with "
+        f"its set-up; mean loss first epoch "
         f"{np.mean(clock.loss[:per_epoch]):.6e}, last "
         f"{np.mean(clock.loss[-per_epoch:]):.6e}")
-    for v in EMULATED:
-        fit.DerivedModel.DERIVED_FUNCTIONS[v] = (
-            lambda X, out, v=v: gscond_outputs(X, out)[v])
     path = os.path.join(root, "gscond_emulator")
-    fit.dump(fit.DerivedModel(emulator, list(EMULATED)), path)
-    # the held-out step: the emulator's error against no change
-    loaded = fit.load(path)
-    X = {k: Quantity(held[k], ("sample", "z")) for k in GSCOND_KEYS
-         if k.endswith("_input")}
-    pred = loaded.predict(X)
-    ratios = {}
-    for v in EMULATED:
-        truth = held[f"{v}_after_gscond"].astype(np.float64)
-        err = np.abs(np.asarray(pred[v].data) - truth).mean()
-        base = np.abs(held[f"{v}_input"] - truth).mean()
-        ratios[v] = err / base
-    say(f"C48x63 emulator on the held-out step: mean error / no-change "
-        f"baseline {', '.join(f'{k} {r:.4f}' for k, r in ratios.items())}")
-    if not ratios["specific_humidity"] < 1.0:
-        raise AssertionError(f"emulator: {ratios}")
-    tl, cloud = run(emulation.get_hooks(emulation.EmulationConfig(
-        gscond=emulation.ModelConfig(path=path))), EMULATED_STEPS,
-        "C48x63 emulated")
+    fit.dump(fit.DerivedModel(emulator, list(gscond.EMULATED)), path)
+    # the held-out step: the emulator's error against no change; then the
+    # emulated run, the emulator's outputs under the state's names
+    with gscond.named_outputs():
+        loaded = fit.load(path)
+        X = {k: Quantity(held[k], ("sample", "z")) for k in GSCOND_KEYS
+             if k.endswith("_input")}
+        pred = loaded.predict(X)
+        ratios = {}
+        for v in gscond.EMULATED:
+            truth = held[f"{v}_after_gscond"].astype(np.float64)
+            err = np.abs(np.asarray(pred[v].data) - truth).mean()
+            base = np.abs(held[f"{v}_input"] - truth).mean()
+            ratios[v] = err / base
+        say(f"C48x63 emulator on the held-out step: mean error / no-change "
+            f"baseline {', '.join(f'{k} {r:.4f}' for k, r in ratios.items())}")
+        if not ratios["specific_humidity"] < 1.0:
+            raise AssertionError(f"emulator: {ratios}")
+        tl, cloud = run(emulation.get_hooks(emulation.EmulationConfig(
+            gscond=emulation.ModelConfig(path=path))), EMULATED_STEPS,
+            "C48x63 emulated")
     say(f"C48x63 emulated: cloud water after each apply_physics >= "
         f"{[f'{c:.3e}' for c in cloud]} (bound {CLOUD_BOUND})")
     if not min(cloud) >= CLOUD_BOUND:

@@ -13,9 +13,9 @@ on the model's device and comes back as numpy, as the JAX package's is.
 
 Training runs in float32 with Adam (``adam``: b1 0.9, b2 0.999, eps 1e-8
 outside the square root, as ``optax.adam``); ``init_params`` draws the
-initial weights as flax's defaults do, and ``train_step`` takes one step.
-The families call both through this module, so a test or a measuring
-script can replace either.
+initial weights as flax's defaults do, ``train_step`` takes one step and
+``run_steps`` the loop of steps.  The families call them through this
+module, so a test or a measuring script can replace any of them.
 """
 
 from __future__ import annotations
@@ -195,21 +195,34 @@ def train_step(module: nn.Module, optimizer, loss_fn, batch) -> torch.Tensor:
     return loss.detach()
 
 
+def run_steps(module: nn.Module, optimizer, loss_fn,
+              batches: Iterable) -> list:
+    """One ``train_step`` for each batch of `batches` (tuples of tensors),
+    in order.  Returns each step's loss, tensors on the module's device
+    that nothing has read (so the loop never waits for the device)."""
+    return [train_step(module, optimizer, loss_fn, batch)
+            for batch in batches]
+
+
 def fit_epochs(module: nn.Module, optimizer, loss_fn, tensors: Sequence,
-               batch_size: int, epochs: int, seed: int) -> None:
+               batch_size: int, epochs: int, seed: int) -> list:
     """Train on the rows of `tensors` (on the module's device) as the JAX
     package does: each epoch a ``np.random.RandomState(seed)``
     permutation of the samples, cut into batches of `batch_size` (the last
-    one short), one ``train_step`` a batch."""
+    one short), one ``train_step`` a batch (``run_steps``).  Returns the
+    steps' losses."""
     device = next(module.parameters()).device
     nsamp = tensors[0].shape[0]
     rng = np.random.RandomState(seed)
-    for _ in range(epochs):
-        perm = torch.as_tensor(rng.permutation(nsamp), device=device)
-        for i in range(0, nsamp, batch_size):
-            sel = perm[i : i + batch_size]
-            train_step(module, optimizer, loss_fn,
-                       tuple(t[sel] for t in tensors))
+
+    def batches():
+        for _ in range(epochs):
+            perm = torch.as_tensor(rng.permutation(nsamp), device=device)
+            for i in range(0, nsamp, batch_size):
+                sel = perm[i : i + batch_size]
+                yield tuple(t[sel] for t in tensors)
+
+    return run_steps(module, optimizer, loss_fn, batches())
 
 
 def _columns(arr):

@@ -279,13 +279,9 @@ def train_convolutional_model(
     yb_all = torch.as_tensor(Yn, device=device)
     n_cubes = X.shape[0] // 6
     with _float32_convolutions():
-        for epoch in range(hp.epochs):
-            for c in range(n_cubes):
-                _shared.train_step(
-                    module, optimizer, loss_fn,
-                    (xb_all[6 * c : 6 * (c + 1)],
-                     yb_all[6 * c : 6 * (c + 1)]),
-                )
+        _shared.run_steps(module, optimizer, loss_fn, (
+            (xb_all[6 * c : 6 * (c + 1)], yb_all[6 * c : 6 * (c + 1)])
+            for _ in range(hp.epochs) for c in range(n_cubes)))
     return ConvolutionalModel(
         list(input_variables), list(output_variables), widths_in,
         widths_out, scaler_in, scaler_out, module, n_halo,

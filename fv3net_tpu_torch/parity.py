@@ -12,7 +12,9 @@ winds, humidity clipped flat at a cap), a 1-ulp change of the inputs
 moves the CPU's own f32 step further than that.  Such a case is held by
 the f32 spread instead: the CPU's f32 steps from the inputs and from
 1-ulp perturbations of them (``perturb_ulp``), the worst of them against
-float64.
+float64.  Where the inputs hold two snapshots of a field whose difference
+is what counts, both move in the same direction
+(``perturb_ulp_grouped``).
 
 ``moist_inputs`` and ``wrapper_step`` build the seeded C<n> state and
 run one eager wrapper step (``step_dynamics`` ... ``apply_physics``) on
@@ -125,6 +127,18 @@ def perturb_ulp(inputs, seed):
         y = np.nextafter(x, to).astype(np.float32)
         out[k] = q.with_data(y) if hasattr(q, "with_data") else y
     return out
+
+
+def perturb_ulp_grouped(inputs, seed, group):
+    """`inputs` (name -> host array, all of one shape) with every value
+    moved by one f32 ulp as ``perturb_ulp`` moves it, the fields of one
+    group (``group(name)``, e.g. two snapshots of one variable) in the
+    same direction at each point: where two of them are equal they stay
+    equal, so their difference moves by roundoff, not by an ulp."""
+    groups = sorted({group(k) for k in inputs})
+    return {k: perturb_ulp({k: v}, seed * len(groups)
+                           + groups.index(group(k)))[k]
+            for k, v in inputs.items()}
 
 
 def wrapper_step(n, nz, device, dtype, config, inputs):

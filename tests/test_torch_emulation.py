@@ -32,6 +32,7 @@ from fv3net_tpu.emulation import transforms as jtr
 from fv3net_tpu.util.quantity import Quantity as JQuantity
 from fv3net_tpu_torch import emulation as temu
 from fv3net_tpu_torch import fit as tfit
+from fv3net_tpu_torch.emulation import gscond
 from fv3net_tpu_torch.emulation import transforms as ttr
 from fv3net_tpu_torch.fit import transformed as ttr_fit
 from fv3net_tpu_torch.util.quantity import Quantity as TQuantity
@@ -357,42 +358,43 @@ def test_train_transformed_matches_jax(monkeypatch, epochs, batch_size,
 
 # The gscond emulator of the card's emulated run: tests/test_transformed_
 # training.py's spec (log cloud, T and q differences) predicts
-# *_after_gscond of T and q.  The hook writes "<name>_output" and
-# apply_physics reads the outputs under the state's names, so a
-# DerivedModel gives them those names; the cloud is the water the
-# predicted humidity change leaves (cloud_in + qv_in - qv), limited as the
-# Zhao-Carr emulators limit it (CloudLimiter), so the emulator conserves
-# water by construction.
-EMULATED = ("air_temperature", "specific_humidity",
-            "cloud_water_mixing_ratio")
-
-
-def gscond_outputs(tr, X, out):
-    """The three emulated fields under the state's names, from the inputs
-    X and the transformed model's predictions `out` (either package's
-    transforms module `tr`)."""
-    qv_in = np.asarray(X[tr.QV_INPUT].data, np.float64)
-    cloud_in = np.asarray(X[tr.CLOUD_INPUT].data, np.float64)
-    y = {tr.T_GSCOND: np.asarray(out[tr.T_GSCOND].data, np.float64),
-         tr.QV_GSCOND: np.asarray(out[tr.QV_GSCOND].data, np.float64)}
-    y[tr.CLOUD_GSCOND] = cloud_in + qv_in - y[tr.QV_GSCOND]
-    y = tr.CloudLimiter().backward(y)
-    ref = out[tr.T_GSCOND]
-    return {name: ref.with_data(y[f"{name}_after_gscond"])
-            for name in EMULATED}
+# *_after_gscond of T and q; a DerivedModel gives them the state's names
+# (fv3net_tpu_torch.emulation.gscond, the glue chip_smoke.py uses too).
 
 
 @pytest.fixture
 def derived_gscond():
-    for f, tr in ((jfit, jtr), (tfit, ttr)):
-        for name in EMULATED:
-            f.DerivedModel.DERIVED_FUNCTIONS[name] = (
-                lambda X, out, name=name, tr=tr:
-                gscond_outputs(tr, X, out)[name])
-    yield
-    for f in (jfit, tfit):
-        for name in EMULATED:
-            del f.DerivedModel.DERIVED_FUNCTIONS[name]
+    with gscond.named_outputs(jfit.DerivedModel, tfit.DerivedModel):
+        yield
+
+
+def test_gscond_named_outputs_conserve_water_and_restore_the_registry():
+    """Inside named_outputs a DerivedModel over a gscond prediction gives
+    T and q as predicted and the cloud as the water the humidity change
+    leaves (cloud_in + qv_in - qv, never below 0); outside it the
+    registry is as it was."""
+    before = dict(tfit.DerivedModel.DERIVED_FUNCTIONS)
+    rng = np.random.RandomState(3)
+    dims = ("sample", "z")
+    qv_in = 1e-2 * rng.rand(50, 4)
+    cloud_in = 1e-4 * rng.rand(50, 4)
+    X = {ttr.QV_INPUT: TQuantity(qv_in, dims),
+         ttr.CLOUD_INPUT: TQuantity(cloud_in, dims)}
+    qv = qv_in + 2e-4 * (rng.rand(50, 4) - 0.5)
+    out = {ttr.T_GSCOND: TQuantity(250.0 + rng.rand(50, 4), dims),
+           ttr.QV_GSCOND: TQuantity(qv, dims)}
+    with gscond.named_outputs():
+        got = {v: tfit.DerivedModel.DERIVED_FUNCTIONS[v](X, out)
+               for v in gscond.EMULATED}
+    assert tfit.DerivedModel.DERIVED_FUNCTIONS == before
+    t, q, cloud = (np.asarray(got[v].data) for v in gscond.EMULATED)
+    assert cloud.min() >= 0.0
+    np.testing.assert_allclose(q + cloud, qv_in + cloud_in, rtol=1e-14)
+    kept = cloud_in + qv_in - qv >= 0.0
+    assert 0 < kept.sum() < kept.size
+    np.testing.assert_array_equal(q[kept], qv[kept])
+    np.testing.assert_array_equal(t[kept], out[ttr.T_GSCOND].data[kept])
+    assert np.all(t[~kept] > out[ttr.T_GSCOND].data[~kept])
 
 
 def test_emulated_apply_physics_matches_jax(tmp_path, derived_gscond):
@@ -409,7 +411,7 @@ def test_emulated_apply_physics_matches_jax(tmp_path, derived_gscond):
         dataclasses.replace(_train_config(), epochs=3),
         [_synthetic_gscond_batch()])
     path = str(tmp_path / "emulator")
-    jfit.dump(jfit.DerivedModel(base, list(EMULATED)), path)
+    jfit.dump(jfit.DerivedModel(base, list(gscond.EMULATED)), path)
     after = {}
     fields = (names.TEMP, names.SPHUM, names.CLOUD, names.TOTAL_PRECIP)
     for pkg, emu in (("jax", jemu), ("torch", temu)):

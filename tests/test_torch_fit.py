@@ -159,7 +159,9 @@ def test_seeded_artifact_is_a_jax_dump(tmp_path):
     """runtime.coupled_bench trains its dense model (seeded, as bench.py
     rung 3 trains its MLP) and dumps it in the JAX package's format: the
     JAX package loads it, both packages predict the same tendencies, of
-    physical size, and the port's writer is the inverse of its reader."""
+    physical size, and the port's writer is the inverse of its reader.
+    On these inputs the trained artifact's max|dQ1| is 1.13e-5 K/s and
+    its max|dQ2| 1.29e-8 /s (the CPU, float32)."""
     from fv3net_tpu_torch.runtime.coupled_bench import train_dense_artifact
 
     train_dense_artifact(str(tmp_path), NZ, "cpu", depth=2, width=8)
@@ -171,15 +173,13 @@ def test_seeded_artifact_is_a_jax_dump(tmp_path):
         np.load(tmp_path / "params.npy"),
     )
     arrs = _arrays(6)
-    arrs["air_temperature"] = 260.0 + 10.0 * np.random.RandomState(
-        6).randn(6, NZ, N, N)
     want = jm.pure_fn(jm.params, {k: jnp.asarray(v) for k, v in arrs.items()})
     got = tm.pure_fn(
         tm.params_on("cpu"), {k: torch.as_tensor(v) for k, v in arrs.items()}
     )
     for k, size in (("dQ1", 1e-5), ("dQ2", 1e-8)):
         assert_close_scaled(got[k].numpy(), np.asarray(want[k]), RTOL, k)
-        assert 0.01 * size < float(got[k].abs().max()) < 100.0 * size
+        assert 0.1 * size < float(got[k].abs().max()) < 100.0 * size
 
 
 def test_unported_model_type_raises(tmp_path):
