@@ -109,7 +109,7 @@ Phases (any failure raises and the script exits non-zero):
      tendency of T; then state_after_timestep.zarr and
      nudging_tendencies.zarr written, open_nudge_to_fine (dQ1 equal to
      the stored tendency bit for bit) and batches_from_mapper (one batch
-     a step).  The case's directory stays for phases 14-16.
+     a step).  The case's directory stays for phases 14-19.
  14. training: the train CLI (fit.train.main, --device cuda) on phase
      13's stores (batches_from_mapper over open_nudge_to_fine: air
      temperature and specific humidity in, dQ1 and dQ2 out, 4 batches of
@@ -151,9 +151,47 @@ Phases (any failure raises and the script exits non-zero):
      EMULATED_STEPS steps: launches and ms a step, finite state, dry
      mass, column water, cloud water after each apply_physics >=
      CLOUD_BOUND.
+ 17. series: the case's INPUT/ again (GFS with GFDL, six species), no
+     nudger and no ML, SERIES_STEPS TimeLoop steps: launches of K1-K6 in
+     every step, ms per step and per substep, finite state, dry mass and
+     column water as in 13; T, q, the surface temperature, the physics'
+     precipitation rate and the cosine of the solar zenith angle of each
+     step stored as phase 13 stores (series.zarr).
+ 18. families: the train CLI (fit.train.main, no --device: the card) at
+     C48x63 (T and q, 126 channels) and each family's default
+     hyperparameters: the reservoir on the series (its last step held
+     out; the scan's states against the float64 scan's by the CPU's f32
+     spread, W_out by
+     the ridge objective in float64 (OBJECTIVE_RATIO), the prediction
+     after synchronize on the held-out step against the training steps'
+     mean (RESERVOIR_SKILL), its error against persistence's printed;
+     scan and ridge ms), the recurrent FMR on the series (cos zenith and the
+     precipitation rate its forcings, FORCINGS), graph mpg and unet and the
+     autoencoder on phase 13's stores, CycleGAN from the series' first
+     steps (A) to the nudged run's (B): ms per training step and samples
+     per second over the loops (TrainClock), the loss; one Adam step and
+     the first ten on the card against the CPU as phase 14 holds them
+     (CycleGAN's generator and discriminator steps in pairs); each
+     family's dump loaded with no device (the card) predicting what the
+     trained model predicted (ROUND_TRIP_RTOL), and loaded in the CPU
+     port predicting the same by the f32 spread.  The scikit-learn
+     families (random forest, one-class SVM) are host code that needs
+     scikit-learn, which the GPU machine lacks: they are not driven here
+     (tests/test_torch_fit_sklearn.py holds them on the CPU).
+ 19. offline: ``diagnostics.cli offline`` (no --device: the card) on
+     phase 14's dense model and on phase 18's graph (mpg) model, over
+     open_nudge_to_fine of phase 13's stores, the Jacobian on: wall time
+     and the column Jacobian's time apart, the files written; R^2, bias
+     and RMSE per variable and domain and their per-level profiles
+     against ``evaluate(device="cpu")`` by the f32 spread (the CPU's
+     evaluations from 1-ulp perturbations of the inputs); the dense
+     model's column Jacobian against the float64 network's, the CPU's
+     f32 Jacobian setting the spread (the graph model predicts whole
+     cubes: the evaluation has no column Jacobian for it, as the JAX
+     package's).
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
-C48 main path, on the coupled C48 path and on the nudged, ML-corrected
-and emulated paths, K6 on the C192 path, K1, K3, K4 and K5 on the
+C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
+emulated and series paths, K6 on the C192 path, K1, K3, K4 and K5 on the
 prognostic path.  Each kernel's JSON
 entry holds its launches (from the coupled C48 path for K1-K5, the C192
 path for K6, the probe path for K7/K8; each path's in
@@ -1593,7 +1631,7 @@ def phase_nudged_parity():
 def phase_nudged_run():
     """The nudged run at C48 x 63 on the card (module docstring, 13).
     Returns the launches of one step and the case's directory (a
-    TemporaryDirectory, kept for phases 14-16)."""
+    TemporaryDirectory, kept for phases 14-19)."""
     from fv3net_tpu_torch import data
     from fv3net_tpu_torch.io import restarts
     from fv3net_tpu_torch.io.zarr_lite import ZarrLiteStore
@@ -1737,10 +1775,12 @@ HOLD_ROWS = 4096  # the fixed batch the held models predict (phase 14)
 
 
 class TrainClock:
-    """Replaces fit._shared.run_steps, the loop of training steps: each
-    call timed between one pair of synchronisations, its steps' losses
-    read after it (nothing in the loop waits for the card).  `seconds`,
-    `steps` and `loss` (host floats) over every call."""
+    """Replaces fit._shared.run_steps and run_rounds, the loops of
+    training steps: each call timed between one pair of synchronisations,
+    its steps' losses read after it (nothing in the loop waits for the
+    card).  `seconds`, `steps` and `loss` (host floats) over every call."""
+
+    LOOPS = ("run_steps", "run_rounds")
 
     def __init__(self):
         self.seconds, self.loss = 0.0, []
@@ -1752,24 +1792,29 @@ class TrainClock:
     def __enter__(self):
         from fv3net_tpu_torch.fit import _shared
 
-        self.real = _shared.run_steps
+        self.real = {k: getattr(_shared, k) for k in self.LOOPS}
 
-        def run_steps(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses = self.real(*args)
-            torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
-            self.loss += torch.stack(losses).cpu().tolist() if losses else []
-            return losses
+        def timed(real):
+            def loop(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = real(*args)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.loss += (torch.stack(losses).cpu().tolist() if losses
+                              else [])
+                return losses
+            return loop
 
-        _shared.run_steps = run_steps
+        for k, real in self.real.items():
+            setattr(_shared, k, timed(real))
         return self
 
     def __exit__(self, *exc):
         from fv3net_tpu_torch.fit import _shared
 
-        _shared.run_steps = self.real
+        for k, real in self.real.items():
+            setattr(_shared, k, real)
 
     def report(self, samples):
         """ms per step and samples/s over the loop's time (`samples` the
@@ -1809,11 +1854,24 @@ class StepClock:
         _shared.train_step = self.real
 
 
+def model_params(model):
+    """A trained model's parameters, "layer.bias"/"layer.kernel" -> tensor
+    (flax names; CycleGAN's two generators prefixed "G_ab/", "G_ba/")."""
+    from fv3net_tpu_torch.convert import module_flax_params
+
+    modules = ({"G_ab/": model.gen_ab, "G_ba/": model.gen_ba}
+               if hasattr(model, "gen_ab") else {"": model.module})
+    return {f"{pre}{layer}.{k}": torch.as_tensor(v)
+            for pre, m in modules.items()
+            for layer, p in module_flax_params(m).items()
+            for k, v in p.items()}
+
+
 def hold_training(tag, train, batch, steps_batch, predict, lr,
-                  perturb=parity.perturb_ulp):
-    """One Adam step and the first 10 (HELD_STEPS) of `train(batches,
-    device)` on the card against the CPU from the same init and batches,
-    by the f32 spread of the CPU's f32 run against runs from
+                  perturb=parity.perturb_ulp, per_step=1):
+    """One Adam step and the first 10 (HELD_STEPS) of `train(batch,
+    device, steps)` on the card against the CPU from the same init and
+    data, by the f32 spread of the CPU's f32 run against runs from
     parity.SPREAD_RUNS 1-ulp perturbations of the inputs
     (parity.f32_rule): the parameters leaf by leaf, and the predictions
     `predict(model)` (name -> array) on a fixed batch output by output.
@@ -1821,28 +1879,25 @@ def hold_training(tag, train, batch, steps_batch, predict, lr,
     an Adam step (`lr`): they set their leaf's bound, and they are
     counted.  The
     predictions sum over every parameter, so their bound stays tight.
-    `batch` holds [sample, feature] arrays; each hold trains on its first
-    steps x steps_batch samples, one epoch; `perturb(batch, seed)` moves
-    every value of it by one ulp."""
-    from fv3net_tpu_torch.convert import module_flax_params
-
-    def params(model):
-        return {f"{layer}.{k}": torch.as_tensor(v)
-                for layer, p in module_flax_params(model.module).items()
-                for k, v in p.items()}
+    `batch` holds arrays; with `steps_batch` each hold trains on the first
+    steps x steps_batch rows of each, one epoch, else on all of them (the
+    train function sets its epochs from `steps`); `perturb(batch, seed)`
+    moves every value of it by one ulp.  `per_step`: optimiser steps a
+    held step (2 for CycleGAN's generator and discriminator steps)."""
 
     def outputs(model):
-        return params(model), {k: torch.as_tensor(np.asarray(v))
-                               for k, v in predict(model).items()}
+        return model_params(model), {k: torch.as_tensor(np.asarray(v))
+                                     for k, v in predict(model).items()}
 
     for steps in HELD_STEPS:
-        sub = {k: v[: steps * steps_batch] for k, v in batch.items()}
+        sub = batch if steps_batch is None else {
+            k: v[: steps * steps_batch] for k, v in batch.items()}
         with TrainClock() as clock:
-            got = outputs(train(sub, "cuda"))
-        if clock.steps != steps:
+            got = outputs(train(sub, "cuda", steps))
+        if clock.steps != steps * per_step:
             raise AssertionError(f"{tag}: {clock.steps} steps, not {steps}")
-        cpu = outputs(train(sub, "cpu"))
-        runs = [outputs(train(perturb(sub, s), "cpu"))
+        cpu = outputs(train(sub, "cpu", steps))
+        runs = [outputs(train(perturb(sub, s), "cpu", steps))
                 for s in range(parity.SPREAD_RUNS)]
         moved = sum(int((torch.stack([(r[0][k].double() - v.double()).abs()
                                       for r in runs]).amax(0)
@@ -1931,7 +1986,7 @@ def phase_training(root):
     fixed = {v: Quantity(rows[v][-HOLD_ROWS:], dims)
              for v in TRAIN_VARIABLES[0]}
     hold_training(
-        "C48 dense training", lambda b, device: train_dense_held(
+        "C48 dense training", lambda b, device, steps: train_dense_held(
             {k: Quantity(v, dims) for k, v in b.items()}, device),
         rows, hp.batch_size,
         lambda m: {k: q.data for k, q in m.predict(fixed).items()},
@@ -2047,11 +2102,16 @@ def check_run(tag, wm, tl, rec, expected,
     step_dynamics (MASS_BOUND) and column water across apply_physics
     (WATER_BOUND) from `rec` (budgets)."""
     for i, c in enumerate(tl.timer.launches):
-        check_counts(f"{tag} step {i}", c, expected)
+        if i < 4:
+            check_counts(f"{tag} step {i}", c, expected)
+        elif c != expected:
+            raise AssertionError(f"{tag} step {i}: launches {c}")
     for name in clocks:
         samples = [1e3 * t for t in tl.timer.times[name]][1:]
+        shown = ([round(t, 3) for t in samples] if len(samples) <= 8 else
+                 f"{min(samples):.3f}-{max(samples):.3f}")
         say(f"{tag} {name:11s} ms {statistics.median(samples):.3f} (median "
-            f"of {len(samples)}: {[round(t, 3) for t in samples]})")
+            f"of {len(samples)}: {shown})")
     for k, x in wm.get_model().state._asdict().items():
         if x is not None and not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{tag}: non-finite {k}")
@@ -2065,24 +2125,38 @@ def check_run(tag, wm, tl, rec, expected,
         raise AssertionError(f"{tag}: budgets {max(rel)} {max(res)}")
 
 
-def dense_reference(model_cpu, inputs):
-    """The CPU's float32 prediction and a float64 one (the network in
-    float64) of dQ1 and dQ2 from `inputs` (name -> host array), each
-    through the stepper's humidity limiter."""
-    import copy
+class F64Dense:
+    """A dense model's chain in float64 on the CPU: the float64 reference
+    of its predictions (phase 15) and of its column Jacobian (phase 19)."""
 
+    def __init__(self, model):
+        import copy
+
+        self.model = model
+        self.input_variables = model.input_variables
+        self.output_variables = model.output_variables
+        self.module = copy.deepcopy(model.module).cpu().double()
+
+    def predict(self, X):
+        m = self.model
+        x = m.scaler_in.normalize(m.packer_in.to_array(X).astype(np.float64))
+        with torch.no_grad():
+            yn = self.module(torch.as_tensor(x)).numpy()
+        return m.packer_out.to_state(m.scaler_out.denormalize(yn),
+                                     m._templates(X))
+
+
+def dense_reference(model_cpu, inputs):
+    """The CPU's float32 prediction and a float64 one (F64Dense) of dQ1
+    and dQ2 from `inputs` (name -> host array), each through the
+    stepper's humidity limiter."""
     from fv3net_tpu_torch.runtime.steppers import non_negative_sphum
     from fv3net_tpu_torch.util.quantity import Quantity
 
     dims = ("tile", "z", "y", "x")
     X = {k: Quantity(v, dims) for k, v in inputs.items()}
     pred32 = model_cpu.predict(X)
-    x = model_cpu.scaler_in.normalize(model_cpu.packer_in.to_array(X))
-    with torch.no_grad():
-        yn = copy.deepcopy(model_cpu.module).double()(
-            torch.as_tensor(x, dtype=torch.float64))
-    pred64 = model_cpu.packer_out.to_state(
-        model_cpu.scaler_out.denormalize(yn.numpy()), model_cpu._templates(X))
+    pred64 = F64Dense(model_cpu).predict(X)
     out = []
     for p in (pred32, pred64):
         q = torch.as_tensor(inputs[names.SPHUM], dtype=torch.float64)
@@ -2223,7 +2297,8 @@ def phase_emulated_run(root):
     # snapshots, zero where gscond left a cell as it was: both snapshots
     # of a field move in the same direction, so those zeros stay zeros
     hold_training("C48 transformed training",
-                  lambda b, device: train_emulator(b, device, epochs=1),
+                  lambda b, device, steps: train_emulator(b, device,
+                                                          epochs=1),
                   train, EMULATOR["batch_size"],
                   lambda m: {k: q.data for k, q in m.predict(fixed).items()},
                   EMULATOR["learning_rate"],
@@ -2272,6 +2347,553 @@ def phase_emulated_run(root):
     if not min(cloud) >= CLOUD_BOUND:
         raise AssertionError(f"emulated: cloud water {min(cloud)}")
     return tl.timer.launches[-1]
+
+
+# --- phases 17, 18 and 19 ---------------------------------------------------
+
+
+SERIES_STEPS = 64  # TimeLoop steps of phase 17: 16 simulated hours
+SERIES = [names.TEMP, names.SPHUM]  # the series' state (T and q)
+# the FMR's forcings: the cosine of the solar zenith angle and the
+# physics' precipitation rate, which the FMR's state (T and q) does not
+# set.  Not the surface temperature: it stays constant in this case (a
+# prescribed surface), and a constant field normalises by the scaler's
+# 1e-12 floor, where a 1-ulp change is ~1e7 standard deviations
+FORCINGS = ["cos_zenith_angle", names.PHYSICS_PRECIP_RATE]
+LAUNCHES_SERIES = LAUNCHES_NUDGED  # the nudged case's dycore, six species
+FMR_HOLD_STEPS = 8  # series steps the FMR's held trainings unroll
+# the reservoir's readout: the card's W_out is held by the ridge objective
+# ||S W - Y||^2 + lam ||W||^2 (float64, on the CPU): at most
+# OBJECTIVE_RATIO times the objective of the CPU's own float32 W_out, or
+# within parity.F32_FACTOR times that objective's own f32 spread (the
+# CPU's solves from 1-ulp perturbations of S and Y) where that is larger
+OBJECTIVE_RATIO = 1.01
+# fit.load of a family's dump on the card against the trained model: the
+# same parameters and the same kernels, so the same predictions but for
+# the order of a reduction (cuDNN's algorithm choice)
+ROUND_TRIP_RTOL = 1e-6
+# RESERVOIR_SKILL: the reservoir's prediction of the held-out step must
+# beat the training steps' mean (a zero or garbled readout predicts that
+# mean or worse).  Its error against persistence is printed, not gated:
+# the JAX package's reservoir at its defaults does not beat persistence on
+# this case's series either (C12 on the CPU: T 0.92-1.70, q 7.5-15.8 of
+# persistence's error, tests/reservoir_skill.py); it predicts the state
+# from saturated echo states, not the increment.
+CYCLE_DOMAINS = ("free_running", "nudged")  # CycleGAN's A and B
+
+
+def write_store(path, rows):
+    """`rows` (name -> per-step arrays [tile, (z,) y, x]) as a zarr-lite
+    store of float32 [time, ...] arrays, one chunk a step."""
+    from fv3net_tpu_torch.io.zarr_lite import ZarrLiteStore
+
+    store = ZarrLiteStore(path)
+    for v, steps in rows.items():
+        arr = np.stack(steps).astype(np.float32)
+        dims = (("time", "tile", "z", "y", "x") if arr.ndim == 5
+                else ("time", "tile", "y", "x"))
+        store.create_array(v, shape=arr.shape, chunks=(1,) + arr.shape[1:],
+                           dtype=np.float32, dims=dims)
+        store.write_full(v, arr)
+
+
+def phase_series_run(root):
+    """The C48 series (module docstring, 17).  Returns the launches of one
+    step and the store's path."""
+    from fv3net_tpu_torch.utils.zenith import cos_zenith_angle
+
+    wm, _ = nudged_case.initialize(48, "cuda", root)
+    mdl = wm.get_model()
+    tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
+                           mdl.config.dt_atmos, n_steps=SERIES_STEPS)
+    tl.timer = SyncTimer()
+    stored = SERIES + [names.TSFC, names.PHYSICS_PRECIP_RATE]
+    rows = {v: [] for v in stored + FORCINGS[:1]}
+    t0 = time.perf_counter()
+    with budgets(mdl) as rec:
+        for time_, _ in tl:
+            for v in stored:
+                rows[v].append(np.asarray(tl.state[v].values))
+            rows[FORCINGS[0]].append(cos_zenith_angle(
+                time_, np.rad2deg(mdl.lon), np.rad2deg(mdl.lat)))
+    wall = time.perf_counter() - t0
+    check_run("C48x63 series", wm, tl, rec, LAUNCHES_SERIES)
+    path = os.path.join(root, "series.zarr")
+    write_store(path, rows)
+    moved = {v: float(np.abs(rows[v][-1] - rows[v][0]).max()) for v in rows}
+    say(f"C48x63 series: {SERIES_STEPS} steps "
+        f"({SERIES_STEPS * DT_ATMOS / 3600:g} simulated hours) in "
+        f"{wall:.1f} s (clocks synchronised), the same launches in every "
+        f"step; max change of each stored field from the first step to the "
+        f"last {moved}")
+    if not all(moved[v] > 0.0 for v in SERIES + FORCINGS):
+        raise AssertionError(f"series: a field did not change: {moved}")
+    return tl.timer.launches[-1], path
+
+
+class Capture:
+    """Replaces ``module.<name>`` with a wrapper that times each call
+    between two synchronisations (`ms`) and keeps its arguments and
+    result (`calls`)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls, self.ms = module, name, [], []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.calls.append((args, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def mapper_cfg(function, kwargs, variables, steps=None):
+    """A batches_from_mapper data config (one batch a step)."""
+    kw = {"mapper_function": function, "mapper_kwargs": kwargs,
+          "variable_names": list(variables)}
+    if steps is not None:
+        kw["timesteps"] = list(steps)
+    return {"function": "batches_from_mapper", "kwargs": kw}
+
+
+def train_cli(root, name, model_type, inputs, outputs, data_cfg,
+              hyperparameters=None):
+    """The train CLI (fit.train.main) on JSON config files, the family's
+    default hyperparameters but for `hyperparameters`, and no --device
+    (the card): returns the trained model (kept as the CLI dumps it), its
+    directory, the TrainClock of its loops and the CLI's wall seconds."""
+    from fv3net_tpu_torch.fit import train as fit_train
+
+    cfgs = {"training": {"model_type": model_type,
+                         "hyperparameters": dict(hyperparameters or {}),
+                         "input_variables": list(inputs),
+                         "output_variables": list(outputs)},
+            "data": data_cfg}
+    paths = {}
+    for kind, cfg in cfgs.items():
+        paths[kind] = os.path.join(root, f"{name}_{kind}.yml")
+        with open(paths[kind], "w") as f:
+            json.dump(cfg, f)  # JSON is YAML
+    model_dir = os.path.join(root, f"{name}_model")
+    trained, real_dump = [], fit_train.dump
+    fit_train.dump = lambda model, path: (trained.append(model),
+                                          real_dump(model, path))
+    try:
+        t0 = time.perf_counter()
+        with TrainClock() as clock:
+            fit_train.main([paths["training"], paths["data"], model_dir])
+        wall = time.perf_counter() - t0
+    finally:
+        fit_train.dump = real_dump
+    return trained[0], model_dir, clock, wall
+
+
+def hold_f32(tag, got, runs, ref, ref_name="CPU"):
+    """`got` (the card's) against `ref` (the CPU's f32, or a float64
+    reference: `ref_name`) by parity.f32_rule, the spread from the CPU's
+    f32 `runs` (from 1-ulp perturbations of the inputs), name by name."""
+    as_t = lambda d: {  # noqa: E731
+        k: v.detach().cpu() if isinstance(v, torch.Tensor)
+        else torch.as_tensor(np.asarray(v)) for k, v in d.items()}
+    held = parity.f32_rule(as_t(got), [as_t(r) for r in runs], as_t(ref))
+    say(f"{tag} (card - {ref_name}, bound, max|{ref_name}|): " + ", ".join(
+        f"{k} {e:.3e} {b:.3e} {s:.3e}" for k, (e, b, s, _, _) in held.items()))
+    for k, (err, bnd, _, errs, finite) in held.items():
+        if not (finite and err <= bnd):
+            raise AssertionError(f"{tag} {k}: {err:.3e} > {bnd:.3e} ({errs})")
+
+
+def model_devices(model):
+    if hasattr(model, "W_out"):
+        return {model.W_out.device.type, model.reservoir.W_in.device.type}
+    modules = ((model.gen_ab, model.gen_ba) if hasattr(model, "gen_ab")
+               else (model.module,))
+    return {p.device.type for m in modules for p in m.parameters()}
+
+
+def check_dump(tag, trained, model_dir, predict, X, perturb):
+    """A family's dump: fit.load with no device puts it on the card and
+    predicts what the trained model predicted (ROUND_TRIP_RTOL); the CPU
+    port's fit.load of it predicts the same by the f32 rule (its f32
+    predictions from `X` and from 1-ulp perturbations, `perturb(X,
+    seed)`).  `predict(model, X)`: name -> host array."""
+    from fv3net_tpu_torch import fit
+
+    loaded = fit.load(model_dir)
+    if model_devices(loaded) != {"cuda"}:
+        raise AssertionError(f"{tag}: fit.load put the model on "
+                             f"{model_devices(loaded)}")
+    got, want = predict(loaded, X), predict(trained, X)
+    worst = max(float(np.abs(got[k] - want[k]).max()
+                      / max(np.abs(want[k]).max(), 1e-300)) for k in want)
+    say(f"{tag}: fit.load of the dump on the card predicts the trained "
+        f"model's prediction to {worst:.3e} of its magnitude (bound "
+        f"{ROUND_TRIP_RTOL})")
+    if not worst <= ROUND_TRIP_RTOL:
+        raise AssertionError(f"{tag} round trip: {worst}")
+    cpu = fit.load(model_dir, "cpu")
+    hold_f32(f"{tag}: the card's dump in the CPU port", got,
+             [predict(cpu, perturb(X, s)) for s in range(parity.SPREAD_RUNS)],
+             predict(cpu, X))
+
+
+def perturb_states(states, seed):
+    """A list of states (name -> Quantity) with every value moved by one
+    f32 ulp (parity.perturb_ulp, a seed a state)."""
+    return [parity.perturb_ulp(st, seed * 1000 + t)
+            for t, st in enumerate(states)]
+
+
+def train_reservoir(root, series_path):
+    """The reservoir on the series (module docstring, 18)."""
+    from fv3net_tpu_torch import data
+    from fv3net_tpu_torch.fit import reservoir as rsv
+
+    mapper = data.open_zarr(series_path, SERIES)
+    keys = sorted(mapper.keys())
+    cfg = mapper_cfg("open_zarr", {"path": series_path}, SERIES, keys[:-1])
+    with Capture(rsv, "reservoir_states") as scan, \
+            Capture(rsv, "ridge_fit") as ridge:
+        trained, model_dir, _, wall = train_cli(
+            root, "reservoir", "reservoir", SERIES, SERIES, cfg)
+    hp = trained.hp
+    (res, Un), states = scan.calls[0]
+    (S, Y, lam), W = ridge.calls[0]
+    size = sum(t.numel() * 4 for t in (res.W_in, res.W_res, W)) / 1e9
+    say(f"C48 reservoir (train CLI, ReservoirHyperparameters' defaults: "
+        f"state {hp.state_size}, layout {tuple(hp.subdomain_layout)}, "
+        f"overlap {hp.overlap}, quadratic {hp.quadratic_features}, burn-in "
+        f"{hp.burn_in}; {len(keys) - 1} steps, the last held out): W_in "
+        f"{tuple(res.W_in.shape)}, W_out {tuple(W.shape)} ({size:.3f} GB "
+        f"with W_res), readout {tuple(S.shape)}; scan ms {scan.ms[0]:.3f} "
+        f"({Un.shape[0]} steps of {tuple(Un.shape[1:])}), ridge ms "
+        f"{ridge.ms[0]:.3f}; whole CLI {wall:.1f} s")
+    if not S.shape[0] > S.shape[1]:
+        raise AssertionError(f"reservoir: {S.shape[0]} rows for "
+                             f"{S.shape[1]} features")
+    # the scan's states by the f32 rule, from the same matrices and inputs:
+    # as close to the float64 scan as the CPU's f32 scans of the inputs
+    # and of their 1-ulp perturbations are (each step sums 85,176
+    # products, in another order on the card)
+    res_cpu, res64 = (rsv.Reservoir.from_arrays(
+        hp, res.W_res.cpu().to(dt), res.W_in.cpu().to(dt), "cpu")
+        for dt in (torch.float32, torch.float64))
+    u = Un.cpu().numpy()
+    hold_f32("C48 reservoir scan states (against float64, the CPU's f32 "
+             "scans the spread)", {"states": states},
+             [{"states": rsv.reservoir_states(res_cpu, torch.as_tensor(x))}
+              for x in [u] + [parity.perturb_ulp({"u": u}, s)["u"]
+                              for s in range(parity.SPREAD_RUNS)]],
+             {"states": rsv.reservoir_states(
+                 res64, torch.as_tensor(u, dtype=torch.float64))}, "f64")
+    # W_out by the ridge objective, in float64 on the CPU
+    S32, Y32 = S.cpu(), Y.cpu()
+    S64, Y64 = S32.double(), Y32.double()
+
+    def objective(w):
+        w = w.cpu().double()
+        return float(((S64 @ w - Y64) ** 2).sum() + lam * (w ** 2).sum())
+
+    obj_card, obj_cpu = objective(W), objective(rsv.ridge_fit(S32, Y32, lam))
+    spread = max(abs(objective(rsv.ridge_fit(
+        torch.as_tensor(p["S"]), torch.as_tensor(p["Y"]), lam)) - obj_cpu)
+        for p in (parity.perturb_ulp({"S": S32.numpy(), "Y": Y32.numpy()}, s)
+                  for s in range(parity.SPREAD_RUNS)))
+    bound = max(OBJECTIVE_RATIO * obj_cpu,
+                obj_cpu + parity.F32_FACTOR * spread)
+    which = ("1.01 x the CPU's" if bound == OBJECTIVE_RATIO * obj_cpu
+             else "the objective's f32 spread")
+    say(f"C48 reservoir W_out: ridge objective (float64) of the card's "
+        f"{obj_card:.9e}, of the CPU's f32 solution {obj_cpu:.9e} (ratio "
+        f"{obj_card / obj_cpu:.9f}); f32 spread {spread:.3e}; bound "
+        f"{bound:.9e} ({which})")
+    if not obj_card <= bound:
+        raise AssertionError(f"reservoir objective {obj_card} > {bound}")
+    # after synchronize: the held-out step against persistence; the dump
+    series = [mapper[k] for k in keys]
+
+    def predict_last(model, sts):
+        model.synchronize(sts[:-2])
+        return {k: np.asarray(q.values) for k, q in
+                model.predict(sts[-2]).items()}
+
+    t0 = time.perf_counter()
+    got = predict_last(trained, series)
+    sync_s = time.perf_counter() - t0
+    ratios = {}
+    for v in SERIES:
+        truth = np.asarray(series[-1][v].values, np.float64)
+        err = np.abs(got[v] - truth).mean()
+        ratios[v] = tuple(err / np.abs(base - truth).mean() for base in (
+            np.asarray(series[-2][v].values),
+            np.mean([np.asarray(st[v].values) for st in series[:-1]], 0)))
+    say(f"C48 reservoir on the held-out step (synchronised on "
+        f"{len(series) - 2} steps in {sync_s:.2f} s): mean error / "
+        f"persistence's, / the training steps' mean's: " + ", ".join(
+            f"{k} {p:.4f}, {c:.4f}" for k, (p, c) in ratios.items()))
+    # the skill gate (RESERVOIR_SKILL): below the climatology's error
+    if not all(c < 1.0 for _, c in ratios.values()):
+        raise AssertionError(f"reservoir: no skill over climatology {ratios}")
+    check_dump("C48 reservoir", trained, model_dir, predict_last, series,
+               perturb_states)
+
+
+def fmr_state(arrays, t):
+    from fv3net_tpu_torch.util.quantity import Quantity
+
+    return {k: Quantity(v[t], ("tile", "z", "y", "x") if v.ndim == 5
+                        else ("tile", "y", "x")) for k, v in arrays.items()}
+
+
+def train_fmr_held(arrays, device, steps):
+    from fv3net_tpu_torch import fit
+
+    return fit.train_fmr_model(
+        fit.FMRHyperparameters(epochs=steps),
+        [fmr_state(arrays, t) for t in range(FMR_HOLD_STEPS)],
+        input_variables=FORCINGS, output_variables=SERIES, device=device)
+
+
+def cube_states(arrays, cubes):
+    from fv3net_tpu_torch.util.quantity import Quantity
+
+    return [{k: Quantity(v[c], ("tile", "z", "y", "x"))
+             for k, v in arrays.items()} for c in cubes]
+
+
+def outputs_of(model, X):
+    return {k: np.asarray(q.values) for k, q in model.predict(X).items()}
+
+
+def train_graph_held(arch):
+    def train(arrays, device, steps):
+        from fv3net_tpu_torch import fit
+
+        # one step: one cube; ten: two cubes, five epochs
+        ncubes = 1 if steps == 1 else 2
+        return fit.train_graph_model(
+            fit.GraphHyperparameters(architecture=arch,
+                                     epochs=steps // ncubes),
+            cube_states(arrays, range(ncubes)),
+            input_variables=TRAIN_VARIABLES[0],
+            output_variables=TRAIN_VARIABLES[1], device=device)
+    return train
+
+
+def train_autoencoder_held(arrays, device, steps):
+    from fv3net_tpu_torch import fit
+
+    return fit.train_autoencoder(
+        fit.AutoencoderHyperparameters(epochs=steps),
+        cube_states(arrays, [0]), input_variables=SERIES, device=device)
+
+
+def cycle_names(domain):
+    return [f"{v}_{domain}" for v in SERIES]
+
+
+def train_cyclegan_held(arrays, device, steps):
+    from fv3net_tpu_torch import fit
+
+    return fit.train_cyclegan(
+        fit.CycleGANHyperparameters(epochs=steps), cube_states(arrays, [0]),
+        input_variables=cycle_names(CYCLE_DOMAINS[0]),
+        output_variables=cycle_names(CYCLE_DOMAINS[1]), device=device)
+
+
+def report_family(tag, model_hp, clock, wall, samples, unit, falls=True):
+    losses = clock.loss
+    say(f"{tag} (train CLI, defaults {model_hp}): {clock.report(samples)} "
+        f"(samples: {unit}); whole CLI {wall:.1f} s; loss first "
+        f"{losses[0]:.6e}, last {losses[-1]:.6e}")
+    if falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
+
+
+def phase_families(root, series_path):
+    """The rest of fv3fit's families trained through the train CLI on the
+    card at C48x63, each held against the CPU (module docstring, 18).
+    Returns the graph (mpg) model's directory."""
+    import dataclasses
+
+    from fv3net_tpu_torch import data
+
+    train_reservoir(root, series_path)
+    cols = 6 * 48 * 48
+    series = data.open_zarr(series_path, SERIES + FORCINGS)
+    keys = sorted(series.keys())
+
+    def stack(mapper, ks, vs):
+        return {v: np.stack([np.asarray(mapper[k][v].values) for k in ks])
+                for v in vs}
+
+    # fmr: the forcings in, the state it replaces out, on the series
+    model, path, clock, wall = train_cli(
+        root, "fmr", "fmr", FORCINGS, SERIES,
+        mapper_cfg("open_zarr", {"path": series_path}, SERIES + FORCINGS))
+    hp = model.hp
+    report_family("C48 fmr", dataclasses.asdict(hp), clock, wall,
+                  hp.epochs * (len(keys) - 1) * cols,
+                  f"column steps, {len(keys) - 1} unrolled steps of {cols} "
+                  f"columns an epoch")
+    held = stack(series, keys[:FMR_HOLD_STEPS], SERIES + FORCINGS)
+    fixed = fmr_state(stack(series, [keys[FMR_HOLD_STEPS]],
+                            SERIES + FORCINGS), 0)
+    hold_training("C48 fmr training", train_fmr_held, held, None,
+                  lambda m: outputs_of(m, fixed), hp.learning_rate)
+    check_dump("C48 fmr", model, path, outputs_of, fixed, parity.perturb_ulp)
+
+    # graph (mpg and unet) on the nudged run's stores, as phase 14
+    out = os.path.join(root, "out")
+    nudged = data.open_nudge_to_fine(out)
+    nkeys = sorted(nudged.keys())
+    cubes = stack(nudged, nkeys, sum(TRAIN_VARIABLES, []))
+    fixed = {k: q for k, q in cube_states(cubes, [len(nkeys) - 1])[0].items()
+             if k in TRAIN_VARIABLES[0]}
+    graph_dir = None
+    for arch in ("mpg", "unet"):
+        model, path, clock, wall = train_cli(
+            root, f"graph_{arch}", "graph", *TRAIN_VARIABLES,
+            mapper_cfg("open_nudge_to_fine", {"url": out},
+                       sum(TRAIN_VARIABLES, [])), {"architecture": arch})
+        hp = model.hp
+        report_family(f"C48 graph {arch}", dataclasses.asdict(hp), clock,
+                      wall, hp.epochs * len(nkeys) * cols,
+                      "columns, one cube a step")
+        hold_training(f"C48 graph {arch} training", train_graph_held(arch),
+                      cubes, None, lambda m: outputs_of(m, fixed),
+                      hp.learning_rate)
+        check_dump(f"C48 graph {arch}", model, path, outputs_of, fixed,
+                   parity.perturb_ulp)
+        graph_dir = graph_dir or path
+
+    # the autoencoder on the nudged run's T and q
+    model, path, clock, wall = train_cli(
+        root, "autoencoder", "autoencoder", SERIES, SERIES,
+        mapper_cfg("open_nudge_to_fine", {"url": out}, SERIES))
+    report_family("C48 autoencoder", {
+        k: getattr(model.module, k) for k in ("filters", "depth", "latent")},
+        clock, wall, clock.steps * len(nkeys) * cols,
+        "columns, every cube each step")
+    fixed = {k: q for k, q in fixed.items() if k in SERIES}
+    hold_training("C48 autoencoder training", train_autoencoder_held,
+                  stack(nudged, nkeys[:1], SERIES), None,
+                  lambda m: outputs_of(m, fixed), 1e-3)
+    check_dump("C48 autoencoder", model, path, outputs_of, fixed,
+               parity.perturb_ulp)
+
+    # CycleGAN: the series' first steps (A, free running) against the
+    # nudged run's at the same times (B)
+    pairs = {f"{v}_{CYCLE_DOMAINS[0]}": [np.asarray(series[k][v].values)
+                                          for k in keys[:len(nkeys)]]
+             for v in SERIES}
+    pairs.update({f"{v}_{CYCLE_DOMAINS[1]}": [
+        np.asarray(nudged[k][v].values) for k in nkeys] for v in SERIES})
+    cycle_path = os.path.join(root, "cyclegan.zarr")
+    write_store(cycle_path, pairs)
+    a_names, b_names = (cycle_names(d) for d in CYCLE_DOMAINS)
+    model, path, clock, wall = train_cli(
+        root, "cyclegan", "cyclegan", a_names, b_names,
+        mapper_cfg("open_zarr", {"path": cycle_path}, a_names + b_names))
+    rounds = clock.steps // 2
+    report_family("C48 cyclegan", {
+        k: getattr(model.gen_ab, k) for k in ("filters", "n_res")}, clock,
+        wall, rounds * 2 * len(nkeys) * cols,
+        "columns of both domains, a generator and a discriminator step a "
+        f"round: ms per round {2e3 * clock.seconds / clock.steps:.4f}",
+        falls=False)
+    arrays = {k: np.stack(v) for k, v in pairs.items()}
+    fixed = cube_states({k: arrays[k] for k in a_names}, [len(nkeys) - 1])[0]
+    hold_training("C48 cyclegan training", train_cyclegan_held, arrays, None,
+                  lambda m: outputs_of(m, fixed), 2e-4, per_step=2)
+    check_dump("C48 cyclegan", model, path, outputs_of, fixed,
+               parity.perturb_ulp)
+    return graph_dir
+
+
+def offline_numbers(report):
+    """The scalar metrics and the per-level profiles an offline report
+    wrote: name -> value or array."""
+    with open(os.path.join(report, "scalar_metrics.json")) as f:
+        out = {k: np.float64(v) for k, v in json.load(f).items()}
+    with np.load(os.path.join(report, "offline_diagnostics.npz")) as d:
+        out.update({k: d[k] for k in d.files if k.endswith("_profile")})
+    return out
+
+
+def phase_offline(root, dense_dir, graph_dir):
+    """The offline evaluation (module docstring, 19)."""
+    from fv3net_tpu_torch import data, fit
+    from fv3net_tpu_torch.diagnostics import cli as diag_cli, offline
+
+    out = os.path.join(root, "out")
+    spec = os.path.join(root, "offline.yml")
+    with open(spec, "w") as f:
+        json.dump({"mapper_function": "open_nudge_to_fine",
+                   "mapper_kwargs": {"url": out}}, f)
+    mapper = data.open_nudge_to_fine(out)
+    g = CubedSphereGrid.make(48, halo=3)
+    grid = {k: np.asarray(getattr(g, k)[g.interior])
+            for k in ("area", "lat", "lon")}
+    for tag, model_dir in (("dense", dense_dir), ("graph mpg", graph_dir)):
+        report = os.path.join(root, f"offline_{tag.replace(' ', '_')}")
+        with Capture(offline, "column_jacobian") as jac, \
+                Capture(offline, "predict_over_mapper") as pred:
+            t0 = time.perf_counter()
+            if diag_cli.main(["offline", model_dir, spec, "-o", report]):
+                raise AssertionError(f"offline {tag}: nonzero exit")
+            wall = time.perf_counter() - t0
+        if model_devices(pred.calls[0][0][0]) != {"cuda"}:
+            raise AssertionError(f"offline {tag}: the model is not on the "
+                                 f"card")
+        files = sorted(os.listdir(report))
+        want = {"index.html", "offline_diagnostics.npz",
+                "scalar_metrics.json"} | (
+            {"jacobians.npz"} if tag == "dense" else set())
+        if set(files) != want:
+            raise AssertionError(f"offline {tag}: files {files}")
+        got = offline_numbers(report)
+        say(f"C48 offline {tag} (diagnostics.cli offline on the card, "
+            f"{len(mapper)} times of the nudged stores, the model on the "
+            f"card): {wall:.2f} s, predictions {pred.ms[0] / 1e3:.2f} s and "
+            f"the column Jacobian {sum(jac.ms) / 1e3:.2f} s of it "
+            f"({len(jac.calls)} call); files {files}; metrics " + ", ".join(
+                f"{k} {v:.4e}" for k, v in got.items() if np.ndim(v) == 0))
+        inputs = fit.load(model_dir, "cpu").input_variables
+
+        def cpu_numbers(m, name):
+            path = os.path.join(root, f"offline_cpu_{name}")
+            offline.evaluate(model_dir, m, grid, path, jacobian=False,
+                             device="cpu")
+            return offline_numbers(path)
+
+        runs = [cpu_numbers({t: dict(st, **parity.perturb_ulp(
+            {k: st[k] for k in inputs}, 1000 * s + i))
+            for i, (t, st) in enumerate(sorted(mapper.items()))}, s)
+            for s in range(parity.SPREAD_RUNS)]
+        hold_f32(f"C48 offline {tag} metrics and profiles", got, runs,
+                 cpu_numbers(mapper, "ref"))
+        if tag == "dense":
+            card_jac = jac.calls[0][1]
+            cpu = fit.load(model_dir, "cpu")
+            sample = mapper[sorted(mapper.keys())[0]]
+            hold_f32("C48 offline dense column Jacobian (against float64, "
+                     "the CPU's f32 the spread)", card_jac,
+                     [offline.column_jacobian(cpu, sample)],
+                     offline.column_jacobian(F64Dense(cpu), sample), "f64")
+        elif jac.calls and jac.calls[0][1]:
+            raise AssertionError("offline graph: a column Jacobian")
 
 
 def width(name, n):
@@ -2338,12 +2960,16 @@ def main():
     model_dir = phase_training(case.name)
     ml_launches = phase_ml_run(case.name, model_dir)
     emulated_launches = phase_emulated_run(case.name)
+    series_launches, series_path = phase_series_run(case.name)
+    graph_dir = phase_families(case.name, series_path)
+    phase_offline(case.name, model_dir, graph_dir)
     case.cleanup()
     kernels = kernel_summary(stats, probe_launches, {
         "C48": main_launches, "C192 fused": fused_launches,
         "coupled C48": coupled_launches,
         "prognostic C48": prognostic_launches, "nudged C48": nudged_launches,
-        "ML-corrected C48": ml_launches, "emulated C48": emulated_launches})
+        "ML-corrected C48": ml_launches, "emulated C48": emulated_launches,
+        "series C48": series_launches})
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -4,10 +4,11 @@ The dycore has no trained weights: its "weights" are the metric terms
 (``dycore.sw.SWMetrics``) and the hybrid coordinate.  These helpers take
 plain numpy arrays -- e.g. ``np.asarray`` of every array field of a JAX
 ``SWMetrics`` or ``DycoreState`` -- so that both packages can step with
-identical inputs.  The dense ML model's flax parameters (the JAX
-package's ``fit`` dump format: dense, precipitative, transformed and
-convolutional families) map onto the port's ``nn.Linear`` and
-``nn.Conv2d`` layers.  Nothing here imports JAX.
+identical inputs.  The flax parameters of the JAX package's ``fit``
+dumps (every family's ``params.npy``) map onto the port's ``nn.Linear``
+and ``nn.Conv2d`` layers (the generative family's SAME convolutions and
+transposed convolutions are ``nn.Conv2d`` subclasses with flax's kernel
+layout).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -75,8 +76,16 @@ def state_to_numpy(state: DycoreState) -> dict:
 # as ``q1_head`` after every ``Dense_i``), and within a layer ``bias`` before
 # ``kernel``.  A Dense kernel is [in, out] (``nn.Linear``'s weight
 # transposed), a Conv kernel [kh, kw, in, out] (HWIO; torch's Conv2d weight
-# is OIHW).  ``shapes`` maps each flax layer name to its kernel shape; the
-# bias has the kernel's last extent.
+# is OIHW; a flax ConvTranspose kernel is HWIO too, applied unflipped).
+# A layer of a nested flax module is named by its path, the keys of each
+# level joined by "/" (``_GRUCell_0/Dense_1``); layers are ordered as
+# ``ravel_pytree`` orders them, by the tuple of their path's keys.
+# ``shapes`` maps each layer name to its kernel shape; the bias has the
+# kernel's last extent.
+
+
+def _flax_order(name: str):
+    return tuple(name.split("/"))
 
 
 def flax_params_from_flat(flat: np.ndarray, shapes: Mapping) -> dict:
@@ -84,7 +93,7 @@ def flax_params_from_flat(flat: np.ndarray, shapes: Mapping) -> dict:
     numpy arrays, the layers of `shapes` ({name: kernel shape})."""
     flat = np.asarray(flat)
     params, i = {}, 0
-    for name in sorted(shapes):
+    for name in sorted(shapes, key=_flax_order):
         kshape = tuple(shapes[name])
         bias = flat[i : i + kshape[-1]]
         i += kshape[-1]
@@ -105,8 +114,22 @@ def flax_params_to_flat(params: Mapping) -> np.ndarray:
     {name: {"bias", "kernel"}} dict."""
     return np.concatenate([
         np.asarray(params[name][k]).ravel()
-        for name in sorted(params) for k in ("bias", "kernel")
+        for name in sorted(params, key=_flax_order)
+        for k in ("bias", "kernel")
     ])
+
+
+def flax_params_flatten(params: Mapping, prefix: str = "") -> dict:
+    """A nested flax params dict as {layer path: {"bias", "kernel"}}
+    (numpy), the layer names ``flax_layers()`` uses."""
+    out = {}
+    for key, value in params.items():
+        name = f"{prefix}{key}"
+        if "kernel" in value:
+            out[name] = {k: np.asarray(v) for k, v in value.items()}
+        else:
+            out.update(flax_params_flatten(value, f"{name}/"))
+    return out
 
 
 def _weight_from_kernel(kernel) -> torch.Tensor:
@@ -121,6 +144,12 @@ def _kernel_from_weight(weight) -> np.ndarray:
     if w.ndim == 4:  # OIHW -> HWIO
         return w.transpose(2, 3, 1, 0).copy()
     return w.T.copy()
+
+
+def nested_flax_layers(prefix: str, module) -> dict:
+    """The ``flax_layers()`` of a submodule, named under `prefix` (its flax
+    name in the parent)."""
+    return {f"{prefix}/{k}": m for k, m in module.flax_layers().items()}
 
 
 def module_flax_params(module) -> dict:

@@ -13,8 +13,9 @@ on the model's device and comes back as numpy, as the JAX package's is.
 
 Training runs in float32 with Adam (``adam``: b1 0.9, b2 0.999, eps 1e-8
 outside the square root, as ``optax.adam``); ``init_params`` draws the
-initial weights as flax's defaults do, ``train_step`` takes one step and
-``run_steps`` the loop of steps.  The families call them through this
+initial weights as flax's defaults do, ``train_step`` takes one step,
+``run_steps`` the loop of steps and ``run_rounds`` alternating steps of
+several optimisers (CycleGAN's).  The families call them through this
 module, so a test or a measuring script can replace any of them.
 """
 
@@ -171,15 +172,16 @@ def init_params(module: nn.Module, seed: int) -> None:
                 m.bias.zero_()
 
 
-def adam(module: nn.Module, learning_rate: float) -> torch.optim.Adam:
-    """``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8 added
+def adam(module: nn.Module, learning_rate: float,
+         b1: float = 0.9) -> torch.optim.Adam:
+    """``optax.adam(learning_rate, b1)``: b2 0.999, eps 1e-8 added
     outside the square root, no eps inside it.  torch computes the same
     update with its bias corrections folded into the step size and the
     denominator; it uses its multi-tensor (``foreach``) implementation on
     the CUDA device and its per-tensor loop on the CPU."""
     device = next(module.parameters()).device
     return torch.optim.Adam(
-        module.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        module.parameters(), lr=learning_rate, betas=(b1, 0.999), eps=1e-8,
         foreach=device.type == "cuda",
     )
 
@@ -202,6 +204,13 @@ def run_steps(module: nn.Module, optimizer, loss_fn,
     that nothing has read (so the loop never waits for the device)."""
     return [train_step(module, optimizer, loss_fn, batch)
             for batch in batches]
+
+
+def run_rounds(steps: Sequence, rounds: int) -> list:
+    """`rounds` rounds of `steps`, each a (module, optimizer, loss_fn,
+    batch) ``train_step`` taken in turn (CycleGAN's generator and
+    discriminator steps).  Returns every step's loss, in order, unread."""
+    return [train_step(*step) for _ in range(rounds) for step in steps]
 
 
 def fit_epochs(module: nn.Module, optimizer, loss_fn, tensors: Sequence,

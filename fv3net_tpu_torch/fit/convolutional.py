@@ -122,6 +122,16 @@ def _unstack_channels(y, names, widths):
     return out
 
 
+class _ChannelScaler(StandardScaler):
+    """Mean and std per channel (the last axis) over every other axis."""
+
+    def fit(self, A):
+        axes = tuple(range(A.ndim - 1))
+        self.mean = A.mean(axis=axes)
+        self.std = A.std(axis=axes) + self.std_epsilon
+        return self
+
+
 def append_halos(tilewise: torch.Tensor, n_halo: int) -> torch.Tensor:
     """Cube-topology halo append for [6, y, x, c] channel-last data
     (the fv3fit append_halos contract, halos.py:10)."""
@@ -252,13 +262,6 @@ def train_convolutional_model(
         Ys.append(y)
     X = np.concatenate(Xs)  # [n_tiles_total, y, x, c]
     Y = np.concatenate(Ys)
-
-    class _ChannelScaler(StandardScaler):
-        def fit(self, A):
-            self.mean = A.mean(axis=(0, 1, 2))
-            self.std = A.std(axis=(0, 1, 2)) + self.std_epsilon
-            return self
-
     scaler_in = _ChannelScaler().fit(X)
     scaler_out = _ChannelScaler().fit(Y)
     Xn = ((X - scaler_in.mean) / scaler_in.std).astype(np.float32)

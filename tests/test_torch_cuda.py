@@ -15,6 +15,7 @@ from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
 from fv3net_tpu_torch.util.quantity import Quantity
+from torch_parity import assert_close_scaled
 
 pytestmark = pytest.mark.cuda
 
@@ -768,3 +769,104 @@ def test_training_step_on_card_matches_cpu(dev, family):
             scale = np.abs(p["kernel"]).max()
             err = np.abs(got[layer][k] - w).max()
             assert err <= 1e-5 * scale, (layer, k, err, scale)
+
+
+def _series_batches(T, nz=2):
+    """A seeded time series of [6, nz, n, n] states, each step a
+    smooth function of the last, with a [6, n, n] forcing."""
+    rng = np.random.RandomState(13)
+    dims3, dims2 = ("tile", "z", "y", "x"), ("tile", "y", "x")
+    s = rng.randn(6, nz, n, n).astype(np.float32)
+    out = []
+    for t in range(T):
+        f = np.cos(0.3 * t + rng.rand(6, n, n)).astype(np.float32)
+        out.append({"s": Quantity(s.copy(), dims3),
+                    "g": Quantity((0.5 * s).copy(), dims3),
+                    "f": Quantity(f, dims2)})
+        s = (0.9 * s + 0.1 * np.roll(s, 1, axis=-1) + 0.2 * f[:, None]
+             ).astype(np.float32)
+    return out
+
+
+FAMILIES = ["reservoir", "fmr", "mpg", "unet", "autoencoder", "cyclegan"]
+
+
+def _train_family(family, device):
+    """(trained model, its prediction on a held input) of a family at C12,
+    its training function called without a device where `device` is
+    None."""
+    from fv3net_tpu_torch import fit
+
+    kw = {} if device is None else {"device": device}
+    series = _series_batches(24)
+    if family == "reservoir":
+        model = fit.train_reservoir_model(
+            fit.ReservoirHyperparameters(state_size=64, burn_in=4),
+            series[:-1], input_variables=["s"], output_variables=["s"], **kw)
+        model.synchronize(series[:-2])
+        return model, model.predict(series[-2])
+    if family == "fmr":
+        model = fit.train_fmr_model(
+            fit.FMRHyperparameters(hidden=16, epochs=2), series,
+            input_variables=["f"], output_variables=["s"], **kw)
+    elif family in ("mpg", "unet"):
+        model = fit.train_graph_model(
+            fit.GraphHyperparameters(architecture=family, width=8, depth=2,
+                                     epochs=1), series[:2],
+            input_variables=["s"], output_variables=["g"], **kw)
+    elif family == "autoencoder":
+        model = fit.train_autoencoder(
+            fit.AutoencoderHyperparameters(filters=4, epochs=2), series[:2],
+            input_variables=["s"], **kw)
+    else:
+        model = fit.train_cyclegan(
+            fit.CycleGANHyperparameters(filters=4, n_res=1, epochs=2),
+            series[:2], input_variables=["s"], output_variables=["g"], **kw)
+    return model, model.predict(series[-1])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_trains_on_card_by_default(dev, family):
+    """Each family's training function called without a device trains on
+    the card (its parameters or matrices there), and its prediction is
+    the CPU's within 1e-4 of the output's magnitude (float32 on both; a
+    few steps, or the reservoir's float32 ridge solve)."""
+    got_model, got = _train_family(family, None)
+    tensors = (
+        [got_model.W_out, got_model.reservoir.W_in]
+        if family == "reservoir" else list(
+            (got_model.gen_ab if family == "cyclegan"
+             else got_model.module).parameters()))
+    assert {t.device.type for t in tensors} == {"cuda"}
+    _, want = _train_family(family, "cpu")
+    for k, q in want.items():
+        assert isinstance(got[k].data, np.ndarray)
+        assert_close_scaled(got[k].values, q.values, 1e-4, f"{family} {k}")
+
+
+def test_offline_evaluate_on_card_by_default(dev, tmp_path):
+    """diagnostics.offline.evaluate without a device predicts on the card:
+    its metrics are the CPU's within 1e-5 of each metric's magnitude."""
+    import json
+
+    from fv3net_tpu_torch import fit
+    from fv3net_tpu_torch.diagnostics import offline
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+
+    series = _series_batches(3)
+    model = fit.train_dense_model(
+        fit.DenseHyperparameters(epochs=2), series,
+        input_variables=["s"], output_variables=["g"], device="cpu")
+    fit.dump(model, str(tmp_path / "dense"))
+    mapper = {f"2016080{i + 1}.000000": b for i, b in enumerate(series)}
+    g = CubedSphereGrid.make(n, halo=3)
+    grid = {"area": np.asarray(g.area[g.interior])}
+    got = offline.evaluate(str(tmp_path / "dense"), mapper, grid,
+                           str(tmp_path / "card"))
+    want = offline.evaluate(str(tmp_path / "dense"), mapper, grid,
+                            str(tmp_path / "cpu"), device="cpu")
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-5 * abs(v), (k, got[k], v)
+    with open(tmp_path / "card" / "scalar_metrics.json") as f:
+        assert json.load(f) == got

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from fv3net_tpu_torch import convert, fit, wrapper
+from fv3net_tpu_torch.diagnostics import offline
 from fv3net_tpu_torch.device import default_device
 from fv3net_tpu_torch.fit import train as fit_train
 from fv3net_tpu_torch.fit import transformed as fit_transformed
@@ -53,6 +54,18 @@ ENTRY_POINTS = {
         fit.ConvolutionalHyperparameters(), []),
     "train_transformed": lambda: fit.train_transformed(
         fit_transformed.TransformedParameters(), []),
+    "train_reservoir_model": lambda: fit.train_reservoir_model(
+        fit.ReservoirHyperparameters(), []),
+    "train_fmr_model": lambda: fit.train_fmr_model(
+        fit.FMRHyperparameters(), []),
+    "train_graph_model": lambda: fit.train_graph_model(
+        fit.GraphHyperparameters(), []),
+    "train_autoencoder": lambda: fit.train_autoencoder(
+        fit.AutoencoderHyperparameters(), []),
+    "train_cyclegan": lambda: fit.train_cyclegan(
+        fit.CycleGANHyperparameters(), []),
+    "diagnostics.offline.evaluate": lambda: offline.evaluate(
+        "no-such-model", {}, {}, "no-such-output"),
 }
 
 

@@ -183,8 +183,8 @@ def test_seeded_artifact_is_a_jax_dump(tmp_path):
 
 
 def test_unported_model_type_raises(tmp_path):
-    (tmp_path / "name").write_text("reservoir")
-    with pytest.raises(NotImplementedError, match="reservoir"):
+    (tmp_path / "name").write_text("no_such_model")
+    with pytest.raises(NotImplementedError, match="no_such_model"):
         tfit.load(str(tmp_path), "cpu")
 
 

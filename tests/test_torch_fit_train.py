@@ -100,10 +100,19 @@ def test_two_epochs_match_jax(monkeypatch):
 
 
 def test_registry_and_training_config():
-    assert set(tfit.TRAINING_FUNCTIONS) == {
-        "dense", "precipitative", "convolutional", "transformed",
-        "min_max_novelty_detector",
-    }
+    """Every training function and io name of the JAX package is
+    registered in the port (which adds the transformed family), each
+    family's hyperparameters with the JAX package's defaults."""
+    assert set(tfit.TRAINING_FUNCTIONS) == set(jfit.TRAINING_FUNCTIONS) | {
+        "transformed"}
+    assert set(tfit._shared._IO_REGISTRY) == set(
+        jfit._shared._IO_REGISTRY) | {"transformed"}
+    for name in ("reservoir", "fmr", "graph", "autoencoder", "cyclegan",
+                 "sklearn_random_forest"):
+        assert vars(tfit._shared.get_hyperparameter_class(name)()) == vars(
+            jfit._shared.get_hyperparameter_class(name)()), name
+        assert tfit.get_training_function(name).__name__ == (
+            jfit.get_training_function(name).__name__)
     for name in tfit.TRAINING_FUNCTIONS:
         assert name in jfit.TRAINING_FUNCTIONS
         assert (tfit._shared.get_hyperparameter_class(name) is None) == (

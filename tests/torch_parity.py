@@ -74,9 +74,25 @@ def use_jax_init(monkeypatch, jmodule, shape, seed=0):
 
 
 def flax_numpy(params):
-    """A flax params dict {layer: {"bias", "kernel"}} as numpy arrays."""
-    return {name: {k: np.asarray(v) for k, v in p.items()}
-            for name, p in params.items()}
+    """A flax params dict as {layer: {"bias", "kernel"}} numpy arrays, a
+    nested module's layers named by their path ("_GRUCell_0/Dense_1")."""
+    from fv3net_tpu_torch.convert import flax_params_flatten
+
+    return flax_params_flatten(params)
+
+
+def use_jax_inits(monkeypatch, params_list):
+    """Make the port's next ``init_params`` calls load the flax params of
+    `params_list` in turn (a family that initialises several modules,
+    each from its own key)."""
+    from fv3net_tpu_torch import convert
+    from fv3net_tpu_torch.fit import _shared
+
+    queue = [flax_numpy(p) for p in params_list]
+    monkeypatch.setattr(
+        _shared, "init_params",
+        lambda module, seed: convert.module_from_flax(module, queue.pop(0)),
+    )
 
 
 def assert_params_close(jparams, tmodule, rtol, name=""):
