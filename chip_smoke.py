@@ -22,7 +22,9 @@ Phases (any failure raises and the script exits non-zero):
      its plain version, each beside its bound (BOUND_NOTE) and, for K7,
      beside one PyTorch call that computes the same function; the host
      time of each wrapper's Python call alone (host_ms); K6 also against
-     five K1 calls;
+     five K1 calls; K1's single-layer form [6, N, N] (the shallow-water
+     step's, areas [6, N, N]) in one launch against the [6, 1, N, N]
+     form bit for bit and against the plain version;
   4. slice parity: one dt at C12 x 63 f32 on CUDA (kernels) against the
      same dt on the CPU (plain torch) in f32 and float64, every state
      field (see F32_FACTOR), with the fused transport off and on;
@@ -109,7 +111,10 @@ Phases (any failure raises and the script exits non-zero):
      tendency of T; then state_after_timestep.zarr and
      nudging_tendencies.zarr written, open_nudge_to_fine (dQ1 equal to
      the stored tendency bit for bit) and batches_from_mapper (one batch
-     a step).  The case's directory stays for phases 14-19.
+     a step); T, q, delp, the surface pressure, the total water path and
+     the precipitation rate of each step written to diags/nudged.zarr
+     (phase 20's verification).  The case's directory stays for phases
+     14-20.
  14. training: the train CLI (fit.train.main, --device cuda) on phase
      13's stores (batches_from_mapper over open_nudge_to_fine: air
      temperature and specific humidity in, dQ1 and dQ2 out, 4 batches of
@@ -136,7 +141,10 @@ Phases (any failure raises and the script exits non-zero):
      column water across apply_physics, the humidity limiter (no q + dQ2
      dt below 0 where dQ2 dries) and the first step's applied dQ1/dQ2
      against the CPU's float32 prediction by phase 4's rule (a float64
-     prediction the reference).
+     prediction the reference); the run's diagnostics store
+     (diags/ml.zarr, as phase 13's) and logs (diags/ml_logs: a scalar
+     stream of the 2D fields' means and the loop's timing.json) for
+     phase 20.
  16. emulated run: the case's INPUT/ again, with
      get_hooks(EmulationConfig(storage=...)) storing the gscond inputs
      and outputs (the Zhao-Carr path the hooks take) every step for
@@ -189,10 +197,39 @@ Phases (any failure raises and the script exits non-zero):
      f32 Jacobian setting the spread (the graph model predicts whole
      cubes: the evaluation has no column Jacobian for it, as the JAX
      package's).
+ 20. prognostic-run diagnostics: ``diagnostics.cli compute`` (no
+     --device: the card) of phase 15's ML-corrected run with phase 13's
+     nudged run as --verification, at C48 x 63, against the same with
+     --device cpu (diags.npz and metrics.json equal: the CLI's grid has no
+     delp, so its groups are host numpy); ``metrics`` (the same metrics
+     re-emitted) and ``report``; then compute_diagnostics with the run's
+     delp in the grid (no device: the card), whose pressure-level groups
+     interpolate on the card: against the CPU's float32 run by the f32
+     rule of a float64 run, every other group and every metric equal;
+     wall times of compute and report and the interpolation's apart (each
+     call synchronised); ``log-viewer`` on phase 15's logs and
+     ``single-run`` on phase 16's storage.  ``movies`` needs matplotlib
+     (absent here) and ``shell`` is interactive: neither is driven.
+ 21. coarsening: a seeded C384 x 63 restart state on the card (float32,
+     coarsening_state: restart_fields' recipe with terrain inside each
+     coarse block, flat, moderate or rough, so ps varies by +-20-40 hPa
+     inside a block and the blending weight is 1, strictly between or 0),
+     coarsened to C48 x 63 by coarsen_restarts_on_sigma, _on_pressure and
+     _via_blended_method, coarsen_sfc_data_complex on seeded surface
+     data and compute_budget_ingredients with the default flux pairs:
+     K5's launches (LAUNCHES_COARSENING), CUDA-event ms of each method;
+     K5 against the plain remap (both boundary forms) on tile 0's first
+     96 x 96 columns (phase 3's K5 tolerance), with target bottoms above
+     and below the source's; column mass across K5 in the flat blocks
+     (COARSE_MASS_BOUND); every output on 2 tiles x 6 x 6 coarse cells
+     against the port's float64 run of the same fine columns on the CPU
+     by the f32 spread (the CPU's float32 runs from the inputs and from
+     5 1-ulp perturbations of them), the categorical surface fields
+     equal.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
 C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
 emulated and series paths, K6 on the C192 path, K1, K3, K4 and K5 on the
-prognostic path.  Each kernel's JSON
+prognostic path, K5 on the C384 -> C48 coarsening path.  Each kernel's JSON
 entry holds its launches (from the coupled C48 path for K1-K5, the C192
 path for K6, the probe path for K7/K8; each path's in
 ``launches_by_path``) and its
@@ -592,6 +629,27 @@ def check_tp(rng, N, dev, stats):
                 ))
             if hord == 5 and form == "area":
                 timed = args, got
+    # the single-layer (shallow-water) form [F, N, N], areas [F, N, N]:
+    # one launch, the [F, 1, N, N] form's fluxes bit for bit and the plain
+    # version's within K1's tolerance
+    one = [a[k][:, 0].contiguous()
+           for k in ("qx", "qy", "crx", "cry", "xfx", "yfx")]
+    areas = [a[k][:, 0].contiguous() for k in ("apx", "apy")]
+    launches = fv_tp_2d_cuda.launches
+    got1 = advection.fv_tp_2d(*one, *areas, 5)
+    if fv_tp_2d_cuda.launches != launches + 1:
+        raise AssertionError(f"fv_tp_2d N={N} single layer: not one launch")
+    got4 = fv_tp_2d_cuda(*(t[:, None] for t in one),
+                         *(t[:, None] for t in areas), 5)
+    want1 = advection.fv_tp_2d_plain(*one, *areas, 5)
+    for name, g, g4, w in zip(("fx", "fy"), got1, got4, want1):
+        if g.shape != (6, N, N) or not torch.equal(g, g4[:, 0]):
+            raise AssertionError(f"fv_tp_2d N={N} single layer {name}: "
+                                 f"not the [F, 1, N, N] form's fluxes")
+        errs.append(check_close(f"fv_tp_2d N={N} single layer {name}", g,
+                                w, 1e-4, 1e-3, sl[:1] + sl[2:]))
+    say(f"fv_tp_2d N={N} single layer [6, {N}, {N}]: one launch, equal to "
+        f"[6, 1, {N}, {N}] bit for bit, within K1's tolerance of plain")
     args, got = timed
     record(stats, "fv_tp_2d", N, max(errs), lambda: fv_tp_2d_cuda(*args),
            lambda: advection.fv_tp_2d_plain(*args), args[:8], got,
@@ -1628,6 +1686,28 @@ def phase_nudged_parity():
         "mass flux choice": choice}, NUDGED_FLIP_BOUND)
 
 
+# the C48 runs' diagnostics stores (phase 20), under the case's directory:
+# per step T, q and delp, and the surface pressure, the total water path
+# and the physics' precipitation rate; and the ML-corrected run's logs
+DIAG_STORES = {"nudged": ("diags", "nudged.zarr"),
+               "ML-corrected": ("diags", "ml.zarr")}
+DIAG_LOGS = ("diags", "ml_logs")
+
+
+def diag_rows(rows, state):
+    """Append one step of `state` (the loop's state) to `rows` (name ->
+    per-step host arrays) for a diagnostics store (DIAG_STORES)."""
+    delp = np.asarray(state[names.DELP].values)
+    q = np.asarray(state[names.SPHUM].values)
+    for k, v in ((names.TEMP, state[names.TEMP].values), (names.SPHUM, q),
+                 (names.DELP, delp),
+                 (names.PHYSICS_PRECIP_RATE,
+                  state[names.PHYSICS_PRECIP_RATE].values),
+                 ("surface_pressure", PTOP + delp.sum(1)),
+                 ("total_water_path", (q * delp).sum(1) / GRAV)):
+        rows.setdefault(k, []).append(np.asarray(v))
+
+
 def phase_nudged_run():
     """The nudged run at C48 x 63 on the card (module docstring, 13).
     Returns the launches of one step and the case's directory (a
@@ -1663,6 +1743,7 @@ def phase_nudged_run():
     tend = [f"{v}_tendency_due_to_nudging" for v in (names.TEMP,
                                                        names.SPHUM)]
     rows = {v: [] for v in [names.TEMP, names.SPHUM] + tend}
+    drows = {}
     precip_cols = []
     with budgets(mdl) as rec:
         for time_, diags in tl:
@@ -1672,6 +1753,7 @@ def phase_nudged_run():
                 rows[v].append(np.asarray(diags[v].values))
             precip_cols.append(int(
                 (mdl._physics_diags["large_scale_precipitation"] > 0).sum()))
+            diag_rows(drows, tl.state)
     check_run("C48x63 nudged", wm, tl, rec, LAUNCHES_NUDGED,
               ("mainloop", "dynamics", "physics", "postphysics", "tracers",
                "prephysics"))
@@ -1712,6 +1794,7 @@ def phase_nudged_run():
         f"{sorted(batches[0])}")
     if len(batches) != NUDGED_STEPS:
         raise AssertionError(f"nudged: {len(batches)} batches")
+    write_store(os.path.join(root, *DIAG_STORES["nudged"]), drows)
     return tl.timer.launches[-1], tmp
 
 
@@ -2208,10 +2291,19 @@ def phase_ml_run(root, model_dir):
                            mdl.config.dt_atmos, postphysics_stepper=stepper,
                            n_steps=ML_STEPS)
     tl.timer = SyncTimer()
+    drows = {}
+    logs = os.path.join(root, *DIAG_LOGS)
+    sink = timing.ScalarSink(logs)
     with budgets(mdl) as rec:
-        for _ in tl:
-            pass
+        for step, (time_, _) in enumerate(tl):
+            diag_rows(drows, tl.state)
+            sink.write(step, time_, {
+                k: float(np.mean(v[-1])) for k, v in drows.items()
+                if v[-1].ndim == 3})
+    sink.close()
     check_run("C48x63 ML-corrected", wm, tl, rec, LAUNCHES_ML)
+    write_store(os.path.join(root, *DIAG_STORES["ML-corrected"]), drows)
+    timing.write_timing_json(tl.timer, logs)
     # the humidity limiter: no humidity below 0 where the tendency dries
     inputs, applied = stepper.first
     drying = applied["dQ2"].numpy() < 0
@@ -2896,6 +2988,471 @@ def phase_offline(root, dense_dir, graph_dir):
             raise AssertionError("offline graph: a column Jacobian")
 
 
+# --- phase 20 ---------------------------------------------------------------
+
+# the groups that interpolate to pressure levels (compute.py)
+PRESSURE_LEVEL_GROUPS = ("pressure_level_zonal_time_mean",
+                         "pressure_level_zonal_bias",
+                         "300_700_zonal_mean_value")
+
+
+class InterpClock:
+    """Wall time of each call of utils.interpolate's
+    interpolate_to_pressure_levels (which returns a host array, so each
+    call ends synchronised), patched in while the clock is used."""
+
+    def __init__(self):
+        from fv3net_tpu_torch.utils import interpolate
+
+        self.module, self.fn, self.seconds = (
+            interpolate, interpolate.interpolate_to_pressure_levels, [])
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        self.module.interpolate_to_pressure_levels = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.interpolate_to_pressure_levels = self.fn
+
+
+def same_arrays(tag, got, want):
+    """Equal dicts of host arrays (NaN for NaN)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{tag}: keys differ")
+    for k in want:
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k]),
+                              equal_nan=True):
+            raise AssertionError(f"{tag}: {k} differs")
+
+
+def phase_diagnostics(root):
+    """The prognostic-run diagnostics of the C48 runs (module docstring,
+    20)."""
+    import io
+
+    from fv3net_tpu_torch.diagnostics import cli as dcli
+    from fv3net_tpu_torch.diagnostics.compute import (
+        compute_diagnostics, load_run)
+
+    run, ver = (os.path.join(root, *DIAG_STORES[k])
+                for k in ("ML-corrected", "nudged"))
+    out = os.path.join(root, "diags")
+    dt_hours = DT_ATMOS / 3600.0
+    walls = {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        dcli.main(["compute", run, "-o", os.path.join(out, tag),
+                   "--verification", ver, "--dt-hours", str(dt_hours)]
+                  + extra)
+        walls[f"compute {tag}"] = time.perf_counter() - t0
+    saved = [np.load(os.path.join(out, t, "diags.npz")) for t in ("card",
+                                                                 "cpu")]
+    same_arrays("diagnostics compute: card vs --device cpu",
+                {k: saved[0][k] for k in saved[0].files},
+                {k: saved[1][k] for k in saved[1].files})
+    metrics = [json.load(open(os.path.join(out, t, "metrics.json")))
+               for t in ("card", "cpu")]
+    if metrics[0] != metrics[1] or not metrics[0]:
+        raise AssertionError("diagnostics compute: metrics differ")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dcli.main(["metrics", os.path.join(out, "card", "diags.npz")])
+    if json.loads(buf.getvalue()) != metrics[0]:
+        raise AssertionError("diagnostics metrics: not metrics.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dcli.main(["report", run, "-o", os.path.join(out, "card"),
+                   "--dt-hours", str(dt_hours)])
+    walls["report card"] = time.perf_counter() - t0
+    page = open(os.path.join(out, "card", "index.html")).read()
+    if "Metrics" not in page or "<svg" not in page:
+        raise AssertionError("diagnostics report: no metrics or series")
+    say(f"C48x63 diagnostics (CLI): compute on the card and with --device "
+        f"cpu: {len(saved[0].files)} diagnostics and {len(metrics[0])} "
+        f"metrics, equal; metrics re-emitted; report written "
+        f"({len(page)} bytes)")
+
+    # the pressure-level groups: the grid with the run's delp
+    pred, verif = load_run(run), load_run(ver)
+    for r in (pred, verif):
+        r.pop("time", None)
+    g = CubedSphereGrid.make(pred[names.TEMP].shape[-1], halo=3)
+    grid = {"area": np.asarray(g.area[g.interior]),
+            "lat": np.asarray(g.lat[g.interior]),
+            "lon": np.asarray(g.lon[g.interior]),
+            "delp": pred[names.DELP], "dt_hours": dt_hours}
+    with InterpClock() as clock:
+        t0 = time.perf_counter()
+        card_d, card_m = compute_diagnostics(pred, grid=grid,
+                                             verification=verif)
+        walls["compute_diagnostics card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_d, cpu_m = compute_diagnostics(pred, grid=grid, verification=verif,
+                                       device="cpu")
+    walls["compute_diagnostics cpu"] = time.perf_counter() - t0
+
+    def f64(d):
+        return {k: v.astype(np.float64) for k, v in d.items()}
+
+    ref_d, _ = compute_diagnostics(
+        f64(pred), grid=dict(grid, delp=pred[names.DELP].astype(np.float64)),
+        verification=f64(verif), device="cpu")
+    level = [k for k in card_d
+             if any(k.endswith("_" + grp) for grp in PRESSURE_LEVEL_GROUPS)]
+    if len(level) != 3 * len(PRESSURE_LEVEL_GROUPS):
+        raise AssertionError(f"diagnostics: pressure-level keys {level}")
+    same_arrays("diagnostics: card vs CPU (host groups)",
+                {k: v for k, v in card_d.items() if k not in level},
+                {k: v for k, v in cpu_d.items() if k not in level})
+    if card_m != cpu_m:
+        raise AssertionError("diagnostics: the card's metrics differ")
+    for k in level:
+        nan = [np.isnan(np.asarray(d[k])) for d in (card_d, cpu_d, ref_d)]
+        if not np.array_equal(nan[0], nan[1]):
+            raise AssertionError(f"diagnostics {k}: NaN where the CPU's "
+                                 f"is not")
+        keep = ~(nan[0] | nan[2])
+        err, bnd, scale, errs, finite = parity.f32_rule(
+            {k: torch.as_tensor(np.asarray(card_d[k])[keep])},
+            [{k: torch.as_tensor(np.asarray(cpu_d[k])[keep])}],
+            {k: torch.as_tensor(np.asarray(ref_d[k])[keep])})[k]
+        say(f"C48x63 diagnostics {k}: card vs f64 {err:.3e} (bound "
+            f"{bnd:.3e}, CPU f32 {errs[0]:.3e}, scale {scale:.3e}; "
+            f"{int(keep.sum())} values, {int(nan[0].sum())} NaN below the "
+            f"surface)")
+        if not (finite and err <= bnd):
+            raise AssertionError(f"diagnostics {k}: {err} > {bnd}")
+    interp_ms = 1e3 * sum(clock.seconds)
+    say(f"C48x63 diagnostics wall s: {walls}; compute_diagnostics on the "
+        f"card {len(card_d)} diagnostics, {len(clock.seconds)} "
+        f"interpolations {interp_ms:.1f} ms of its "
+        f"{1e3 * walls['compute_diagnostics card']:.1f} ms (each call "
+        f"synchronised), the rest host numpy")
+
+    # log-viewer on the ML-corrected run's logs, single-run on the emulated
+    # run's stored gscond
+    html = dcli.log_viewer_cmd(os.path.join(root, *DIAG_LOGS),
+                               os.path.join(out, "logs"))
+    page = open(html).read()
+    if "mainloop" not in page or "<svg" not in page:
+        raise AssertionError("log-viewer: no timings or series")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dcli.main(["single-run", os.path.join(root, "emulation"), "-o",
+                   os.path.join(out, "single")])
+    single = json.loads(buf.getvalue())
+    if json.load(open(os.path.join(out, "single",
+                                   "single_run.json"))) != single:
+        raise AssertionError("single-run: single_run.json differs")
+    say(f"C48x63 log-viewer: {html} ({len(page)} bytes); single-run on "
+        f"the emulated run's storage: {single}")
+
+
+# --- phase 21 ---------------------------------------------------------------
+
+COARSE_N, COARSE_FACTOR = 384, 8  # C384 -> C48
+COARSE_TILES, COARSE_CELLS = 2, 6  # the window held against the CPU
+REMAP_WINDOW = 96  # fine columns a side of tile 0: K5 against plain
+# K5 on the coarsening path: the pressure method remaps the five fields of
+# delp's shape (T, q, cloud water, w, delz), the blended method remaps
+# them again, the budget its five (omega, T, q and the two moments)
+LAUNCHES_COARSENING = dict({k: 0 for k in WRAPPERS}, ppm_remap=15)
+COARSE_MASS_BOUND = 1e-5  # column mass across the remap, flat blocks
+CATEGORICAL = ("slmsk", "vtype", "stype", "srflag", "slope")
+T0_COARSE = 288.0  # ps = 1e5 exp(-phis / (Rd T0))
+
+
+def coarsening_state(device, n=COARSE_N, factor=COARSE_FACTOR, seed=0):
+    """A seeded C<n> x 63 restart state in float32 on `device`, after
+    restart_fields' recipe (runtime/nudged_case.py) but for the surface:
+    per coarse block, flat at sea level (blending weight 1), or a base
+    elevation of 0-1500 m with white noise of amplitude 170-340 m (ps
+    +-20-40 hPa inside the block, weight strictly between 0 and 1) or a
+    two-valued terrain +-250-340 m (weight 0).  Returns (state, area,
+    phis, omega, sfc)."""
+    from fv3net_tpu_torch.dycore.hydro import hybrid_coefficients
+    from fv3net_tpu_torch.physics.gfs import qsat
+    from fv3net_tpu_torch.constants import RDGAS, ZVIR
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(device=device, dtype=torch.float64, generator=gen)
+
+    def up(c):
+        return c.repeat_interleave(factor, -2).repeat_interleave(factor, -1)
+
+    nc = n // factor
+    kind = up(torch.randint(0, 3, (6, nc, nc), device=device,
+                            generator=gen))
+    base = up(1500.0 * torch.rand(6, nc, nc, **f64))
+    amp = up(170.0 + 170.0 * torch.rand(6, nc, nc, **f64))
+    noise = 2.0 * torch.rand(6, n, n, **f64) - 1.0
+    h = torch.where(kind == 0, torch.zeros_like(base),
+                    base + amp * torch.where(kind == 1, noise,
+                                             torch.sign(noise)))
+    phis = GRAV * h
+    ps = 1.0e5 * torch.exp(-phis / (RDGAS * T0_COARSE))
+    ak, bk = (c.to(device, torch.float64)
+              for c in hybrid_coefficients(NZ, PTOP))
+    pe = ak[None, :, None, None] + bk[None, :, None, None] * ps[:, None]
+    delp = pe[:, 1:] - pe[:, :-1]
+    p = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    temp = torch.clamp(300.0 * (p / 1.0e5) ** 0.19, min=210.0)
+    temp = temp + torch.randn(6, NZ, n, n, **f64)
+    rh = 0.5 + 0.6 * torch.rand(6, 1, n, n, **f64)
+    q = rh * (p / p[:, -1:]) ** 3 * qsat(temp, p)
+    delz = -(RDGAS / GRAV) * temp * (1.0 + ZVIR * q) * torch.log(
+        pe[:, 1:] / pe[:, :-1])
+    del pe
+    f32 = dict(device=device, dtype=torch.float32, generator=gen)
+    state = {
+        names.DELP: delp, names.TEMP: temp, names.SPHUM: q,
+        names.CLOUD: 1e-4 * torch.rand(6, NZ, n, n, **f64) * (temp > 250.0),
+        "vertical_wind": 0.1 * torch.randn(6, NZ, n, n, **f64),
+        "vertical_thickness_of_atmospheric_layer": delz,
+        "surface_geopotential": phis,
+    }
+    state = {k: v.float() for k, v in state.items()}
+    del delp, temp, q, delz, p
+    state[names.X_WIND] = 5.0 * torch.randn(6, NZ, n + 1, n, **f32)
+    state[names.Y_WIND] = 5.0 * torch.randn(6, NZ, n, n + 1, **f32)
+    g = CubedSphereGrid.make(n, halo=0)
+    area = torch.as_tensor(g.area.astype(np.float32), device=device)
+    omega = 0.5 * torch.randn(6, NZ, n, n, **f32)
+    s = (6, n, n)
+
+    def pick(values):
+        v = torch.tensor(values, device=device, dtype=torch.float32)
+        return v[torch.randint(0, len(values), s, device=device,
+                               generator=gen)]
+
+    def r(lo=0.0, hi=1.0, shape=s):
+        return lo + (hi - lo) * torch.rand(shape, **f32)
+
+    sfc = {
+        "slmsk": pick([0.0, 1.0, 2.0]), "vtype": pick([1.0, 7.0, 15.0]),
+        "stype": pick([2.0, 5.0, 9.0]), "vfrac": r() * (r() > 0.3),
+        "sncovr": r(), "fice": r(), "tsea": r(270.0, 280.0),
+        "tg3": r(270.0, 280.0), "canopy": r(), "zorl": r(),
+        "smc": r(shape=(6, 4, n, n)), "stc": r(280.0, 281.0, (6, 4, n, n)),
+        "slc": r(), "srflag": pick([0.0, 1.0]), "slope": pick([1.0, 2.0,
+                                                               3.0]),
+        "sheleg": r(), "hice": r(), "shdmin": r(0.0, 0.02),
+        "shdmax": r(), "snoalb": r(), "tisfc": r(260.0, 270.0),
+        "alvsf": r(), "t2m": r(280.0, 281.0), "uustar": r(),
+    }
+    return state, area, state["surface_geopotential"], omega, sfc
+
+
+class EventClock:
+    """CUDA-event ms of named blocks (each ends synchronised)."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        yield
+        t1.record()
+        torch.cuda.synchronize()
+        self.ms[name] = t0.elapsed_time(t1)
+
+
+def coarsen_all(state, area, phis, omega, sfc, clock):
+    """The coarsening path (module docstring, 21) on the tensors' device:
+    every method's outputs, each method timed by `clock`."""
+    from fv3net_tpu_torch.utils import coarsen_restarts as cr
+    from fv3net_tpu_torch.utils import fine_res_budget as fb
+    from fv3net_tpu_torch.utils.coarsen import weighted_block_average
+
+    f = COARSE_FACTOR
+    out = {}
+    with clock("sigma"):
+        out["sigma"] = cr.coarsen_restarts_on_sigma(state, area, f)
+    with clock("pressure"):
+        out["pressure"] = cr.coarsen_restarts_on_pressure(state, area, f)
+    with clock("blended"):
+        out["blended"] = cr.coarsen_restarts_via_blended_method(
+            state, area, f, phis=phis)
+        out["blending_weight"] = {
+            "w": cr.blending_weight(phis, area, f)}
+    with clock("sfc_data_complex"):
+        out["sfc"] = cr.coarsen_sfc_data_complex(sfc, area, f)
+    fine = {k: state[k] for k in (names.DELP, names.TEMP, names.SPHUM)}
+    fine["omega"] = omega
+    delp_c = weighted_block_average(state[names.DELP], area[:, None], f)
+    with clock("budget"):
+        out["budget"] = fb.compute_budget_ingredients(
+            fine, delp_c, area, f)
+    return out
+
+
+def window(x, cells, tiles=COARSE_TILES):
+    """The first `cells` x `cells` cells of the first `tiles` tiles of x
+    [tile, ..., y, x] (a staggered wind with its closing edge)."""
+    ny, nx = x.shape[-2:]
+    n = min(ny, nx)
+    return x[:tiles, ..., : cells + ny - n, : cells + nx - n]
+
+
+def coarse_window(x):
+    """The held window of a coarse output, as a float64 CPU tensor."""
+    return window(torch.as_tensor(x), COARSE_CELLS).double().cpu()
+
+
+def null_clock(name):
+    return contextlib.nullcontext()
+
+
+def phase_coarsening():
+    """C384 x 63 -> C48 coarsening on the card (module docstring, 21).
+    Returns the launches of the path."""
+    from fv3net_tpu_torch.utils import coarsen_restarts as cr
+    from fv3net_tpu_torch.utils.coarsen import (
+        block_coarsen, block_upsample, weighted_block_average)
+
+    n, f = COARSE_N, COARSE_FACTOR
+    t0 = time.perf_counter()
+    state, area, phis, omega, sfc = coarsening_state("cuda")
+    torch.cuda.synchronize()
+    ps = state[names.DELP].double().sum(1) + PTOP
+    spread = (block_coarsen(ps, f, "max") - block_coarsen(ps, f, "min"))
+    say(f"C{n}x63 coarsening state on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {len(state)} restart fields, "
+        f"{len(sfc)} surface fields; ps spread inside a block "
+        f"{float(spread.min()):.1f}-{float(spread.max()):.1f} Pa, flat in "
+        f"{int((spread == 0).sum())} of {spread.numel()} blocks")
+    clock = EventClock()
+    coarsen_all(state, area, phis, omega, sfc, clock)  # warm-up
+    reset_counts()
+    out = coarsen_all(state, area, phis, omega, sfc, clock)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(f"C{n}->C{n // f} coarsening", launches,
+                 LAUNCHES_COARSENING)
+    say(f"C{n}x63 -> C{n // f}x63 coarsening ms (CUDA events): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in clock.ms.items())
+        + f"; K5 launches {launches['ppm_remap']}")
+    w = out["blending_weight"]["w"]
+    counts = [int((w == 1).sum()), int(((w > 0) & (w < 1)).sum()),
+              int((w == 0).sum())]
+    say(f"C{n} blending weight: 1 in {counts[0]}, strictly between in "
+        f"{counts[1]}, 0 in {counts[2]} blocks")
+    if not all(counts):
+        raise AssertionError(f"blending weight classes {counts}")
+    for group in out.values():
+        for k, v in group.items():
+            if not bool(torch.isfinite(torch.as_tensor(v)).all()):
+                raise AssertionError(f"coarsening: non-finite {k}")
+
+    # (a) K5 against the plain remap on a window of the C384 columns, both
+    # forms, as the pressure method and the budget call it
+    delp = state[names.DELP]
+    delp_c = weighted_block_average(delp, area[:, None], f)
+    pe1 = cr._interface_pressure(delp, PTOP)
+    pe2 = cr._interface_pressure(block_upsample(delp_c, f), PTOP)
+    q = state[names.TEMP]
+    k5 = ppm_remap_cuda(q, pe1, pe2, 1, 9)
+    mappm = remap.remap_levels_mappm(q, pe1, pe2, 1, 9)
+    win = np.s_[:1, :, :REMAP_WINDOW, :REMAP_WINDOW]
+    qw, p1w, p2w = (t[win].contiguous() for t in (q, pe1, pe2))
+    below = p2w[:, -1] - p1w[:, -1]
+    errs = [
+        check_close(f"C{n} remap window (exact)", k5[win],
+                    remap.remap_levels_plain(qw, p1w, p2w, 1, 9),
+                    2e-5, 2e-5),
+        check_close(f"C{n} remap window (mappm)", mappm[win],
+                    remap.ppm_remap(qw.movedim(1, 0), p1w.movedim(1, 0),
+                                    p2w.movedim(1, 0), iv=1, kord=9)
+                    .movedim(0, 1), 2e-5, 2e-5),
+    ]
+    ms = cuda_ms(lambda: ppm_remap_cuda(q, pe1, pe2, 1, 9))
+    plain_ms = cuda_ms(lambda: remap.remap_levels_plain(qw, p1w, p2w, 1, 9))
+    b_ms, b_by = bound([q, pe1, pe2], [k5], OPS_REMAP_LEVEL * q.numel()
+                       + OPS_REMAP_TARGET * k5.numel()
+                       + OPS_REMAP_PAIR * overlap_pairs(pe1, pe2))
+    say(f"C{n} K5 vs plain on tile 0's {REMAP_WINDOW}x{REMAP_WINDOW} "
+        f"columns: max err {max(errs):.3e} (exact, mappm); target bottom "
+        f"- source bottom {float(below.min()):.1f} to "
+        f"{float(below.max()):.1f} Pa; K5 on [6, 63, {n}, {n}] {ms:.4f} ms "
+        f"(bound {b_ms:.4f} ms, {b_by}, {b_ms / ms:.1%} of it), plain on "
+        f"the window {plain_ms:.4f} ms")
+    if not (below.min() < 0 < below.max()):
+        raise AssertionError("remap window: no target edge below and above "
+                             "the source bottom")
+
+    # (d) column mass across the remap where the block is flat (its
+    # block-mean ps equals its own)
+    flat = block_upsample(spread == 0, f)
+    dp1 = (pe1[:, 1:] - pe1[:, :-1]).double()
+    dp2 = (pe2[:, 1:] - pe2[:, :-1]).double()
+    m1 = (q.double() * dp1).sum(1)
+    rel = [float(((o.double() * dp2).sum(1) / m1 - 1.0).abs()[flat].max())
+           for o in (k5, mappm)]
+    say(f"C{n} flat blocks ({int(flat.sum())} columns): column mass across "
+        f"K5 {rel[0]:.3e} (exact) {rel[1]:.3e} (mappm), bound "
+        f"{COARSE_MASS_BOUND}")
+    if not max(rel) <= COARSE_MASS_BOUND:
+        raise AssertionError(f"coarsening mass {rel}")
+    del k5, mappm, pe1, pe2, dp1, dp2, m1
+
+    # (b) every output on a window of whole coarse blocks against the
+    # port's float64 run on the CPU of the same fine columns, by the f32
+    # spread (parity.f32_rule over the CPU's float32 runs from the inputs
+    # and from SPREAD_RUNS 1-ulp perturbations of them, the categorical
+    # surface fields kept): the card sums blocks in other orders than the
+    # CPU, so one CPU run may round closer to float64 by chance
+    def window_inputs(dtype, seed=None):
+        def w(x, name=None):
+            x = window(x, COARSE_CELLS * f).to("cpu", dtype)
+            if seed is None or name in CATEGORICAL:
+                return x
+            return torch.as_tensor(parity.perturb_ulp(
+                {name: x.numpy()}, seed)[name])
+
+        return ({k: w(v, k) for k, v in state.items()}, w(area, "area"),
+                w(phis, "phis"), w(omega, "omega"),
+                {k: w(v, k) for k, v in sfc.items()})
+
+    runs32 = [coarsen_all(*window_inputs(torch.float32, seed), null_clock)
+              for seed in [None] + list(range(parity.SPREAD_RUNS))]
+    run64 = coarsen_all(*window_inputs(torch.float64), null_clock)
+    held = 0
+    for group, outs in out.items():
+        got = {k: coarse_window(v) for k, v in outs.items()}
+        cpu32 = [{k: coarse_window(v) for k, v in r[group].items()}
+                 for r in runs32]
+        ref64 = {k: coarse_window(v) for k, v in run64[group].items()}
+        worst = (0.0, "")
+        for k, (err, bnd, scale, e32, finite) in parity.f32_rule(
+                got, cpu32, ref64).items():
+            if not (finite and err <= bnd):
+                raise AssertionError(f"coarsening {group} {k}: card vs f64 "
+                                     f"{err:.3e} > {bnd:.3e} (CPU f32 "
+                                     f"{max(e32):.3e}, scale {scale:.3e})")
+            worst = max(worst, (err / bnd if bnd else 0.0, k))
+            held += 1
+        say(f"C{n} {group} window: {len(got)} outputs within the f32 spread "
+            f"of the float64 CPU run (at most {worst[0]:.2f} of the bound, "
+            f"{worst[1]})")
+    for k in CATEGORICAL:
+        if not torch.equal(coarse_window(out["sfc"][k]),
+                           coarse_window(run64["sfc"][k])):
+            raise AssertionError(f"coarsening sfc {k}: not the CPU's modes")
+    say(f"C{n} coarsening window ({COARSE_TILES} tiles x {COARSE_CELLS}x"
+        f"{COARSE_CELLS} coarse cells): {held} outputs held")
+    return launches
+
+
 def width(name, n):
     """The width a kernel's phase-3 numbers are keyed by on the C<n> path:
     the interior n for the kernels that run on the interior columns (the
@@ -2907,9 +3464,10 @@ def kernel_summary(stats, probe_launches, paths):
     """The kernels' JSON entries: each kernel's launches from the path
     that runs it (K1-K5 from the coupled C48 path, K6 from the C192 path)
     beside its launches on every path (`paths`: name -> launches a step,
-    all at C48 but "C192 fused"), and its phase-3 numbers at that path's
-    shapes (the probes at theirs); prints launches x (time - bound) of
-    each kernel on each path."""
+    all at C48 but "C192 fused", and of the whole C384 -> C48 coarsening
+    for "coarsening C384"), and its phase-3 numbers at that path's shapes
+    (the probes at theirs); prints launches x (time - bound) of each
+    kernel on each path whose width phase 3 times (not C384's)."""
     by_path = dict({"probe": probe_launches}, **paths)
     counted = dict(paths["coupled C48"],
                    fv_tp_2d_multi5=paths["C192 fused"]["fv_tp_2d_multi5"],
@@ -2930,7 +3488,7 @@ def kernel_summary(stats, probe_launches, paths):
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         })
     for tag, launches in paths.items():
-        n = 192 if tag == "C192 fused" else 48
+        n = {"C192 fused": 192, "coarsening C384": 384}.get(tag, 48)
         loss = {
             k: round(c * (stats[(k, width(k, n))]["ms"]
                           - stats[(k, width(k, n))]["bound_ms"]), 4)
@@ -2963,13 +3521,16 @@ def main():
     series_launches, series_path = phase_series_run(case.name)
     graph_dir = phase_families(case.name, series_path)
     phase_offline(case.name, model_dir, graph_dir)
+    phase_diagnostics(case.name)
     case.cleanup()
+    coarsening_launches = phase_coarsening()
     kernels = kernel_summary(stats, probe_launches, {
         "C48": main_launches, "C192 fused": fused_launches,
         "coupled C48": coupled_launches,
         "prognostic C48": prognostic_launches, "nudged C48": nudged_launches,
         "ML-corrected C48": ml_launches, "emulated C48": emulated_launches,
-        "series C48": series_launches})
+        "series C48": series_launches,
+        "coarsening C384": coarsening_launches})
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

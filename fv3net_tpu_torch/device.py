@@ -22,3 +22,15 @@ def default_device(fn_name: str) -> torch.device:
             f"available: pass device=\"cpu\" to run it on the CPU"
         )
     return torch.device("cuda")
+
+
+def device_for(arrays, device, fn_name: str) -> torch.device:
+    """Where `fn_name` computes on `arrays`: the device of the first
+    tensor among them (tensors stay where they are), else `device` for
+    host arrays, else the CUDA device (``default_device``)."""
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    if device is not None:
+        return torch.device(device)
+    return default_device(fn_name)

@@ -1,9 +1,9 @@
 """HTML report generation (a copy of the JAX package's
 ``diagnostics/report.py``; external/report/report/create_report.py
 equivalent, dependency-free: inline SVG sparkline plots instead of
-matplotlib/holoviews figures).  Host numpy.  The prognostic-run report
-(``generate_run_report``) needs ``diagnostics/compute.py``, which is not
-ported."""
+matplotlib/holoviews figures).  Host numpy; ``generate_run_report``
+computes the prognostic-run diagnostics first, their pressure-level
+interpolation on a torch device (``diagnostics/compute.py``)."""
 
 from __future__ import annotations
 
@@ -113,3 +113,21 @@ def write_report(report: HTMLReport, path: str):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         f.write(report.render())
+
+
+def generate_run_report(run_path: str, area, output_path: str,
+                        title="prognostic run report", device=None):
+    """compute + report in one call (the `prognostic_run_diags report`
+    path, views/static_report.py equivalent); the diagnostics'
+    interpolation on `device` (None: the CUDA device)."""
+    from .compute import compute_diagnostics
+
+    diags, metrics = compute_diagnostics(run_path, area, device=device)
+    rep = HTMLReport(title, {"run": run_path})
+    for name, val in diags.items():
+        arr = np.asarray(val)
+        if arr.ndim == 1:
+            rep.add_timeseries("Timeseries", name, arr)
+    rep.add_table("Metrics", "scalar metrics", metrics)
+    write_report(rep, output_path)
+    return output_path

@@ -28,7 +28,9 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
     lattice.
 
     qp_x, qp_y, crx, cry, xfx, yfx: [F, nz, N, N] float32 on one CUDA
-    device.  area_px, area_py: [F, 1, N, N] (plain areas) or [F, nz, N, N]
+    device, or the single-layer form [F, N, N] (the shallow-water step's),
+    which runs as nz = 1 and returns [F, N, N] fluxes.  area_px, area_py:
+    [F, N, N] or [F, 1, N, N] (plain areas) or [F, nz, N, N]
     (mass-weighted area * delp).  One launch; fx and fy are the only
     allocations.
     """
@@ -37,6 +39,14 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
     dev = qp_x.device
     if dev.type != "cuda":
         raise ValueError("fv_tp_2d_cuda takes CUDA tensors")
+    if qp_x.ndim == 3:  # single layer: a level axis in, and out again
+        fx, fy = fv_tp_2d_cuda(
+            *(t[:, None] for t in (qp_x, qp_y, crx, cry, xfx, yfx)),
+            area_px, area_py, hord,
+        )
+        return fx[:, 0], fy[:, 0]
+    if area_px.ndim == 3:
+        area_px, area_py = area_px[:, None], area_py[:, None]
     F, nz, N, _ = qp_x.shape
     if qp_x.numel() >= 2 ** 31:
         raise ValueError(f"{tuple(qp_x.shape)} does not fit int32 indices")

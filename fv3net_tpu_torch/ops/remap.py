@@ -20,6 +20,12 @@ the JAX package runs jnp for them on the TPU (``dycore/hydro.py:704-727``):
 that is the reference's semantics, not a fallback.  The JAX package's
 ``set_remap_kernel`` switch is not ported: it existed to save Mosaic
 compile time, which ``nvcc`` does not cost per process.
+``remap_levels_mappm`` is the same dispatch with mappm's out-of-range
+rules (the pressure-level restart coarsening's remap).
+
+``interpolate_columns`` is the diagnostics' columnwise linear
+interpolation (interpolate_2d.f90 semantics), torch on the tensors'
+device.
 """
 
 from __future__ import annotations
@@ -743,3 +749,77 @@ def remap_levels(q1, pe1, pe2, iv: int, kord: int):
             q1.contiguous(), pe1.contiguous(), pe2.contiguous(), iv, kord
         )
     return remap_levels_plain(q1, pe1, pe2, iv, kord)
+
+
+def remap_levels_mappm(q1, pe1, pe2, iv: int, kord: int):
+    """``ppm_remap(..., exact_boundaries=False)`` (mappm's out-of-range
+    layer rules) on the native layout of ``remap_levels_plain``: for a
+    variant the K5 kernel covers, ``remap_levels`` (the kernel on CUDA)
+    followed by the two rules as ``ppm_remap`` applies them (a target
+    layer whose top edge is at/above the source top takes q1's top layer,
+    one whose top edge is at/below the source bottom q1's bottom layer);
+    the plain ``ppm_remap`` otherwise.  Bit for bit the plain form on the
+    CPU; pe1 and pe2 have q1's face count."""
+    if not kernel_covers(iv, kord):
+        return ppm_remap(
+            q1.movedim(1, 0), pe1.movedim(1, 0), pe2.movedim(1, 0),
+            iv=iv, kord=kord,
+        ).movedim(0, 1)
+    km = q1.shape[1]
+    q2 = remap_levels(q1, pe1, pe2, iv, kord)
+    top_edge = pe2[:, :-1]
+    q2 = torch.where(top_edge <= pe1[:, :1], q1[:, :1], q2)
+    return torch.where(top_edge >= pe1[:, km:], q1[:, km - 1:], q2)
+
+
+# ---------------------------------------------------------------------------
+# columnwise linear interpolation (the diagnostics' pressure levels)
+# ---------------------------------------------------------------------------
+
+
+# the most elements of the [n_in - 1, n_out, columns] temporary that
+# interpolate_columns builds at once; wider inputs run in column chunks
+INTERP_CHUNK_ELEMENTS = 1 << 26
+
+
+def interpolate_columns(xp, x, y, fill_value=float("nan")):
+    """Columnwise linear interpolation (interpolate_2d.f90 semantics).
+
+    Args:
+        xp: target coordinates [n_out, ...] (leading axis = levels)
+        x: source coordinates [n_in, ...], monotonically increasing in k
+        y: source values [n_in, ...]
+        fill_value: value outside [x[0], x[-1]]
+
+    Returns: y interpolated at xp, [n_out, ...] on the tensors' device;
+    out-of-range points get fill_value.  Boundary semantics match the
+    Fortran: xp == x[k] returns y[k] (to the rounding of the sum below),
+    and xp == x[-1] (the last edge) is in range.  For monotone x the piecewise-linear interpolant
+    telescopes,
+        y(t) = y[0] + sum_k (y[k+1]-y[k]) clip((t-x[k])/(x[k+1]-x[k]),0,1)
+    (the JAX package's gather-free form), over an [n_in - 1, n_out, ...]
+    temporary, taken INTERP_CHUNK_ELEMENTS at a time over the columns.
+    """
+    dtype = torch.promote_types(torch.promote_types(xp.dtype, x.dtype),
+                                y.dtype)
+    cols = torch.broadcast_shapes(xp.shape[1:], x.shape[1:], y.shape[1:])
+    n_out, n_in = xp.shape[0], x.shape[0]
+
+    def flat(a, n):  # [n, ...] -> [n, columns], the columns broadcast
+        a = a.to(dtype).reshape(n, *[1] * (len(cols) + 1 - a.ndim),
+                                *a.shape[1:])
+        return a.expand(n, *cols).reshape(n, -1)
+
+    xp, x, y = flat(xp, n_out), flat(x, n_in), flat(y, n_in)
+    out = torch.empty_like(xp)
+    step = max(1, INTERP_CHUNK_ELEMENTS // max(1, (n_in - 1) * n_out))
+    for c0 in range(0, out.shape[1], step):
+        c = slice(c0, c0 + step)
+        t, xs, ys = xp[:, c], x[:, c], y[:, c]
+        s = (t[None] - xs[:-1, None]) / (xs[1:, None] - xs[:-1, None])
+        s = torch.clamp(s, 0.0, 1.0)
+        val = ys[0] + torch.sum((ys[1:, None] - ys[:-1, None]) * s, dim=0)
+        in_range = (t >= xs[0]) & (t <= xs[-1])
+        out[:, c] = torch.where(in_range, val,
+                                torch.full_like(val, fill_value))
+    return out.reshape(n_out, *cols)

@@ -83,3 +83,25 @@ def test_unsupported_hord_raises():
     q = torch.zeros(6, 1, N, N, dtype=torch.float64)
     with pytest.raises(ValueError):
         tadv.ppm_flux(q, q, -1, 3)
+
+
+@pytest.mark.parametrize("hord", [1, 5, 6, 8])
+def test_fv_tp_2d_single_layer_matches_pallas_interpret(hord):
+    """The single-layer (shallow-water) form: [F, N, N] fields and
+    [F, N, N] areas, as the JAX kernel takes them (pallas_tp.py:270-276),
+    give [F, N, N] fluxes equal to the JAX package's (its kernel in
+    interpret mode and its jnp form) and to the port's [F, 1, N, N]
+    form."""
+    args = [a[:, 0] for a in _inputs(20 + hord, False)]
+    got = tadv.fv_tp_2d(*[torch.as_tensor(a) for a in args], hord)
+    layered = tadv.fv_tp_2d(*[torch.as_tensor(a)[:, None] for a in args],
+                            hord)
+    for want in (
+        fv_tp_2d_pallas(*[jnp.asarray(a) for a in args], hord,
+                        interpret=True),
+        jadv.fv_tp_2d(*[jnp.asarray(a) for a in args], hord),
+    ):
+        for g, w, g4 in zip(got, want, layered):
+            assert g.shape == (6, N, N)
+            _close(g[:, None], np.asarray(w)[:, None])
+            assert torch.equal(g, g4[:, 0])

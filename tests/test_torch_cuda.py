@@ -870,3 +870,113 @@ def test_offline_evaluate_on_card_by_default(dev, tmp_path):
         assert abs(got[k] - v) <= 1e-5 * abs(v), (k, got[k], v)
     with open(tmp_path / "card" / "scalar_metrics.json") as f:
         assert json.load(f) == got
+
+
+@pytest.mark.parametrize("area_form", ["flat", "level"])
+@pytest.mark.parametrize("hord", [1, 5, 6, 8])
+def test_fv_tp_2d_kernel_single_layer(dev, hord, area_form):
+    """K1's single-layer form: [F, N, N] fields (areas [F, N, N] or
+    [F, 1, N, N]) give, in one launch, the [F, 1, N, N] form's fluxes bit
+    for bit, and the plain version's within K1's tolerance."""
+    rng = np.random.RandomState(30 + hord)
+    sh = (6, N, N)
+    area = 1.0 + 0.1 * rng.rand(*sh)
+    args = [_t(a, dev) for a in (
+        rng.randn(*sh), rng.randn(*sh), 0.2 * rng.randn(*sh),
+        0.2 * rng.randn(*sh), 0.05 * area * rng.randn(*sh),
+        0.05 * area * rng.randn(*sh))]
+    areas = [_t(a, dev) for a in (area, area + 0.01)]
+    if area_form == "level":
+        areas = [a[:, None] for a in areas]
+    launches = fv_tp_2d_cuda.launches
+    got = advection.fv_tp_2d(*args, *areas, hord)
+    assert fv_tp_2d_cuda.launches == launches + 1
+    layered = fv_tp_2d_cuda(*(a[:, None] for a in args),
+                            *(a.reshape(6, 1, N, N) for a in areas), hord)
+    want = advection.fv_tp_2d_plain(
+        *args, *(a.reshape(6, N, N) for a in areas), hord)
+    sl = np.s_[:, 2 : N - 2, 2 : N - 2]
+    for g, g4, w in zip(got, layered, want):
+        assert g.shape == (6, N, N)
+        assert torch.equal(g, g4[:, 0])
+        torch.testing.assert_close(g[sl], w[sl], rtol=1e-4, atol=1e-3)
+
+
+def test_pressure_coarsening_kernel(dev):
+    """The pressure-level restart coarsening on the card: mappm's remap
+    through K5 against the plain remap on the same tensors, with target
+    edges above and below the source column (K5's tolerance); and the
+    whole method (one K5 launch a 3D field) against the CPU's float32
+    run within 1e-5 of each output's scale."""
+    from fv3net_tpu_torch.utils import coarsen_restarts as cr
+
+    rng = np.random.RandomState(40)
+    w = np.cumsum(0.2 + rng.rand(6, NZ + 1, n, n), axis=1)
+    pe1 = 300.0 + (w - w[:, :1]) / (w[:, -1:] - w[:, :1]) * 1e5
+    pe2 = pe1 * (1.0 + 0.04 * (rng.rand(6, 1, n, n) - 0.5))
+    pe2[:, 0] = 300.0 * (0.5 + rng.rand(6, n, n))
+    q = _t(1.0 + 0.1 * rng.randn(6, NZ, n, n), dev)
+    p1, p2 = _t(pe1, dev), _t(pe2, dev)
+    assert bool((p2[:, -1] > p1[:, -1]).any() & (p2[:, -1] < p1[:, -1]).any())
+    launches = ppm_remap_cuda.launches
+    got = remap.remap_levels_mappm(q, p1, p2, 1, 9)
+    assert ppm_remap_cuda.launches == launches + 1
+    want = remap.ppm_remap(q.movedim(1, 0), p1.movedim(1, 0),
+                           p2.movedim(1, 0), iv=1, kord=9).movedim(0, 1)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+    factor = 4
+    h = np.repeat(np.repeat(400.0 * rng.rand(6, n // factor, n // factor),
+                            factor, 1), factor, 2) * rng.uniform(-1, 1,
+                                                                 (6, n, n))
+    ps = 1.0e5 * np.exp(-h / 8400.0)
+    delp = np.diff(300.0 + (ps[:, None] - 300.0) * np.linspace(0, 1, NZ + 1)[
+        None, :, None, None], axis=1)
+    state = {"pressure_thickness_of_atmospheric_layer": delp,
+             "air_temperature": 250.0 + 30.0 * rng.rand(6, NZ, n, n),
+             "specific_humidity": 1e-3 * rng.rand(6, NZ, n, n),
+             "x_wind": rng.randn(6, NZ, n + 1, n),
+             "y_wind": rng.randn(6, NZ, n, n + 1)}
+    area = 1.0 + 0.1 * rng.rand(6, n, n)
+    launches = ppm_remap_cuda.launches
+    got = cr.coarsen_restarts_on_pressure(
+        {k: _t(v, dev) for k, v in state.items()}, _t(area, dev), factor)
+    assert ppm_remap_cuda.launches == launches + 2
+    cpu = torch.device("cpu")
+    want = cr.coarsen_restarts_on_pressure(
+        {k: _t(v, cpu) for k, v in state.items()}, _t(area, cpu), factor)
+    for k, v in want.items():
+        assert_close_scaled(got[k].cpu().numpy(), v.numpy(), 1e-5, k)
+
+
+def test_compute_diagnostics_on_card(dev):
+    """compute_diagnostics with no device interpolates on the card: the
+    diagnostics and metrics of the CPU run, the pressure-level groups
+    within 1e-12 of each array's scale (float64 on both), every other
+    group and every metric equal."""
+    from fv3net_tpu_torch.diagnostics.compute import compute_diagnostics
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+
+    rng = np.random.RandomState(50)
+    nt, nz = 4, 8
+    g = CubedSphereGrid.make(n, halo=3)
+    grid = {"area": np.asarray(g.area[g.interior]),
+            "lat": np.asarray(g.lat[g.interior]),
+            "lon": np.asarray(g.lon[g.interior]),
+            "delp": 1.0e5 / nz * (0.9 + 0.2 * rng.rand(nt, 6, nz, n, n))}
+    run = {"surface_pressure": 1e5 + 100 * rng.randn(nt, 6, n, n),
+           "air_temperature": 250 + 30 * rng.rand(nt, 6, nz, n, n)}
+    ver = {k: v + rng.randn(*v.shape) for k, v in run.items()}
+    got, got_m = compute_diagnostics(run, grid=grid, verification=ver)
+    want, want_m = compute_diagnostics(run, grid=grid, verification=ver,
+                                       device="cpu")
+    assert sorted(got) == sorted(want) and got_m == want_m
+    for k, w in want.items():
+        x = np.asarray(got[k])
+        if "pressure_level" in k or "300_700" in k:
+            ok = np.isfinite(w)
+            np.testing.assert_array_equal(np.isfinite(x), ok)
+            np.testing.assert_allclose(x[ok], w[ok], rtol=0,
+                                       atol=1e-12 * np.abs(w[ok]).max())
+        else:
+            np.testing.assert_array_equal(x, w)

@@ -11,13 +11,15 @@ import pytest
 import torch
 
 from fv3net_tpu_torch import convert, fit, wrapper
-from fv3net_tpu_torch.diagnostics import offline
+from fv3net_tpu_torch.diagnostics import compute, offline
 from fv3net_tpu_torch.device import default_device
 from fv3net_tpu_torch.fit import train as fit_train
 from fv3net_tpu_torch.fit import transformed as fit_transformed
 from fv3net_tpu_torch.dycore import hydro, sw
 from fv3net_tpu_torch.grid import CubedSphereGrid
 from fv3net_tpu_torch.runtime import cli, segmented_run
+from fv3net_tpu_torch.utils import (
+    coarsen_restarts, fine_res_budget, interpolate)
 
 torch.set_num_threads(1)
 
@@ -66,6 +68,22 @@ ENTRY_POINTS = {
         fit.CycleGANHyperparameters(), []),
     "diagnostics.offline.evaluate": lambda: offline.evaluate(
         "no-such-model", {}, {}, "no-such-output"),
+    "compute_diagnostics": lambda: compute.compute_diagnostics({}),
+    "interpolate_1d": lambda: interpolate.interpolate_1d(
+        np.ones((2, 3)), np.ones((4, 3)), np.ones((4, 3)), axis=0),
+    "coarsen_restarts_on_pressure":
+        lambda: coarsen_restarts.coarsen_restarts_on_pressure(
+            {"pressure_thickness_of_atmospheric_layer": np.ones(
+                (6, NZ, n, n))}, np.ones((6, n, n)), 2),
+    "pressure_level_average": lambda: fine_res_budget.pressure_level_average(
+        np.ones((6, NZ, n, n)), np.ones((6, NZ, n, n)),
+        np.ones((6, NZ, n // 2, n // 2)), np.ones((6, n, n)), 2),
+    "exposed_area": lambda: fine_res_budget.exposed_area(
+        np.ones((6, NZ, n, n)), np.ones((6, NZ, n // 2, n // 2)),
+        np.ones((6, n, n)), 2),
+    "compute_budget_ingredients":
+        lambda: fine_res_budget.compute_budget_ingredients(
+            {}, np.ones((6, NZ, n // 2, n // 2)), np.ones((6, n, n)), 2),
 }
 
 

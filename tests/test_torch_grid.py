@@ -80,9 +80,11 @@ def test_port_import_leaves_jax_out():
     """Every module of fv3net_tpu_torch (walked with pkgutil, so a new
     module is covered without a hand list; the host-code subpackages io/,
     data/ and the physics/ modules of the nudged run among them, and every
-    module file of fit/, emulation/ and diagnostics/) imports without jax,
-    without fv3net_tpu and without scikit-learn (which the scikit-learn
-    models import only where one is trained or loaded)."""
+    module file of fit/, emulation/, diagnostics/, utils/ and viz/)
+    imports without jax, without fv3net_tpu, without scikit-learn (which
+    the scikit-learn models import only where one is trained or loaded)
+    and without matplotlib (which viz/ and the movies subcommand import
+    only where they plot)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fv3net_tpu_torch as pkg\n"
@@ -97,7 +99,7 @@ def test_port_import_leaves_jax_out():
         "    assert 'fv3net_tpu_torch.' + sub in mods, sub\n"
         "import glob, os\n"
         "for pkg_dir, least in (('fit', 13), ('emulation', 5),"
-        " ('diagnostics', 4)):\n"
+        " ('diagnostics', 8), ('utils', 11), ('viz', 3)):\n"
         "    files = glob.glob(os.path.join(pkg.__path__[0], pkg_dir, '*.py'))\n"
         "    assert len(files) >= least, files\n"
         "    for f in files:\n"
@@ -106,7 +108,7 @@ def test_port_import_leaves_jax_out():
         "            '' if stem == '__init__' else '.' + stem)\n"
         "        assert name in mods + ['fv3net_tpu_torch.' + pkg_dir], name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'fv3net_tpu', 'sklearn')]\n"
+        " ('jax', 'fv3net_tpu', 'sklearn', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
