@@ -24,7 +24,11 @@ Phases (any failure raises and the script exits non-zero):
      time of each wrapper's Python call alone (host_ms); K6 also against
      five K1 calls; K1's single-layer form [6, N, N] (the shallow-water
      step's, areas [6, N, N]) in one launch against the [6, 1, N, N]
-     form bit for bit and against the plain version;
+     form bit for bit and against the plain version; K3's exchanged-pair
+     entry on the six faces' pair bit for bit against the table entry
+     and on one face against its plain version; K1, K2, K4 and K5 at the
+     shard shapes of phases 24-25 (one face [1, 63, ...] of C48, three
+     faces' 24 x 24 tiles [3, 63, ...]) against their plain versions;
   4. slice parity: one dt at C12 x 63 f32 on CUDA (kernels) against the
      same dt on the CPU (plain torch) in f32 and float64, every state
      field (see F32_FACTOR), with the fused transport off and on;
@@ -248,16 +252,45 @@ Phases (any failure raises and the script exits non-zero):
      (e) FregridLatLon (C48 -> 90 x 180) of a seeded [6, 63, 48, 48] f32
      field on the card against the CPU's float64 regrid by phase 4's
      rule, a constant field constant where dst_area > 0, and its times.
+ 23. radiation: MultibandRadiationDriver.gfs_radiation_driver on a
+     seeded C48 x 63 state with land and snow (radiation_inputs) on the
+     card in f32 against the CPU in f32 and float64 by phase 4's rule,
+     every output; the SW and LW energy closure of the JAX package's
+     tests (SW_CLOSURE, LW_CLOSURE) on the card's outputs and the
+     float64 ones; ms a call (CUDA events, median of RAD_REPS), wall ms
+     and the device's busy time (torch.profiler), hence the host's share.
+ 24. spmd face: the multi-rank dycore (parallel/spmd_dycore.py) on the
+     6-rank face mesh at C48 x 63 (the main path's configuration) on this
+     card: 6 processes of one gloo group (multihost.spawn, each running
+     ``chip_smoke.py --rank face DIR``; the kernel library built once
+     here first), each holding one face on the card, exchanges staged
+     through the host; 2 dts gathered and held against two single-process
+     card dts (SPMD_SPREAD_FACTOR: bit for bit where those agree bit for
+     bit) and the first against phase 5's CPU dts by phase 4's rule, dry
+     mass; K1-K5's launches in every dt of every rank (K3 by its
+     exchanged-pair entry); ms per dt (the slowest rank's CUDA events,
+     median of SPMD_TIMED_DTS further dts) with the exchanges' host time,
+     calls and bytes apart; then the same mesh in float64 on the CPU at
+     C12 x 63 against the single-process float64 dt (SPMD_CPU_TOL).
+ 25. spmd tiled: the same on the (F, Y, X) = (2, 2, 2) mesh of 8 ranks
+     (three faces' tiles each), 1 dt held: the tiled step takes the
+     filter's and the vorticity damper's transpose forms (the JAX
+     package's tiled path), so it is held by phase 4's rule against
+     phase 5's CPU dts (its distance to the single-process card dt
+     printed); K3 does not run there.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
 C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
 emulated and series paths, K6 on the C192 path, K1, K3, K4 and K5 on the
 prognostic path, K5 on the C384 -> C48 coarsening path, K1 and K3 on the
-shallow-water path (a step at C48 and at C192, "sw").  Each kernel's JSON
-entry holds its launches (from the coupled C48 path for K1-K5, the C192
-path for K6, the probe path for K7/K8; each path's in
-``launches_by_path``) and its
-phase-3 numbers at the shapes of the path its launches come from (K1-K5
-C48, K6 C192, K7/K8 [256, 256]).  The last two lines are the kernels'
+shallow-water path (a step at C48 and at C192, "sw"), K1-K5 in every rank
+of the multi-rank paths ("spmd face C48", "spmd tiled C48": a rank's
+launches a dt; K3's exchanged-pair entry, "del4_filter_pair", on the face
+mesh).  Each kernel's JSON entry holds its launches (from the coupled C48
+path for K1-K5, the C192 path for K6, the probe path for K7/K8, the spmd
+face path for K3's pair entry; each path's in ``launches_by_path``) and
+its phase-3 numbers at the shapes of the path its launches come from
+(K1-K5 C48, K6 C192, K7/K8 [256, 256], the pair entry one face
+[1, 63, 54, 54]).  The last two lines are the kernels'
 JSON summary and {"ok": true, "device": {...}}.
 """
 
@@ -279,13 +312,20 @@ import torch
 from fv3net_tpu_torch import parity, probe, wrapper
 from fv3net_tpu_torch.constants import GRAV
 from fv3net_tpu_torch.dycore import riemann, sw
-from fv3net_tpu_torch.dycore.hydro import benchmark_state, make_dycore_stepper
+from fv3net_tpu_torch.dycore.hydro import (
+    benchmark_state,
+    hybrid_coefficients,
+    make_dycore_stepper,
+)
 from fv3net_tpu_torch.emulation import gscond
 from fv3net_tpu_torch.grid import CubedSphereGrid, halo_exchange
 from fv3net_tpu_torch.grid import halo as halo_mod
 from fv3net_tpu_torch.kernel_times import _halo_padded
 from fv3net_tpu_torch.ops import _build, advection, cuda_column, remap
-from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
+from fv3net_tpu_torch.ops.cuda_filter import (
+    del4_filter_cuda,
+    del4_filter_pair_cuda,
+)
 from fv3net_tpu_torch.ops.cuda_remap import ppm_remap_cuda
 from fv3net_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 from fv3net_tpu_torch.ops.cuda_tp import fv_tp_2d_cuda, fv_tp_2d_multi5_cuda
@@ -301,6 +341,7 @@ WRAPPERS = {
     "fv_tp_2d": fv_tp_2d_cuda,
     "sim1_solver": sim1_solver_cuda,
     "del4_filter": del4_filter_cuda,
+    "del4_filter_pair": del4_filter_pair_cuda,
     "column_pressures": cuda_column.column_pressures_cuda,
     "ppm_remap": ppm_remap_cuda,
     "fv_tp_2d_multi5": fv_tp_2d_multi5_cuda,
@@ -314,6 +355,8 @@ META = {
                     "fv3net_tpu/ops/pallas_sim1.py:147"),
     "del4_filter": ("fv3net_tpu_torch/csrc/filter.cu",
                     "fv3net_tpu/ops/pallas_filter.py:60"),
+    "del4_filter_pair": ("fv3net_tpu_torch/csrc/filter.cu",
+                         "fv3net_tpu/ops/pallas_filter.py:60"),
     "column_pressures": ("fv3net_tpu_torch/csrc/column.cu",
                          "fv3net_tpu/ops/pallas_column.py:56"),
     "ppm_remap": ("fv3net_tpu_torch/csrc/remap.cu",
@@ -330,6 +373,7 @@ META = {
 # per substep, and 6 remaps (pt, u, v, w, delz via sv, the tracer stack)
 LAUNCHES_PER_DT = {
     "fv_tp_2d": 31, "sim1_solver": 6, "del4_filter": 24,
+    "del4_filter_pair": 0,
     "column_pressures": 12, "ppm_remap": 6, "fv_tp_2d_multi5": 0,
     "probe_affine": 0, "probe_stencil": 0,
 }
@@ -338,6 +382,9 @@ LAUNCHES_PER_DT = {
 LAUNCHES_PER_DT_FUSED = dict(LAUNCHES_PER_DT, fv_tp_2d=1, fv_tp_2d_multi5=6)
 # kernels that run on the n x n interior (the others on the padded lattice)
 INTERIOR = ("sim1_solver", "ppm_remap")
+# (faces, interior width) of a rank of the multi-rank paths at C48: one
+# face of the face mesh, three faces' 24 x 24 tiles of the (2, 2, 2) mesh
+SHARD_SHAPES = ((1, 48), (3, 24))
 # ... on the toolchain probe path: one call of each probe
 LAUNCHES_PROBE = dict(
     {k: 0 for k in WRAPPERS}, probe_affine=1, probe_stencil=1
@@ -762,6 +809,35 @@ def check_filter(rng, n, dev, stats):
     ms = cuda_ms(lambda: sw.scalar_filter(q, m, c))
     say(f"del4 n={n}: scalar_filter {ms:.4f} ms (one launch); the x- and "
         f"y-fill exchanges it no longer makes {ms_x:.4f} ms")
+    check_filter_pair(q, m, c, got, n, stats)
+
+
+def check_filter_pair(q, m, c, table_out, n, stats):
+    """K3's exchanged-pair entry (the face mesh's): on the six faces'
+    exchanged pair it equals the table-reading entry bit for bit; on one
+    face's pair [1, nz, N, N] (a face-mesh rank's shape) it agrees with
+    the plain scalar_filter form of the whole cube on that face and with
+    its own plain version (sw.scalar_filter_pair_plain), and is timed there."""
+    qx = halo_exchange(q, H, fill="x").contiguous()
+    qy = halo_exchange(q, H, fill="y").contiguous()
+    got6 = del4_filter_pair_cuda(qx, qy, m.area_px, m.area_py, c, H)
+    if not torch.equal(got6, table_out):
+        d = float((got6 - table_out).abs().max())
+        raise AssertionError(f"del4 pair n={n}: != table entry ({d:.3e})")
+    f = 1
+    args = (qx[f:f + 1].contiguous(), qy[f:f + 1].contiguous(),
+            m.area_px[f:f + 1].contiguous(), m.area_py[f:f + 1].contiguous())
+    got = del4_filter_pair_cuda(*args, c, H)
+    check_close(f"del4 pair n={n} vs scalar_filter", got[0],
+                sw.scalar_filter_plain(q, m, c)[f], 1e-4, 1e-5)
+    err = check_close(f"del4 pair n={n}", got,
+                      sw.scalar_filter_pair_plain(*args, c, H), 1e-4, 1e-5)
+    record(stats, "del4_filter_pair", n + 2 * H, err,
+           lambda: del4_filter_pair_cuda(*args, c, H),
+           lambda: sw.scalar_filter_pair_plain(*args, c, H),
+           list(args), [got], OPS_DEL4_CELL * got.numel())
+    say(f"del4 pair n={n}: [6, ...] equals the table entry bit for bit; "
+        f"[1, ...] max abs err {err:.3e}")
 
 
 def check_column(rng, N, dev, stats):
@@ -919,6 +995,61 @@ def check_multi5(rng, N, dev, stats):
     say(f"multi5 N={N}: five K1 calls {k1_ms:.4f} ms")
 
 
+def check_shards(rng, dev):
+    """K1, K2, K4 and K5 at the shapes a rank of the multi-rank paths
+    (phases 24-25) gives them (SHARD_SHAPES: F faces of interior width
+    n), each against its plain version at the tolerance of its phase-3
+    check: K1 at hord 5 in the area and mass forms, K2 on the halo-padded
+    pem, pm and ws, K4, and K5 at kord 9, iv 1/0/-1, in its cell-centred
+    and staggered shapes, with its column-mass gate."""
+    for F, n in SHARD_SHAPES:
+        N = n + 2 * H
+        tag = f"shard F={F} n={n}"
+        a = {k: v[:F].contiguous() for k, v in _tp_inputs(rng, N, dev).items()}
+        sl = np.s_[:, :, 2 : N - 2, 2 : N - 2]
+        for form in ("area", "mass"):
+            apx, apy = a["apx"], a["apy"]
+            if form == "mass":
+                apx, apy = apx * a["dp"], apy * a["dp"]
+            args = (a["qx"], a["qy"], a["crx"], a["cry"], a["xfx"],
+                    a["yfx"], apx, apy, 5)
+            got = fv_tp_2d_cuda(*args)
+            want = advection.fv_tp_2d_plain(*args)
+            for name, g, w in zip(("fx", "fy"), got, want):
+                check_close(f"fv_tp_2d {tag} {form} {name}", g, w, 1e-4,
+                            1e-3, sl)
+        args = [x[:F].contiguous() for x in _sim1_inputs(rng, n, dev)]
+        padded = args[:4] + [_halo_padded(torch, x) for x in args[4:]]
+        got = sim1_solver_cuda(150.0, *padded, halo=H)
+        want = riemann.sim1_solver(150.0, *args)
+        check_close(f"sim1 {tag} w2", got[0], want[0], 1e-5, 1e-4)
+        check_close(f"sim1 {tag} dz2", got[1], want[1], 1e-5, 1e-3)
+        check_close(f"sim1 {tag} ppe", got[2], want[2], 1e-4,
+                    float(want[2].abs().max()) * 1e-4)
+        dp = torch.as_tensor(
+            (900.0 + 200.0 * rng.rand(F, NZ, N, N)).astype(np.float32),
+            device=dev,
+        )
+        got = cuda_column.column_pressures_cuda(dp, PTOP)
+        want = cuda_column.column_pressures_plain(dp, PTOP)
+        for name, g, w, rtol in zip(("pe", "pi", "pm"), got, want,
+                                    (1e-6, 1e-5, 1e-5)):
+            check_close(f"column {tag} {name}", g, w, rtol, 0.0)
+        for stag in ((0, 0), (1, 0), (0, 1)):
+            q, pe1, pe2 = [x[:F].contiguous()
+                           for x in _remap_inputs(rng, n, stag, dev)]
+            for iv in (1, 0, -1):
+                rtag = f"remap {tag} stag={stag} iv={iv}"
+                got = ppm_remap_cuda(q, pe1, pe2, iv, 9)
+                want = remap.remap_levels_plain(q, pe1, pe2, iv, 9)
+                check_close(rtag, got, want, 2e-5, 2e-5)
+                rel, rel_plain = column_mass_error(q, pe1, pe2, got, want)
+                if not rel <= 2e-4 + 2.0 * rel_plain:
+                    raise AssertionError(f"{rtag}: column mass {rel:.3e}")
+        say(f"{tag}: K1, K2, K4 and K5 at [{F}, {NZ}, ...] within their "
+            f"plain versions' tolerances")
+
+
 def phase_kernels():
     rng = np.random.RandomState(0)
     stats = {}
@@ -931,6 +1062,7 @@ def phase_kernels():
         check_remap(rng, n, "cuda", stats)
         check_multi5(rng, N, "cuda", stats)
         torch.cuda.empty_cache()
+    check_shards(np.random.RandomState(1), "cuda")
     return stats
 
 
@@ -978,7 +1110,15 @@ def compare_states(tag, got, plain32, ref64, fields=None, perturbed=()):
 
 def cpu_references(g, n):
     """One dt of the plain path on the CPU, in f32 and in float64, from
-    the same f32 initial state."""
+    the same f32 initial state (kept for the later phases that hold a dt
+    of the same state: the multi-rank ones)."""
+    if n in _CPU_REFS:
+        return _CPU_REFS[n]
+    _CPU_REFS[n] = _cpu_references(g, n)
+    return _CPU_REFS[n]
+
+
+def _cpu_references(g, n):
     st = benchmark_state(n, NZ, PTOP, "cpu")
     out = []
     for dtype in (torch.float32, torch.float64):
@@ -3826,6 +3966,368 @@ def phase_regrid():
         raise AssertionError(f"regrid of a constant: {err:.3e}")
 
 
+
+# --- phases 23-25: multiband radiation and the multi-rank dycore ------------
+
+RAD_TIME = datetime.datetime(2016, 8, 1, 12)
+RAD_REPS = 10
+# energy closure, the tolerances of the JAX package's
+# tests/test_radiation.py::test_{sw,lw}_energy_conservation (rtol, atol in
+# W/m^2): TOA net SW = column absorption + surface net SW; column LW
+# heating = -(net flux at the top - net flux at the surface)
+SW_CLOSURE = (2e-3, 0.5)
+LW_CLOSURE = (1e-4, 1e-3)
+# the multi-rank dycore (parallel/spmd_dycore.py) on this one card: every
+# rank a process of one gloo group, its state, compute and kernels on the
+# card, only the exchange payloads through the host
+SPMD_MESHES = {"face": 6, "tiled": 8}  # ranks
+SPMD_LAYOUT = (2, 2, 2)  # the tiled mesh: (F, Y, X), three faces a rank
+SPMD_GATE_DTS = {"face": 2, "tiled": 1}  # dts held against the references
+SPMD_TIMED_DTS = 3  # further dts timed, after the held ones
+SPMD_TIMEOUT_S = 600  # the ranks' wall-time limit
+SPMD_DIST_TIMEOUT_S = 300  # every exchange and collective
+# the sharded card dt against the single-process card dt: bit for bit
+# where two single-process dts agree bit for bit; otherwise within this
+# factor of their difference (autograd's atomic scatter-add in div_damp's
+# transpose makes the single-process card dt irreproducible in f32)
+SPMD_SPREAD_FACTOR = 4.0
+SPMD_CPU_N = 12  # the float64 CPU run of the same meshes: C12 x 63
+SPMD_CPU_TOL = 1e-12  # against the single-process float64 dt (rtol, atol)
+LAUNCHES_SPMD_FACE = dict(LAUNCHES_PER_DT, del4_filter=0,
+                          del4_filter_pair=24)
+# on tiles the filter takes its plain transpose form (sw.scalar_filter)
+LAUNCHES_SPMD_TILED = dict(LAUNCHES_PER_DT, del4_filter=0)
+_CPU_REFS = {}  # n -> phase 5's CPU f32 and float64 dts
+
+
+def radiation_inputs(n, nz=NZ, seed=0):
+    """A seeded C`n` x nz radiation state (host float64): hybrid-coordinate
+    pressures with surface pressure +-2%, a lapse-rate temperature with
+    noise, humidity from dry to saturated, condensate in some cells, land
+    on ~40% of the columns and snow on half of the land, and the grid's
+    own longitudes and latitudes (degrees)."""
+    rng = np.random.RandomState(seed)
+    g = CubedSphereGrid.make(n, halo=H)
+    lon, lat = (np.rad2deg(a[g.interior]) for a in (g.lon, g.lat))
+    ak, bk = (c.numpy() for c in hybrid_coefficients(nz, PTOP))
+    ps = 1.0e5 * (1.0 + 0.02 * rng.randn(6, 1, n, n))
+    pe = ak[None, :, None, None] + bk[None, :, None, None] * ps
+    delp = pe[:, 1:] - pe[:, :-1]
+    p_lay = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    temp = np.clip(
+        288.0 - 60.0 * np.log(1.0e5 / p_lay) / np.log(10.0), 200.0, 320.0
+    ) + rng.randn(6, nz, n, n)
+    sphum = 0.015 * (p_lay / 1.0e5) ** 3 * rng.rand(6, nz, n, n) + 1e-6
+    ql = np.where(rng.rand(6, nz, n, n) < 0.2, 1e-4 * rng.rand(6, nz, n, n),
+                  0.0)
+    qi = np.where(rng.rand(6, nz, n, n) < 0.1, 5e-5 * rng.rand(6, nz, n, n),
+                  0.0)
+    land = (rng.rand(6, n, n) < 0.4).astype(np.float64)
+    snow = np.where(rng.rand(6, n, n) < 0.5, 25.0 * rng.rand(6, n, n), 0.0)
+    snow = snow * land
+    tsfc = 280.0 + 20.0 * np.cos(np.deg2rad(lat)) + rng.randn(6, n, n)
+    return dict(p_lay=p_lay, delp=delp, temp=temp, sphum=sphum, ql=ql,
+                qi=qi, tsfc=tsfc, land_mask=land, snow=snow, lon=lon,
+                lat=lat)
+
+
+def radiation_call(drv, inp, device, dtype):
+    """MultibandRadiationDriver.gfs_radiation_driver on tensors of
+    `dtype` on `device` built from the host inputs (lon/lat stay host)."""
+    t = {k: torch.as_tensor(v, dtype=dtype, device=device)
+         for k, v in inp.items() if k not in ("lon", "lat")}
+    return lambda: drv.gfs_radiation_driver(
+        RAD_TIME, inp["lon"], inp["lat"], t["p_lay"], t["delp"], t["temp"],
+        t["sphum"], t["tsfc"], ql=t["ql"], qi=t["qi"],
+        land_mask=t["land_mask"], snow=t["snow"],
+    )
+
+
+def radiation_closure(tag, out, delp):
+    """The energy closure of the SW and LW solvers (SW_CLOSURE,
+    LW_CLOSURE), in float64 from the driver's outputs."""
+    from fv3net_tpu_torch.constants import CP_AIR
+
+    o = {k: v.double().cpu() for k, v in out.items()}
+    dp = delp.double().cpu()
+    colabs = (o["shortwave_heating_rate"] * dp).sum(1) * CP_AIR / GRAV
+    toa_net = (o["total_sky_downward_shortwave_flux_at_top_of_atmosphere"]
+               - o["total_sky_upward_shortwave_flux_at_top_of_atmosphere"])
+    sfc_net = o["total_sky_net_shortwave_flux_at_surface"]
+    colheat = (o["longwave_heating_rate"] * dp).sum(1) * CP_AIR / GRAV
+    net_top = o["total_sky_upward_longwave_flux_at_top_of_atmosphere"]
+    net_sfc = (o["total_sky_upward_longwave_flux_at_surface"]
+               - o["total_sky_downward_longwave_flux_at_surface"])
+    for name, actual, desired, (rtol, atol) in (
+        ("SW", toa_net, colabs + sfc_net, SW_CLOSURE),
+        ("LW", colheat, -(net_top - net_sfc), LW_CLOSURE),
+    ):
+        err = (actual - desired).abs()
+        worst = float((err - rtol * desired.abs()).max())
+        say(f"{tag} {name} energy closure: max |err| {float(err.max()):.3e} "
+            f"W/m^2 (rtol {rtol}, atol {atol}; worst excess over rtol "
+            f"{worst:.3e})")
+        if not worst <= atol:
+            raise AssertionError(f"{tag}: {name} energy not closed")
+    if not float(colabs.min()) >= -1e-3:
+        raise AssertionError(f"{tag}: negative SW column absorption")
+
+
+def phase_radiation():
+    """The multiband radiation (physics/radiation.py
+    MultibandRadiationDriver) at C48 x 63 on the card against the CPU in
+    f32 and float64 by phase 4's rule; the energy closure of its solvers;
+    ms per call (CUDA events), wall ms and the device's busy time
+    (torch.profiler) beside them."""
+    from fv3net_tpu_torch.physics.radiation import MultibandRadiationDriver
+
+    inp = radiation_inputs(48)
+    drv = MultibandRadiationDriver()
+    drv.radupdate(RAD_TIME)
+    card_call = radiation_call(drv, inp, "cuda", torch.float32)
+    got = card_call()
+    torch.cuda.synchronize()
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        runs[dtype] = radiation_call(drv, inp, "cpu", dtype)()
+        say(f"radiation C48x63 CPU {dtype}: {time.perf_counter() - t0:.1f} s")
+    compare_states("radiation C48x63", got, runs[torch.float32],
+                   runs[torch.float64])
+    day = got["total_sky_downward_shortwave_flux_at_top_of_atmosphere"]
+    if not float(day.max()) > 600.0 or float(day.min()) != 0.0:
+        raise AssertionError("radiation: no day and night on the cube")
+    delp32 = torch.as_tensor(inp["delp"], dtype=torch.float32)
+    radiation_closure("radiation C48x63 card", got, delp32)
+    radiation_closure("radiation C48x63 f64", runs[torch.float64],
+                      torch.as_tensor(inp["delp"]))
+    ms = cuda_ms(card_call, reps=RAD_REPS, warmup=2)
+    walls = []
+    for _ in range(RAD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        card_call()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda_t]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    say(f"radiation C48x63: {ms:.3f} ms a call (CUDA events, median of "
+        f"{RAD_REPS}), wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({len(kernels)} device ops), host share "
+        f"{1.0 - busy / wall:.3f} of the wall time")
+    return dict(ms=ms, wall_ms=wall, busy_ms=busy)
+
+
+def _spmd_stepper(mode, mesh, n, device, dtype):
+    from fv3net_tpu_torch.parallel import spmd_dycore
+    from fv3net_tpu_torch.parallel.tiling import TileLayout
+
+    g = CubedSphereGrid.make(n, halo=H)
+    kw = dict(dt_atmos=DT_ATMOS, k_split=1, n_split=6, hord=5, kord=9,
+              ptop=PTOP, dtype=dtype, device=device)
+    if mode == "face":
+        return spmd_dycore.make_spmd_dycore_stepper(g, NZ, mesh, **kw)
+    lay = TileLayout(n, H, *SPMD_LAYOUT)
+    return spmd_dycore.make_tiled_spmd_dycore_stepper(g, NZ, mesh, lay, **kw)
+
+
+def spmd_rank(mode, outdir):
+    """One rank of phase 24 (face) or 25 (tiled): `python3 chip_smoke.py
+    --rank MODE DIR`, started by multihost.spawn.  The card run of C48 x
+    63: the held dts (their gathered states to DIR from rank 0), then the
+    timed ones; then the float64 CPU run of C12 x 63 (rank 0 saves it)."""
+    import torch.distributed as dist
+
+    from fv3net_tpu_torch.parallel import multihost
+    from fv3net_tpu_torch.parallel.mesh import CubedSphereMesh, make_mesh
+
+    rank, world = multihost.initialize()
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank}: no GPU")
+    torch.set_num_threads(1)
+    mesh = (make_mesh() if mode == "face"
+            else CubedSphereMesh(SPMD_LAYOUT[0], 1, *SPMD_LAYOUT[1:],
+                                 rank=rank))
+    t0 = time.perf_counter()
+    run, shard, gather = _spmd_stepper(mode, mesh, 48, "cuda",
+                                       torch.float32)
+    setup_s = time.perf_counter() - t0
+    st, phis = shard(benchmark_state(48, NZ, PTOP, "cpu"),
+                     torch.zeros((6, 48, 48)))
+    comm = run.comm
+    held, dts = [], []
+    for i in range(SPMD_GATE_DTS[mode] + SPMD_TIMED_DTS):
+        dist.barrier()
+        reset_counts()
+        comm.reset_counts()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        t0.record()
+        st = run(st, phis, 1)
+        t1.record()
+        torch.cuda.synchronize()
+        dts.append(dict(
+            ms=t0.elapsed_time(t1), wall_ms=(time.perf_counter() - w0) * 1e3,
+            exchange_ms=comm.seconds * 1e3, copy_ms=comm.copy_seconds * 1e3,
+            wait_ms=comm.wait_seconds * 1e3, exchanges=comm.calls,
+            exchange_mb=comm.bytes / 1e6, launches=read_counts(),
+        ))
+        if i < SPMD_GATE_DTS[mode]:
+            held.append({k: v.cpu() for k, v in gather(st)._asdict().items()
+                         if v is not None})
+    run64, shard64, gather64 = _spmd_stepper(mode, mesh, SPMD_CPU_N, "cpu",
+                                             torch.float64)
+    st0 = benchmark_state(SPMD_CPU_N, NZ, PTOP, "cpu")
+    st64, ph64 = shard64(
+        type(st0)(*(None if x is None else x.double() for x in st0)),
+        torch.zeros((6, SPMD_CPU_N, SPMD_CPU_N), dtype=torch.float64),
+    )
+    cpu64 = gather64(run64(st64, ph64, 1))
+    if rank == 0:
+        torch.save({"held": held,
+                    "cpu64": {k: v for k, v in cpu64._asdict().items()
+                              if v is not None}},
+                   os.path.join(outdir, "states.pt"))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"dts": dts, "setup_s": setup_s}, f)
+    dist.destroy_process_group()
+
+
+def spread_gate(tag, got, run_a, run_b):
+    """The sharded card state against the single-process card state: bit
+    for bit where two single-process runs agree bit for bit, otherwise
+    within SPMD_SPREAD_FACTOR of their difference, per field."""
+    for k, a in run_a.items():
+        g = got[k].to(a.device)
+        spread = float((a - run_b[k]).abs().max())
+        err = float((g - a).abs().max())
+        say(f"{tag} {k:5s} max|sharded-single| {err:.3e} "
+            f"max|single-single| {spread:.3e}")
+        if spread == 0.0:
+            if not torch.equal(g, a):
+                raise AssertionError(f"{tag} {k}: not bit for bit")
+        elif not err <= SPMD_SPREAD_FACTOR * spread:
+            raise AssertionError(
+                f"{tag} {k}: {err:.3e} > {SPMD_SPREAD_FACTOR} x {spread:.3e}")
+
+
+def phase_spmd(mode):
+    """Phase 24 (face) or 25 (tiled): the multi-rank dycore at C48 x 63 on
+    this card (module docstring)."""
+    from fv3net_tpu_torch.parallel import multihost
+
+    n = 48
+    g = CubedSphereGrid.make(n, halo=H)
+    # the single-process references, before the ranks start: two card
+    # runs of the held dts and the float64 CPU dt of C12
+    run1, m, _ = stepper(g, "cuda")
+    phis = torch.zeros((6, n, n), device="cuda")
+    mass0 = dry_mass(benchmark_state(n, NZ, PTOP, "cuda"), m)
+    singles = []
+    for _ in range(2):
+        s, out = benchmark_state(n, NZ, PTOP, "cuda"), []
+        for _ in range(SPMD_GATE_DTS[mode]):
+            s = run1(s, phis, 1)
+            out.append({k: v for k, v in s._asdict().items()
+                        if v is not None})
+        singles.append(out)
+    torch.cuda.synchronize()
+    g12 = CubedSphereGrid.make(SPMD_CPU_N, halo=H)
+    run64, _, _ = stepper(g12, "cpu", torch.float64)
+    st0 = benchmark_state(SPMD_CPU_N, NZ, PTOP, "cpu")
+    ref64 = run64(type(st0)(*(None if x is None else x.double()
+                              for x in st0)),
+                  torch.zeros((6, SPMD_CPU_N, SPMD_CPU_N),
+                              dtype=torch.float64), 1)
+    nprocs = SPMD_MESHES[mode]
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as d:
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, FV3_DIST_TIMEOUT=str(SPMD_DIST_TIMEOUT_S),
+                   PYTHONPATH=os.pathsep.join(
+                       [root, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        multihost.spawn([os.path.abspath(__file__), "--rank", mode, d],
+                        nprocs, os.path.join(d, "store"),
+                        timeout_s=SPMD_TIMEOUT_S, env=env).wait()
+        say(f"spmd {mode}: {nprocs} ranks ran in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ranks = [json.load(open(os.path.join(d, f"rank{r}.json")))
+                 for r in range(nprocs)]
+        states = torch.load(os.path.join(d, "states.pt"))
+    tag = f"spmd {mode} C48x63"
+    expected = LAUNCHES_SPMD_FACE if mode == "face" else LAUNCHES_SPMD_TILED
+    for r, rk in enumerate(ranks):
+        for i, dt in enumerate(rk["dts"]):
+            if dt["launches"] != expected:
+                raise AssertionError(
+                    f"{tag} rank {r} dt {i}: launches {dt['launches']}")
+    check_counts(f"{tag} one dt, each rank", ranks[0]["dts"][0]["launches"],
+                 expected)
+    for i, held in enumerate(states["held"]):
+        for k, v in held.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{tag}: non-finite {k}")
+        if mode == "face":
+            spread_gate(f"{tag} dt {i + 1}", held, singles[0][i],
+                        singles[1][i])
+        else:
+            # the tiled step takes the filter's and the vorticity
+            # damper's transpose forms (the JAX package's tiled path), not
+            # the single-process arithmetic: held by phase 4's rule
+            for k, a in singles[0][i].items():
+                say(f"{tag} {k:5s} max|tiled-single| "
+                    f"{float((held[k].cuda() - a).abs().max()):.3e}")
+        if i == 0:
+            compare_states(tag, held, *cpu_references(g, n))
+        mass = float((held["delp"].to(m.rarea.device).double()
+                      / m.rarea.double()[:, None]).sum())
+        rel = (mass - mass0) / mass0
+        say(f"{tag} dry mass relative change after dt {i + 1}: {rel:.3e}")
+        if not abs(rel) <= MASS_BOUND:
+            raise AssertionError(f"{tag}: dry mass not conserved")
+    want = {k: v for k, v in ref64._asdict().items() if v is not None}
+    bitwise = True
+    for k, w in want.items():
+        got = states["cpu64"][k]
+        bitwise &= torch.equal(got, w)
+        err = float((got - w).abs().max())
+        say(f"{tag} CPU float64 C{SPMD_CPU_N} {k:5s} max|sharded-single| "
+            f"{err:.3e}")
+        if not bool(((got - w).abs()
+                     <= SPMD_CPU_TOL + SPMD_CPU_TOL * w.abs()).all()):
+            raise AssertionError(f"{tag}: CPU float64 {k} beyond 1e-12")
+    say(f"{tag} CPU float64 C{SPMD_CPU_N}: bit for bit {bitwise}")
+    timed = [dt for rk in ranks for dt in rk["dts"][SPMD_GATE_DTS[mode]:]]
+    slowest = [max(rk["dts"][SPMD_GATE_DTS[mode] + j]["ms"] for rk in ranks)
+               for j in range(SPMD_TIMED_DTS)]
+    ms = statistics.median(slowest)
+    def med(key):
+        return statistics.median(dt[key] for dt in timed)
+
+    say(f"{tag}: ms/dt {ms:.3f} (median over {SPMD_TIMED_DTS} dts of the "
+        f"slowest rank's CUDA-event time: {[round(x, 3) for x in slowest]}), "
+        f"wall ms/dt {med('wall_ms'):.3f}, "
+        f"exchanges {timed[0]['exchanges']} a dt taking "
+        f"{med('exchange_ms'):.3f} ms a rank (median; of it "
+        f"{med('copy_ms'):.3f} ms device-host copies, the rest messages "
+        f"and waiting for peers), after {med('wait_ms'):.3f} ms spent "
+        f"waiting for the rank's own queued work before the exchanges, "
+        f"{statistics.median(dt['exchange_mb'] for dt in timed):.3f} MB sent "
+        f"a rank; first dt {max(rk['dts'][0]['ms'] for rk in ranks):.1f} ms; "
+        f"stepper set-up {max(rk['setup_s'] for rk in ranks):.1f} s")
+    return ranks[0]["dts"][0]["launches"]
+
+
 def width(name, n):
     """The width a kernel's phase-3 numbers are keyed by on the C<n> path:
     the interior n for the kernels that run on the interior columns (the
@@ -3845,6 +4347,7 @@ def kernel_summary(stats, probe_launches, paths):
     by_path = dict({"probe": probe_launches}, **paths)
     counted = dict(paths["coupled C48"],
                    fv_tp_2d_multi5=paths["C192 fused"]["fv_tp_2d_multi5"],
+                   del4_filter_pair=paths["spmd face C48"]["del4_filter_pair"],
                    probe_affine=probe_launches["probe_affine"],
                    probe_stencil=probe_launches["probe_stencil"])
     shape = dict({k: width(k, 48) for k in META}, fv_tp_2d_multi5=198,
@@ -3862,7 +4365,9 @@ def kernel_summary(stats, probe_launches, paths):
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         })
     for tag, launches in paths.items():
-        if tag == "sw":  # single-layer shapes: phase 22 prints its loss
+        if tag == "sw" or tag.startswith("spmd"):
+            # single-layer or shard shapes, which phase 3 does not time
+            # (phase 22 prints the SW step's loss)
             continue
         n = {"C192 fused": 192, "coarsening C384": 384}.get(tag, 48)
         loss = {
@@ -3906,13 +4411,18 @@ def main():
     phase_sw_times()
     phase_dycore_options()
     phase_regrid()
+    phase_radiation()
+    spmd_face_launches = phase_spmd("face")
+    spmd_tiled_launches = phase_spmd("tiled")
     kernels = kernel_summary(stats, probe_launches, {
         "C48": main_launches, "C192 fused": fused_launches,
         "coupled C48": coupled_launches,
         "prognostic C48": prognostic_launches, "nudged C48": nudged_launches,
         "ML-corrected C48": ml_launches, "emulated C48": emulated_launches,
         "series C48": series_launches,
-        "coarsening C384": coarsening_launches, "sw": sw_launches})
+        "coarsening C384": coarsening_launches, "sw": sw_launches,
+        "spmd face C48": spmd_face_launches,
+        "spmd tiled C48": spmd_tiled_launches})
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
@@ -3926,4 +4436,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--rank"]:
+        spmd_rank(*sys.argv[2:4])
+    else:
+        main()

@@ -24,12 +24,15 @@ from .dycore.hydro import DycoreState
 from .dycore.sw import ShallowWaterState, SWMetrics
 
 
+TILING_FIELDS = ("edge_w", "edge_e", "edge_s", "edge_n", "inv_corner_mult")
+
+
 def metrics_from_numpy(arrays: Mapping, device=None,
                        dtype=None) -> SWMetrics:
     """SWMetrics from a mapping holding every tensor field of SWMetrics
     as an array, plus `n`, `halo` and `divdamp_scale`, on `device` (the
-    CUDA device unless the caller names one).  Keys the port has no
-    field for (None-valued tiling fields) are ignored; the scheme
+    CUDA device unless the caller names one).  The within-face tiling
+    fields (TILING_FIELDS) are None where the mapping lacks them; the scheme
     switches (``corner_damp``, ``metric_ke``) keep their defaults where
     the mapping lacks them.  dtype: cast the arrays (default: keep
     theirs)."""
@@ -43,6 +46,16 @@ def metrics_from_numpy(arrays: Mapping, device=None,
             kw[f.name] = float(arrays[f.name])
         elif f.name in ("corner_damp", "metric_ke"):
             kw[f.name] = bool(arrays.get(f.name, f.default))
+        elif f.name in TILING_FIELDS:
+            # the within-face tiling fields: None at face level
+            v = arrays.get(f.name)
+            if v is None:
+                kw[f.name] = None
+            elif f.name == "inv_corner_mult":
+                kw[f.name] = torch.as_tensor(np.array(v), dtype=dtype,
+                                             device=device)
+            else:
+                kw[f.name] = bool(v)
         else:
             kw[f.name] = torch.as_tensor(
                 np.array(arrays[f.name]), dtype=dtype, device=device

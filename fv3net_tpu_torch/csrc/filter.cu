@@ -21,6 +21,14 @@
 // (h-1, h-1)), so the qx tile comes through the x table and the qy tile
 // through the y table, slot by slot.
 //
+// The exchanged-pair entry (fv3_del4_pair) is the TPU kernel's own
+// contract: it takes the x-fill and y-fill exchanges qx, qy [F, nz, N, N]
+// themselves, for any number of faces F (a rank of the face mesh holds
+// one), and reads slot (r, c) of face f at level k at
+// ((f * nz + k) * N + r) * N + c, where the table entry reads it through
+// the table.  Both are one kernel template (kPair): the same tiles, ring,
+// weights and arithmetic in the same order.
+//
 // One launch.  Each block owns a TY x TX tile of interior outputs of one
 // face and a run of `lv` levels (blockIdx: tile column, tile row,
 // face * runs + run; no per-element division).  Once per block it loads
@@ -69,7 +77,7 @@ struct Smem {
 };
 
 struct Args {
-  const float *q, *apx, *apy;
+  const float *q, *qy, *apx, *apy;  // qy: the y-fill operand (pair only)
   const int *tabx, *taby;
   float* out;
   int nz, n, h, lv, runs;
@@ -77,12 +85,21 @@ struct Args {
 };
 
 // Positions in q (level 0) of an H x W region at padded (r0, c0) of face
-// f, through the table, or computed where the region is interior.
-template <int H, int W>
+// f, through the table, or computed where the region is interior; for
+// the pair, positions in the padded operand.
+template <int H, int W, bool kPair>
 __device__ __forceinline__ void positions(int* dst, const int* tab,
                                           bool interior, int r0, int c0,
                                           int f, const Args& a) {
   const int N = a.n + 2 * a.h;
+  if (kPair) {
+    const int base = f * a.nz * N * N;
+    for (int t = threadIdx.x; t < H * W; t += kThreads) {
+      const int r = r0 + t / W, c = c0 + t % W;
+      dst[t] = base + min(r, N - 1) * N + min(c, N - 1);
+    }
+    return;
+  }
   const int base = f * a.nz * a.n * a.n;
   for (int t = threadIdx.x; t < H * W; t += kThreads) {
     const int r = r0 + t / W, c = c0 + t % W;
@@ -92,16 +109,21 @@ __device__ __forceinline__ void positions(int* dst, const int* tab,
 }
 
 // Start gathering level k of the qx and qy regions into ring stage s.
+template <bool kPair>
 __device__ __forceinline__ void gather(Smem& s, int st, int k,
                                        const Args& a) {
-  const float* q = a.q + k * a.n * a.n;
+  const int N = a.n + 2 * a.h;
+  const int plane = kPair ? N * N : a.n * a.n;
+  const float* qx = a.q + k * plane;
+  const float* qy = (kPair ? a.qy : a.q) + k * plane;
   for (int t = threadIdx.x; t < QX_H * QX_W; t += kThreads)
-    __pipeline_memcpy_async(&s.qx[st][t], q + s.ix[t], sizeof(float));
+    __pipeline_memcpy_async(&s.qx[st][t], qx + s.ix[t], sizeof(float));
   for (int t = threadIdx.x; t < QY_H * QY_W; t += kThreads)
-    __pipeline_memcpy_async(&s.qy[st][t], q + s.iy[t], sizeof(float));
+    __pipeline_memcpy_async(&s.qy[st][t], qy + s.iy[t], sizeof(float));
   __pipeline_commit();
 }
 
+template <bool kPair>
 __global__ void __launch_bounds__(kThreads) del4(Args a) {
   __shared__ Smem s;
   const int n = a.n, h = a.h, N = n + 2 * h;
@@ -114,9 +136,11 @@ __global__ void __launch_bounds__(kThreads) del4(Args a) {
   const bool interior = j0 >= 2 && i0 >= 2 && j0 + TY + 2 <= n &&
                         i0 + TX + 2 <= n;
   // each thread computes the positions it later gathers: no barrier
-  positions<QX_H, QX_W>(s.ix, a.tabx, interior, J0 - 1, I0 - 2, f, a);
-  positions<QY_H, QY_W>(s.iy, a.taby, interior, J0 - 2, I0 - 1, f, a);
-  gather(s, 0, k0, a);
+  positions<QX_H, QX_W, kPair>(s.ix, a.tabx, interior, J0 - 1, I0 - 2, f,
+                               a);
+  positions<QY_H, QY_W, kPair>(s.iy, a.taby, interior, J0 - 2, I0 - 1, f,
+                               a);
+  gather<kPair>(s, 0, k0, a);
   const float* apx = a.apx + f * N * N;
   const float* apy = a.apy + f * N * N;
   for (int t = threadIdx.x; t < WX_H * WX_W; t += kThreads) {
@@ -142,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) del4(Args a) {
     __pipeline_wait_prior(0);
     __syncthreads();  // level k is in; level k-1's reads of the other
                       // stage and of l1 are done
-    if (k + 1 < k1) gather(s, st ^ 1, k + 1, a);
+    if (k + 1 < k1) gather<kPair>(s, st ^ 1, k + 1, a);
     const float* qa = s.qx[st];
     const float* qb = s.qy[st];
     // L(q) on the tile and its ring: cell (J0-1+r, I0-1+c) is qx (r, c+1)
@@ -189,8 +213,24 @@ extern "C" int fv3_del4(const float* q, const int* tabx, const int* taby,
   if (h < 2 || lv < 1) return -1;
   const int runs = (nz + lv - 1) / lv;
   if ((long long)F * runs > 65535) return -1;
-  Args a{q, apx, apy, tabx, taby, out, nz, n, h, lv, runs, c8};
+  Args a{q, nullptr, apx, apy, tabx, taby, out, nz, n, h, lv, runs, c8};
   const dim3 grid((n + TX - 1) / TX, (n + TY - 1) / TY, F * runs);
-  del4<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  del4<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// qx, qy [F, nz, N, N] (N = n + 2h): the x-fill and y-fill exchanges of
+// q; apx, apy [F, N, N]; out [F, nz, n, n]; float32, contiguous.  Same
+// return codes as fv3_del4.
+extern "C" int fv3_del4_pair(const float* qx, const float* qy,
+                             const float* apx, const float* apy, float* out,
+                             int F, int nz, int n, int h, int lv, float c8,
+                             void* stream) {
+  if (h < 2 || lv < 1) return -1;
+  const int runs = (nz + lv - 1) / lv;
+  if ((long long)F * runs > 65535) return -1;
+  Args a{qx, qy, apx, apy, nullptr, nullptr, out, nz, n, h, lv, runs, c8};
+  const dim3 grid((n + TX - 1) / TX, (n + TY - 1) / TY, F * runs);
+  del4<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -82,6 +82,7 @@ from .sw import (
     div_damp,
     padded_cgrid_winds,
     scalar_filter,
+    vertex_masks,
     vort_damp,
 )
 
@@ -196,11 +197,17 @@ def _corner_avg(phi):
     )
 
 
-def _vertex_fix_scalar_corner(arr_c, vals3, h, n):
-    """Replace cube-corner vertex entries of a corner-lattice array."""
+def _vertex_fix_scalar_corner(arr_c, vals3, h, n, masks=(None,) * 4):
+    """Replace cube-corner vertex entries of a corner-lattice array.
+
+    masks: per-vertex applicability (sw.vertex_masks) -- under
+    within-face tiling only tiles touching the cube vertex apply the
+    fix; None means always (face level)."""
     hn = h + n
-    for (cj, ci), v3 in zip(((h, h), (h, hn), (hn, h), (hn, hn)), vals3):
-        arr_c = _masked_vertex_set(arr_c, (cj, ci), v3)
+    for (cj, ci), v3, vm in zip(
+        ((h, h), (h, hn), (hn, h), (hn, hn)), vals3, masks
+    ):
+        arr_c = _masked_vertex_set(arr_c, (cj, ci), v3, vm)
     return arr_c
 
 
@@ -457,10 +464,11 @@ def _substep_core(ev: DycoreState, base: DycoreState, m: SWMetrics,
         ((hn, h), ((up, hn, h), (vp, hn - 1, h), (vp, hn, h))),
         ((hn, hn), ((up, hn, hn - 1), (vp, hn - 1, hn), (vp, hn, hn))),
     )
-    for (cj, ci), es in vert_edges:
+    vmasks = vertex_masks(m)
+    for ((cj, ci), es), vm in zip(vert_edges, vmasks):
         a, b, c = (arr[:, :, j, i] for arr, j, i in es)
         ke_c = _masked_vertex_set(
-            ke_c, (cj, ci), (a * a + b * b + c * c) / 3.0
+            ke_c, (cj, ci), (a * a + b * b + c * c) / 3.0, vm
         )
 
     # hydrostatic pressure and Exner function on the NEW mass field
@@ -506,10 +514,10 @@ def _substep_core(ev: DycoreState, base: DycoreState, m: SWMetrics,
     phi_lay = _geopotential(dphi, phis_p)
 
     phi_c = _vertex_fix_scalar_corner(
-        _corner_avg(phi_lay), _vertex_cells(phi_lay, h, n), h, n
+        _corner_avg(phi_lay), _vertex_cells(phi_lay, h, n), h, n, vmasks
     )
     pi_c = _vertex_fix_scalar_corner(
-        _corner_avg(pi_lay), _vertex_cells(pi_lay, h, n), h, n
+        _corner_avg(pi_lay), _vertex_cells(pi_lay, h, n), h, n, vmasks
     )
     ke_phi = ke_c + phi_c
 
@@ -567,7 +575,7 @@ def _substep_core(ev: DycoreState, base: DycoreState, m: SWMetrics,
         pp_y = halo_exchange(pp_lay, h, fill="y")
         al_y = halo_exchange(alpha, h, fill="y")
         pp_c = _vertex_fix_scalar_corner(
-            _corner_avg(pp_y), _vertex_cells(pp_y, h, n), h, n
+            _corner_avg(pp_y), _vertex_cells(pp_y, h, n), h, n, vmasks
         )
         u_new_p = u_new_p - (dt / m.dx_u[:, None]) * to_u(al_y) * (
             pp_c[:, :, :, 1:] - pp_c[:, :, :, :-1]

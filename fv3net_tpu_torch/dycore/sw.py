@@ -1,7 +1,7 @@
 """D-grid vector-invariant shallow-water operators on the cubed sphere.
 
-Counterpart of the JAX package's ``dycore/sw.py``, face level only (no
-within-face tiling): the metrics, the C-grid winds, and the provably
+Counterpart of the JAX package's ``dycore/sw.py``: the metrics, the
+C-grid winds, and the provably
 dissipative operators the 3D dycore step uses (Lin & Rood 1997
 vector-invariant D-grid scheme with FV3's c_sw/d_sw split):
 
@@ -18,13 +18,22 @@ vector-invariant D-grid scheme with FV3's c_sw/d_sw split):
 
 ``scalar_filter`` runs the CUDA kernel (ops/cuda_filter.py) for CUDA
 tensors and its plain local form for CPU tensors.
+
+Within-face tiling (parallel/tiling.py): metrics sliced to one tile of a
+face carry the tile's position as the ``edge_*`` flags and its
+corner-lattice weights as ``inv_corner_mult``; face-edge treatments
+(boundary C-wind weights, cube-vertex fixes) then fire only on tiles
+that touch that face edge, and the filter and the vorticity damper take
+their transpose forms, whose adjoint routes cross-tile contributions
+through the exchanges.  Metrics of whole faces keep the flags None: the
+face-level code path, unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,6 +118,18 @@ class SWMetrics:
     # cell-centered metric angle (for A-grid KE)
     cosa_c: torch.Tensor
     rsin2_c: torch.Tensor
+    # --- within-face tiling (parallel/tiling.py) ---------------------
+    # Python bools: does this tile touch the face's west/east/south/
+    # north edge.  None (the face-level default) means the shard holds
+    # whole faces: every edge treatment applies, on the face-level path.
+    edge_w: Optional[bool] = None
+    edge_e: Optional[bool] = None
+    edge_s: Optional[bool] = None
+    edge_n: Optional[bool] = None
+    # 1/multiplicity weights of the corner-lattice damper per tile
+    # [L, nl+1, nl+1] (parallel.tiling.tile_inv_corner_mult); None ->
+    # the face-level 1/_corner_multiplicity(n)
+    inv_corner_mult: Optional[torch.Tensor] = None
     # measured operator norm of the metric divergence damper (div_damp)
     divdamp_scale: float = 1.0
     # scheme switches
@@ -468,8 +489,9 @@ class SWMetrics:
         return dataclasses.replace(self, divdamp_scale=8.0 / lam).to(device)
 
 
-def _masked_vertex_set(arr, idx, val):
-    """arr with entry [..., cj, ci] replaced by val (a copy).
+def _masked_vertex_set(arr, idx, val, mask=None):
+    """arr with entry [..., cj, ci] replaced by val (a copy), unless
+    `mask` (a tile's vertex flag, vertex_masks) is False.
 
     The JAX package writes this as a one-hot select and silently does
     nothing for an index outside the array; here an out-of-range or
@@ -481,6 +503,8 @@ def _masked_vertex_set(arr, idx, val):
         raise IndexError(
             f"vertex index {(cj, ci)} outside the [{A}, {B}] lattice"
         )
+    if mask is not None and not mask:
+        return arr
     out = arr.clone()
     out[..., cj, ci] = val
     return out
@@ -488,11 +512,16 @@ def _masked_vertex_set(arr, idx, val):
 
 def vertex_masks(m: "SWMetrics"):
     """Cube-vertex applicability masks in ((h,h),(h,hn),(hn,h),(hn,hn))
-    = (SW, SE, NW, NE) order.  The port's metrics hold whole faces (no
-    within-face tiling, whose tile-edge fields would gate the vertex
-    fixes), so every vertex fix applies: (None,) * 4, the JAX package's
-    face-level case."""
-    return (None,) * 4
+    = (SW, SE, NW, NE) order: (None,) * 4 at face level (always apply);
+    under within-face tiling, whether this tile holds that vertex."""
+    if m.edge_w is None:
+        return (None,) * 4
+    return (
+        m.edge_s and m.edge_w,
+        m.edge_s and m.edge_e,
+        m.edge_n and m.edge_w,
+        m.edge_n and m.edge_e,
+    )
 
 
 def linear_mass_div(u, v, m):
@@ -546,59 +575,114 @@ def scalar_filter(q, m, c):
     boundary-ring mass mode of the linearized step neutral with
     negligible smoothing of resolved flow.  CUDA tensors go to the fused
     kernel (ops/cuda_filter.py: one launch that reads q through the
-    x-fill and y-fill exchange tables), CPU tensors to the plain local
-    form.
+    x-fill and y-fill exchange tables, or, on a rank of the face mesh,
+    that takes the exchanged pair from the local exchanges), CPU tensors
+    and tiles of faces to the plain form.
     """
     if c == 0.0:
         return q
-    if q.is_cuda:
-        from ..ops.cuda_filter import del4_filter_cuda
+    tiled = getattr(m, "edge_w", None) is not None
+    if q.is_cuda and not tiled:
+        from ..grid.halo import spmd_active
+        from ..ops.cuda_filter import del4_filter_cuda, del4_filter_pair_cuda
 
         squeeze = q.ndim == 3
-        q4 = q[:, None] if squeeze else q
-        out = del4_filter_cuda(q4.contiguous(), m.area_px, m.area_py, c,
-                               m.halo)
+        q4 = (q[:, None] if squeeze else q).contiguous()
+        if spmd_active():
+            # a shard of faces: the exchanged pair from the local
+            # exchanges (the single-process tables span the whole cube)
+            out = del4_filter_pair_cuda(
+                halo_exchange(q4, m.halo, fill="x").contiguous(),
+                halo_exchange(q4, m.halo, fill="y").contiguous(),
+                m.area_px, m.area_py, c, m.halo,
+            )
+        else:
+            out = del4_filter_cuda(q4, m.area_px, m.area_py, c, m.halo)
         return out[:, 0] if squeeze else out
     return scalar_filter_plain(q, m, c)
 
 
+def _filter_weights(area_px, area_py, h, n, lead):
+    """The face weights of the filter's L on the padded lattice [F, N,
+    N-1] / [F, N-1, N], broadcast over `lead` level axes: the mean of the
+    two adjacent cells' areas (making (1/area) G^T(w G) nondimensional
+    with Laplacian-like eigenvalues <= ~8), doubled on the inter-face
+    boundary faces, which BOTH adjacent faces compute, once each.  Entry
+    I-1 of the last axis weights x face I, between cells I-1 and I (and
+    likewise for y)."""
+    dbl = torch.ones(area_px.shape[-1] - 1, dtype=area_px.dtype,
+                     device=area_px.device)
+    dbl[h - 1] = dbl[h + n - 1] = 2.0
+    wx = 0.5 * (area_px[:, :, 1:] + area_px[:, :, :-1]) * dbl
+    wy = 0.5 * (area_py[:, 1:, :] + area_py[:, :-1, :]) * dbl[:, None]
+    return _lead_bc(wx, lead), _lead_bc(wy, lead)
+
+
+def _flux_laplacian(fx, fy, wx, wy, ra, r0, r1):
+    """The filter's L on the cells [r0, r1)^2 of the padded lattice, from
+    the x-fill exchange fx (x faces) and the y-fill exchange fy (y
+    faces): every face flux t = w * dq is subtracted/added to its two
+    adjacent cells; times ra, 1/area on those cells."""
+    tx = wx[..., r0:r1, r0 - 1 : r1] * (
+        fx[..., r0:r1, r0 : r1 + 1] - fx[..., r0:r1, r0 - 1 : r1]
+    )
+    ty = wy[..., r0 - 1 : r1, r0:r1] * (
+        fy[..., r0 : r1 + 1, r0:r1] - fy[..., r0 - 1 : r1, r0:r1]
+    )
+    dq = (tx[..., :, :-1] - tx[..., :, 1:]) + (
+        ty[..., :-1, :] - ty[..., 1:, :]
+    )
+    return dq * ra
+
+
 def scalar_filter_plain(q, m, c):
     """The plain torch form of scalar_filter (any device): the
-    vjp-assembled G^T(W G) written as an explicit flux-form Laplacian.
-    Every face flux t = w * dq is subtracted/added to its two adjacent
-    cells, and inter-face boundary faces -- computed by BOTH adjacent
-    faces, once each -- carry doubled weight."""
+    vjp-assembled G^T(W G) written as an explicit flux-form Laplacian
+    (_flux_laplacian) on the exchanges of q and of L(q)."""
     if c == 0.0:
         return q
     h, n = m.halo, m.n
     lead = q.ndim - 3
-    # face weights = mean adjacent cell area, making (1/area) G^T(w G)
-    # nondimensional with Laplacian-like eigenvalues <= ~8
-    wfx = _lead_bc(0.5 * (
-        m.area_px[:, h : h + n, h - 1 : h + n]
-        + m.area_px[:, h : h + n, h : h + n + 1]
-    ), lead)
-    wfy = _lead_bc(0.5 * (
-        m.area_py[:, h - 1 : h + n, h : h + n]
-        + m.area_py[:, h : h + n + 1, h : h + n]
-    ), lead)
     rarea = _lead_bc(m.rarea, lead)
+    if getattr(m, "edge_w", None) is not None:
+        # Within-face tiling: a face on an interior tile boundary is
+        # computed by BOTH adjacent tiles.  Halve those shared weights so
+        # the assembled G^T(W G) equals the face-level operator (the
+        # transposed exchanges sum the two half contributions), and take
+        # the transpose form of L, whose adjoint crosses tiles.
+        wfx = _lead_bc(0.5 * (
+            m.area_px[:, h : h + n, h - 1 : h + n]
+            + m.area_px[:, h : h + n, h : h + n + 1]
+        ), lead)
+        wfy = _lead_bc(0.5 * (
+            m.area_py[:, h - 1 : h + n, h : h + n]
+            + m.area_py[:, h : h + n + 1, h : h + n]
+        ), lead)
+        half = [0.5 if inner else 1.0 for inner in (
+            not m.edge_w, not m.edge_e, not m.edge_s, not m.edge_n
+        )]
+        colw = torch.ones(n + 1, dtype=q.dtype, device=q.device)
+        roww = torch.ones(n + 1, dtype=q.dtype, device=q.device)
+        colw[0], colw[n], roww[0], roww[n] = half
+        wfx = wfx * colw
+        wfy = wfy * roww[:, None]
+
+        def L(qq):
+            (sx, sy), vjp_fn = torch.func.vjp(
+                lambda x: _cell_grad_op(x, m), qq
+            )
+            (dq,) = vjp_fn((sx * wfx, sy * wfy))
+            return dq * rarea
+
+        return q - (c / 8.0) * L(L(q))
+
+    wx, wy = _filter_weights(m.area_px, m.area_py, h, n, lead)
 
     def L_local(qq):
-        sx, sy = _cell_grad_op(qq, m)
-        tx = sx * wfx
-        ty = sy * wfy
-        tx = torch.cat(
-            [2.0 * tx[..., :1], tx[..., 1:-1], 2.0 * tx[..., -1:]], dim=-1
+        return _flux_laplacian(
+            halo_exchange(qq, h, fill="x"), halo_exchange(qq, h, fill="y"),
+            wx, wy, rarea, h, h + n,
         )
-        ty = torch.cat(
-            [2.0 * ty[..., :1, :], ty[..., 1:-1, :],
-             2.0 * ty[..., -1:, :]], dim=-2,
-        )
-        dq = (tx[..., :, :-1] - tx[..., :, 1:]) + (
-            ty[..., :-1, :] - ty[..., 1:, :]
-        )
-        return dq * rarea
 
     # del-4 (L^2/8): 2-delta damped at ~8c, resolved scales (k dx)^2
     # weaker than the del-2 form; conservative and dissipative for any
@@ -606,10 +690,34 @@ def scalar_filter_plain(q, m, c):
     return q - (c / 8.0) * L_local(L_local(q))
 
 
+def scalar_filter_pair_plain(qx, qy, area_px, area_py, c, halo):
+    """scalar_filter_plain from the exchanged pair alone (qx, qy the
+    x-fill and y-fill exchanges of q [F, ..., N, N], any F; areas [F, N,
+    N]), as K3's exchanged-pair entry computes it (ops/cuda_filter.py)
+    and the TPU kernel does: L(q) on the interior and its one-cell ring
+    from the pair, in place of an exchange of L(q), 1/area from area_px;
+    then L(L(q)) on the interior.  The plain version of
+    del4_filter_pair_cuda."""
+    h = halo
+    N = qx.shape[-1]
+    n = N - 2 * h
+    lead = qx.ndim - 3
+    wx, wy = _filter_weights(area_px, area_py, h, n, lead)
+    ra = _lead_bc(1.0 / area_px, lead)
+    lo, hi = h - 1, h + n + 1  # the interior and its ring
+    l1 = torch.zeros_like(qx)
+    l1[..., lo:hi, lo:hi] = _flux_laplacian(
+        qx, qy, wx, wy, ra[..., lo:hi, lo:hi], lo, hi
+    )
+    l2 = _flux_laplacian(l1, l1, wx, wy, ra[..., h : h + n, h : h + n],
+                         h, h + n)
+    return qx[..., h : h + n, h : h + n] - (c / 8.0) * l2
+
+
 def vort_damp(u, v, m, cv):
     """Vorticity-damping wind increments: -(cv/8) (V^T V)^2 u, V the
     nondimensional cell circulation (plain edge differences, face-local,
-    no halo), in its forward-only local form.  Symmetric
+    no halo), in its forward-only local form at face level.  Symmetric
     negative-semidefinite; removes the boundary-ring wind-sawtooth modes
     that the Coriolis term pumps at ~f*dt*cosa."""
     if cv == 0.0:
@@ -628,6 +736,27 @@ def vort_damp(u, v, m, cv):
         dv = torch.cat([zi, t], dim=-1) - torch.cat([t, zi], dim=-1)
         return du, dv
 
+    if m.edge_w is not None:
+        # within-face tiling: circulation cells via exchanged winds,
+        # cropped to the tile's own cells, so the transpose routes each
+        # cell's cotangent to the canonical owner of every wind slot it
+        # touches (a tile-local form would drop cross-tile terms)
+        h, n = m.halo, m.n
+
+        def Vop(uu, vv):
+            up, vp = halo_exchange_dgrid(uu, vv, h)
+            z = (
+                up[..., :-1, :] - up[..., 1:, :]
+                + vp[..., :, 1:] - vp[..., :, :-1]
+            )
+            return z[..., h : h + n, h : h + n]
+
+        z, vjp_fn = torch.func.vjp(Vop, u, v)
+        du1, dv1 = vjp_fn(z)
+        z2, vjp_fn2 = torch.func.vjp(Vop, du1, dv1)
+        du, dv = vjp_fn2(z2)
+        return -(cv / 8.0) * du, -(cv / 8.0) * dv
+
     du1, dv1 = VT_local(Vop_local(u, v))
     du, dv = VT_local(Vop_local(du1, dv1))
     return -(cv / 8.0) * du, -(cv / 8.0) * dv
@@ -643,6 +772,18 @@ def _corner_multiplicity(n: int):
     w[:, 0] = w[:, -1] = 2.0
     w[0, 0] = w[0, -1] = w[-1, 0] = w[-1, -1] = 3.0
     return w
+
+
+def _inv_corner_mult(m, u):
+    """1/multiplicity of the corner lattice for u's leading axes: the
+    tile's weights under within-face tiling, else the face-level
+    1/_corner_multiplicity(n)."""
+    if m.inv_corner_mult is not None:
+        im = m.inv_corner_mult  # [L, nl+1, nl+1]
+        return _lead_bc(im, u.ndim - 3).to(u.dtype)
+    return torch.as_tensor(
+        1.0 / _corner_multiplicity(m.n), dtype=u.dtype, device=u.device
+    )
 
 
 def _div_b_op(u, v, m):
@@ -671,9 +812,7 @@ def corner_div_damp(u, v, m, c):
     damper (div_damp) cannot see."""
     if c == 0.0:
         return torch.zeros_like(u), torch.zeros_like(v)
-    inv_mult = torch.as_tensor(
-        1.0 / _corner_multiplicity(m.n), dtype=u.dtype, device=u.device
-    )
+    inv_mult = _inv_corner_mult(m, u)
     div, vjp_fn = torch.func.vjp(lambda uu, vv: _div_b_op(uu, vv, m), u, v)
     du, dv = vjp_fn(div * inv_mult)
     return -c * du, -c * dv
@@ -748,10 +887,16 @@ def c_grid_winds(up, vp, m):
 
     # uc_A/vc_A are fresh tensors: the boundary columns/rows are written
     # in place (the patches read only up/vp)
-    uc_A[..., rows, h] = xpatch(h, m.xbw_w)
-    uc_A[..., rows, h + n] = xpatch(h + n, m.xbw_e)
-    vc_A[..., h, rows] = ypatch(h, m.ybw_s)
-    vc_A[..., h + n, rows] = ypatch(h + n, m.ybw_n)
+    # (under within-face tiling only on the tile edges that are face
+    # edges)
+    if m.edge_w is None or m.edge_w:
+        uc_A[..., rows, h] = xpatch(h, m.xbw_w)
+    if m.edge_e is None or m.edge_e:
+        uc_A[..., rows, h + n] = xpatch(h + n, m.xbw_e)
+    if m.edge_s is None or m.edge_s:
+        vc_A[..., h, rows] = ypatch(h, m.ybw_s)
+    if m.edge_n is None or m.edge_n:
+        vc_A[..., h + n, rows] = ypatch(h + n, m.ybw_n)
     return uc_A, vc_A
 
 
@@ -999,7 +1144,8 @@ def _sw_core(
     # from the three real incident boundary-edge winds, which every face
     # evaluates identically
     hn = h + n
-    for (cj, ci), es in zip(
+    vmasks = vertex_masks(m)
+    for (cj, ci), es, vm in zip(
         ((h, h), (h, hn), (hn, h), (hn, hn)),
         (
             ((up, h, h), (vp, h, h), (vp, h - 1, h)),
@@ -1007,10 +1153,11 @@ def _sw_core(
             ((up, hn, h), (vp, hn - 1, h), (vp, hn, h)),
             ((up, hn, hn - 1), (vp, hn - 1, hn), (vp, hn, hn)),
         ),
+        vmasks,
     ):
         a, b, c = (arr[:, j, i] for arr, j, i in es)
         ke_c = _masked_vertex_set(
-            ke_c, (cj, ci), (a * a + b * b + c * c) / 3.0
+            ke_c, (cj, ci), (a * a + b * b + c * c) / 3.0, vm
         )
 
     dp_new_p = halo_exchange(delp_new, h, fill="y")
@@ -1027,7 +1174,7 @@ def _sw_core(
     )  # [6, N+1, N+1]
     # vertices: mean of the 3 real adjacent cells (the 4th slot is a
     # fill-dependent corner ghost that the faces would disagree on)
-    for (cj, ci), cells in zip(
+    for (cj, ci), cells, vm in zip(
         ((h, h), (h, hn), (hn, h), (hn, hn)),
         (
             ((h - 1, h), (h, h - 1), (h, h)),
@@ -1035,9 +1182,10 @@ def _sw_core(
             ((hn, h), (hn - 1, h), (hn - 1, h - 1)),
             ((hn, hn - 1), (hn - 1, hn), (hn - 1, hn - 1)),
         ),
+        vmasks,
     ):
         vals = sum(phi[:, j, i] for j, i in cells) / 3.0
-        phi_c = _masked_vertex_set(phi_c, (cj, ci), vals)
+        phi_c = _masked_vertex_set(phi_c, (cj, ci), vals, vm)
     kphi = ke_c + phi_c
 
     # --- dissipation on the BASE winds (once per step: the midpoint half
@@ -1138,9 +1286,7 @@ def combined_wind_damping(u, v, m, d2, cv, cc):
     z2 = V(du1, dv1)
 
     area = _lead_bc(1.0 / m.rarea, lead)
-    inv_mult = torch.as_tensor(
-        1.0 / _corner_multiplicity(m.n), dtype=u.dtype, device=u.device
-    )
+    inv_mult = _inv_corner_mult(m, u)
     du, dv = vjp_fn((
         (-d2 * m.divdamp_scale) * div * area,
         (-cv / 8.0) * z2,

@@ -22,16 +22,48 @@ value is the neighbor's stored value up to a sign (direction reversal) and
 a u<->v swap (quarter-turn index rotation).  The index maps are derived
 from the shared corner lattice, which makes the corner cases (literal cube
 corners) fall out of the derivation instead of hand-coded tables.
+
+Under ``spmd_mode`` (the JAX file's lines 34-55) each public exchange
+dispatches to its shard-local form over a process group: the face mesh's
+(parallel/halo_spmd.py) or, with a TileLayout, the within-face tiled
+plans (parallel/tiling.py).  That is what lets the dycore step run
+unchanged on one face, or one tile, per rank (parallel/spmd_dycore.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from . import topology as topo
+
+# the Comm of the exchange axis (parallel.halo_spmd.Comm) and the
+# TileLayout of the active spmd_mode; None: the single-process exchanges
+_SPMD_AXIS = None
+_SPMD_TILING = None
+
+
+@contextlib.contextmanager
+def spmd_mode(axis, tiling=None):
+    """Run every exchange as its shard-local form over `axis`, the Comm
+    of the mesh's face axis (or, with a TileLayout `tiling`, of the
+    flattened (face, y, x) axes)."""
+    global _SPMD_AXIS, _SPMD_TILING
+    prev = (_SPMD_AXIS, _SPMD_TILING)
+    _SPMD_AXIS = axis
+    _SPMD_TILING = tiling
+    try:
+        yield
+    finally:
+        _SPMD_AXIS, _SPMD_TILING = prev
+
+
+def spmd_active() -> bool:
+    """Whether the exchanges run over a process group (spmd_mode)."""
+    return _SPMD_AXIS is not None
 
 
 # ---------------------------------------------------------------------------
@@ -619,6 +651,14 @@ def halo_exchange(field, h: int, fill: str = "none"):
     version of FV3's copy_corners(dir=1/2) (tp_core.F90); use 'y' before
     y-direction stencils that run on x-halo columns and vice versa.
     """
+    if _SPMD_TILING is not None:
+        from ..parallel import tiling as _tl
+
+        return _tl.halo_exchange_tiled(field, _SPMD_TILING, fill, _SPMD_AXIS)
+    if _SPMD_AXIS is not None:
+        from ..parallel import halo_spmd as _hs
+
+        return _hs.halo_exchange_local(field, h, fill, _SPMD_AXIS)
     n = field.shape[-1]
     N = n + 2 * h
     fi, pi = _scalar_gather(n, h, fill, field.device)
@@ -673,6 +713,14 @@ def halo_exchange_dgrid(u, v, h: int):
     are zero.  Reverse-mode autodiff transposes it by gathers
     (halo_transpose.py), not by a scatter-add.
     """
+    if _SPMD_TILING is not None:
+        from ..parallel import tiling as _tl
+
+        return _tl.halo_exchange_dgrid_tiled(u, v, _SPMD_TILING, _SPMD_AXIS)
+    if _SPMD_AXIS is not None:
+        from ..parallel import halo_spmd as _hs
+
+        return _hs.halo_exchange_dgrid_local(u, v, h, _SPMD_AXIS)
     from .halo_transpose import staggered_exchange
 
     return staggered_exchange(u, v, "dgrid", h, "")
@@ -687,6 +735,16 @@ def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
     rotated into this face's frame (see _cgrid_tables).  Transposed by
     gathers, as halo_exchange_dgrid.
     """
+    if _SPMD_TILING is not None:
+        from ..parallel import tiling as _tl
+
+        return _tl.halo_exchange_cgrid_tiled(
+            uc, vc, _SPMD_TILING, fill, _SPMD_AXIS
+        )
+    if _SPMD_AXIS is not None:
+        from ..parallel import halo_spmd as _hs
+
+        return _hs.halo_exchange_cgrid_local(uc, vc, h, fill, _SPMD_AXIS)
     from .halo_transpose import staggered_exchange
 
     return staggered_exchange(uc, vc, "cgrid", h, fill)
@@ -707,6 +765,16 @@ def canonicalize_cgrid_boundary(uc, vc):
     (rotated into its frame).  Restores exact shared-face flux
     cancellation (global mass conservation to roundoff) for arbitrary
     wind fields.  uc: [6, ..., n, n+1]; vc: [6, ..., n+1, n]."""
+    if _SPMD_TILING is not None:
+        from ..parallel import tiling as _tl
+
+        return _tl.canonicalize_cgrid_boundary_tiled(
+            uc, vc, _SPMD_TILING, _SPMD_AXIS
+        )
+    if _SPMD_AXIS is not None:
+        from ..parallel import halo_spmd as _hs
+
+        return _hs.canonicalize_cgrid_boundary_local(uc, vc, _SPMD_AXIS)
     (pu, mu), (pv, mv) = _boundary_partner(uc, vc, "canon")
     uo = torch.where(mu, pu, uc.reshape(pu.shape))
     vo = torch.where(mv, pv, vc.reshape(pv.shape))
@@ -717,6 +785,15 @@ def average_dgrid_boundary(u, v):
     """Replace both stored copies of every shared boundary D-edge with
     their (sign-consistent) average.  u: [6, ..., n+1, n],
     v: [6, ..., n, n+1]; the interior is untouched."""
+    if _SPMD_TILING is not None:
+        from ..parallel import tiling as _tl
+
+        return _tl.average_dgrid_boundary_tiled(u, v, _SPMD_TILING,
+                                                _SPMD_AXIS)
+    if _SPMD_AXIS is not None:
+        from ..parallel import halo_spmd as _hs
+
+        return _hs.average_dgrid_boundary_local(u, v, _SPMD_AXIS)
     (pu, mu), (pv, mv) = _boundary_partner(u, v, "avg")
     own_u = u.reshape(pu.shape)
     own_v = v.reshape(pv.shape)
@@ -726,10 +803,16 @@ def average_dgrid_boundary(u, v):
 
 
 def extend_cells_one(field):
-    """Pad a cell-centered field [6, ..., n, n] by ONE ghost cell per side
-    within the face by edge replication.  Bit-preserving contract: one-
-    sided boundary formulas written as 0.5*(ext[j] + ext[j+1]) reproduce
-    their pre-extension bits (0.5*(x+x) == x)."""
+    """Pad a cell-centered field [6 (or L), ..., n, n] by ONE ghost cell
+    per side within the face: edge replication at face level (and at
+    true face boundaries under tiling), neighbour-tile cells at
+    within-face tile boundaries.  Bit-preserving contract: one-sided
+    boundary formulas written as 0.5*(ext[j] + ext[j+1]) reproduce their
+    pre-extension bits (0.5*(x+x) == x)."""
+    if _SPMD_TILING is not None:
+        from ..parallel import tiling as _tl
+
+        return _tl.extend_cells_one_tiled(field, _SPMD_TILING, _SPMD_AXIS)
     return edge_pad(field, 1)
 
 

@@ -43,6 +43,7 @@ SIGNATURES = {
     "fv3_sim1": [_P] * 10 + [_I] * 4 + [_F] * 6 + [_P],
     "fv3_column": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
     "fv3_del4": [_P] * 6 + [_I] * 5 + [_F] + [_P],
+    "fv3_del4_pair": [_P] * 5 + [_I] * 5 + [_F] + [_P],
     "fv3_remap": [_P] * 6 + [_I] * 7 + [_P],
     "fv3_tp2d_multi5": [_PP] * 2 + [_I] * 4 + [_P],
     "fv3_probe_affine": [_P] * 2 + [_L] + [_P],

@@ -1,12 +1,19 @@
-"""K3 wrapper: the del-4 filter kernel (``csrc/filter.cu``).
+"""K3 wrappers: the del-4 filter kernel (``csrc/filter.cu``).
 
 Replaces the TPU kernel
 ``fv3net_tpu/ops/pallas_filter.py::del4_filter_pallas``.  The plain
 version is the L_local form of ``dycore/sw.py::scalar_filter``, which
-dispatches here for CUDA tensors.  The TPU kernel takes the x-fill and
-y-fill exchanges of q; this one takes q itself and reads both exchanges
-through their gather tables (``grid/halo.py::scalar_gather_flat``), so no
-exchanged copy is written.
+dispatches here for CUDA tensors.  Two entries:
+
+* ``del4_filter_cuda`` (single process) takes q itself and reads the
+  x-fill and y-fill exchanges through their gather tables
+  (``grid/halo.py::scalar_gather_flat``), so no exchanged copy is
+  written;
+* ``del4_filter_pair_cuda`` takes the exchanged pair (qx, qy), the TPU
+  kernel's own contract, for any number of faces: a rank of the face
+  mesh (parallel/spmd_dycore.py), whose exchanges come from the local
+  exchanges over the process group.  Its plain version is
+  ``dycore/sw.py::scalar_filter_pair_plain``.
 """
 
 from __future__ import annotations
@@ -55,3 +62,38 @@ def del4_filter_cuda(q, area_px, area_py, c: float, halo: int):
 
 
 del4_filter_cuda.launches = 0
+
+
+def del4_filter_pair_cuda(qx, qy, area_px, area_py, c: float, halo: int):
+    """q - (c/8) L(L(q)) on the interior, from the exchanged pair.
+
+    qx, qy: the x-fill and y-fill exchanges of q [F, nz, N, N] (N = n +
+    2 halo), any F; area_px/area_py [F, N, N]; float32 on one CUDA device.
+    Returns [F, nz, n, n]: del4_filter_cuda's arithmetic, read from the
+    pair."""
+    if halo < 2:
+        raise ValueError(f"del4_filter_pair_cuda needs halo >= 2, got {halo}")
+    F, nz, N, _ = qx.shape
+    n = N - 2 * halo
+    if qx.numel() >= 2 ** 31:
+        raise ValueError(f"qx {tuple(qx.shape)} does not fit int32 indices")
+    dev = qx.device
+    if dev.type != "cuda":
+        raise ValueError("del4_filter_pair_cuda takes CUDA tensors")
+    ptrs = [
+        _build.check(qx, "qx", (F, nz, N, N), dev),
+        _build.check(qy, "qy", (F, nz, N, N), dev),
+        _build.check(area_px, "area_px", (F, N, N), dev),
+        _build.check(area_py, "area_py", (F, N, N), dev),
+    ]
+    out = torch.empty((F, nz, n, n), dtype=torch.float32, device=dev)
+    lv = _build.levels_per_block(-(-n // TX) * -(-n // TY), F * nz)
+    _build.call(
+        "fv3_del4_pair", *ptrs, out.data_ptr(), F, nz, n, halo, lv,
+        float(c) / 8.0, _build.stream(),
+    )
+    del4_filter_pair_cuda.launches += 1
+    return out
+
+
+del4_filter_pair_cuda.launches = 0

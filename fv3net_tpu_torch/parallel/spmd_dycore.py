@@ -1,0 +1,346 @@
+"""The multi-rank dycore: one face (or tiles of faces) per rank, halo
+exchanges over a torch.distributed process group.
+
+Counterpart of the JAX package's ``parallel/spmd_dycore.py``.  The
+numerical step is the SAME code as the single-process path --
+``hydro.build_one_dt`` -- run by every rank with (a) the SWMetrics
+tensors sliced to the rank's faces or tile and (b) ``grid.halo.
+spmd_mode`` switching every halo exchange (scalar, D-grid, C-grid,
+boundary canonicalisation and averaging, the one-cell extension) to its
+shard-local form (parallel/halo_spmd.py, parallel/tiling.py).  The
+dampers built as M^T(W M) with ``torch.func.vjp`` stay exact transposes
+because the exchanges' backward is their exact transpose.  The kernels
+run inside each rank at shard shapes; the del-4 filter takes the
+exchanged pair (``ops/cuda_filter.del4_filter_pair_cuda``) on the face
+mesh and its plain form on tiles.
+
+The reference scales by 6*x*y MPI ranks with FMS halo updates
+(runtime/segmented_run/run.py:34-35): ``make_spmd_dycore_stepper`` is the
+6-rank face mesh, ``make_tiled_spmd_dycore_stepper`` the (face=F, y=Y,
+x=X) mesh of parallel/tiling.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from ..device import default_device
+from ..dycore.hydro import DycoreState, build_one_dt, hybrid_coefficients
+from ..dycore.sw import SWMetrics
+from ..grid import halo as halo_mod
+from ..grid.geometry import CubedSphereGrid
+from .mesh import CubedSphereMesh
+from .tiling import TileLayout, tile_inv_corner_mult
+
+
+def _slice_metrics(m: SWMetrics, faces: range) -> SWMetrics:
+    """Slice every face-indexed metric tensor to the given faces."""
+    updates = {}
+    for f in dataclasses.fields(m):
+        v = getattr(m, f.name)
+        if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == 6:
+            updates[f.name] = v[faces.start : faces.stop]
+    return dataclasses.replace(m, **updates)
+
+
+def _one_dt_builder(m, nz, ptop, dtype, device, **kw):
+    ak, bk = hybrid_coefficients(nz, ptop)
+    ak = ak.to(dtype=dtype, device=device)
+    bk = bk.to(dtype=dtype, device=device)
+    return build_one_dt(
+        m, ak, bk, nz, kw["dt_atmos"], kw["k_split"], kw["n_split"],
+        kw["hord"], kw["kord"], kw["d2_damp"], ptop, dtype,
+    )
+
+
+def _all_gather(x: torch.Tensor, mesh: CubedSphereMesh):
+    """Every rank's x (same shapes), in rank order of the (face, y, x)
+    plane, gathered through the host."""
+    host = x.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, host)
+    return [parts[r] for r in mesh._plane_ranks()]
+
+
+def make_spmd_dycore_stepper(
+    g: CubedSphereGrid,
+    nz: int,
+    mesh: CubedSphereMesh,
+    dt_atmos: float,
+    k_split: int = 1,
+    n_split: int = 6,
+    hord: int = 5,
+    kord: int = 9,
+    d2_damp: float = 0.12,
+    ptop: float = 300.0,
+    dtype=torch.float32,
+    device=None,
+):
+    """The multi-rank dycore step over a 6-way face mesh (one face a
+    rank; level shards, if any, repeat the step).
+
+    Returns (run, shard, gather): ``run(state, phis, nsteps)`` steps this
+    rank's face ([1, nz, ...] fields, q [ntracer, 1, ...], phis
+    [1, n, n]) on `device` (the CUDA device unless the caller names
+    one); ``shard(state, phis)`` is this rank's slice of a full state;
+    ``gather(state)`` rebuilds the full state on every rank (through the
+    host).
+    """
+    if mesh.face_shards != 6 or mesh.y_shards * mesh.x_shards != 1:
+        raise ValueError("spmd dycore needs a 6-way face mesh")
+    if device is None:
+        device = default_device("make_spmd_dycore_stepper")
+    m = SWMetrics.make(g, dtype, device=device)
+    f = mesh.coords()[0]
+    ml = _slice_metrics(m, range(f, f + 1))
+    one_dt = _one_dt_builder(
+        ml, nz, ptop, dtype, device, dt_atmos=dt_atmos, k_split=k_split,
+        n_split=n_split, hord=hord, kord=kord, d2_damp=d2_damp,
+    )
+    comm = mesh.face_comm
+
+    def run(state: DycoreState, phis, nsteps: int):
+        with halo_mod.spmd_mode(comm):
+            for _ in range(nsteps):
+                state = one_dt(state, phis)
+        return state
+
+    def shard(state: DycoreState, phis):
+        def put(x, axis=0):
+            if x is None:
+                return None
+            return x.narrow(axis, f, 1).to(device).contiguous()
+
+        local = DycoreState(*[
+            put(x, 1 if name == "q" else 0)
+            for name, x in zip(DycoreState._fields, state)
+        ])
+        return local, put(phis)
+
+    def gather(state: DycoreState):
+        def cat(x, axis=0):
+            if x is None:
+                return None
+            return torch.cat(_all_gather(x, mesh), dim=axis).to(x.device)
+
+        return DycoreState(*[
+            cat(x, 1 if name == "q" else 0)
+            for name, x in zip(DycoreState._fields, state)
+        ])
+
+    run.one_dt = one_dt
+    run.comm = comm
+    return run, shard, gather
+
+
+# --------------------------------------------------------------------------
+# Within-face (x, y) tiled dycore (parallel/tiling.py)
+# --------------------------------------------------------------------------
+# Cell-centred fields shard natively over (face, y, x); staggered winds are
+# carried in BLOCKED layout (each tile stores one redundant top row / right
+# column, refreshed from its canonical owner by every exchange, see
+# tiling.py).  The numerical step is the same build_one_dt, with per-tile
+# metrics and the face-edge/vertex treatments gated by the tile's position.
+
+_PAD_XY = (
+    "area_px", "area_py", "f_px", "f_py", "dxc_f", "dyc_f", "dy_f",
+    "dx_f", "dy_fs", "dx_fs", "cosa_u", "rsin2_u", "cosa_v", "rsin2_v",
+    "sina_u", "sina_v",
+)
+_INT_XY = ("rarea", "f_center", "cosa_c", "rsin2_c")
+_BW_ROWS = ("xbw_w", "xbw_e")
+_BW_COLS = ("ybw_s", "ybw_n")
+
+
+def _slice_metrics_tiled(m: SWMetrics, lay: TileLayout, a: int, b: int,
+                         c: int) -> SWMetrics:
+    """Slice every metric tensor to tile (a, b, c)'s windows.  A layout of
+    whole faces (Y = X = 1) keeps the face-level path (edge flags None):
+    every tile edge is a face edge there."""
+    L, nl, h = lay.L, lay.nl, m.halo
+    Nt = nl + 2 * h
+    fa, rb, cc = a * L, b * nl, c * nl
+    fs = slice(fa, fa + L)
+    up = {}
+    for name in _PAD_XY:
+        up[name] = getattr(m, name)[fs, rb : rb + Nt, cc : cc + Nt]
+    for name in _INT_XY:
+        up[name] = getattr(m, name)[fs, rb : rb + nl, cc : cc + nl]
+    up["dx_u"] = m.dx_u[fs, rb : rb + Nt + 1, cc : cc + Nt]
+    up["dy_v"] = m.dy_v[fs, rb : rb + Nt, cc : cc + Nt + 1]
+    up["cosa_b"] = m.cosa_b[fs, rb : rb + Nt + 1, cc : cc + Nt + 1]
+    up["rsin2_b"] = m.rsin2_b[fs, rb : rb + Nt + 1, cc : cc + Nt + 1]
+    up["area_c_int"] = m.area_c_int[fs, rb : rb + nl + 1, cc : cc + nl + 1]
+    for name in _BW_ROWS:
+        up[name] = getattr(m, name)[fs, rb : rb + nl]
+    for name in _BW_COLS:
+        up[name] = getattr(m, name)[fs, cc : cc + nl]
+    if lay.Y * lay.X > 1:
+        icm = tile_inv_corner_mult(lay)[b, c][None]
+        up["inv_corner_mult"] = torch.as_tensor(
+            icm, dtype=m.area_px.dtype, device=m.area_px.device
+        )
+        up["edge_w"] = c == 0
+        up["edge_e"] = c == lay.X - 1
+        up["edge_s"] = b == 0
+        up["edge_n"] = b == lay.Y - 1
+    up = {k: (v.contiguous() if isinstance(v, torch.Tensor) else v)
+          for k, v in up.items()}
+    return dataclasses.replace(m, n=nl, **up)
+
+
+def block_winds(u, v, lay: TileLayout):
+    """[6, nz, n+1, n], [6, nz, n, n+1] -> blocked
+    [6, Y, X, nz, nl+1, nl], [6, Y, X, nz, nl, nl+1]."""
+    nl = lay.nl
+    ub = torch.stack([
+        torch.stack([
+            u[:, :, b * nl : b * nl + nl + 1, c * nl : (c + 1) * nl]
+            for c in range(lay.X)
+        ], dim=1)
+        for b in range(lay.Y)
+    ], dim=1)
+    vb = torch.stack([
+        torch.stack([
+            v[:, :, b * nl : (b + 1) * nl, c * nl : c * nl + nl + 1]
+            for c in range(lay.X)
+        ], dim=1)
+        for b in range(lay.Y)
+    ], dim=1)
+    return ub, vb
+
+
+def unblock_winds(ub, vb, lay: TileLayout):
+    """Inverse of block_winds, reading every slot from its canonical
+    owner (interior shared rows/cols from the tile whose block starts
+    there; the face's own n-th row/col from the last tile)."""
+    nl = lay.nl
+    rows = [ub[:, b, :, :, :nl] for b in range(lay.Y)]
+    rows.append(ub[:, lay.Y - 1, :, :, nl:])
+    u = torch.cat(
+        [torch.cat([r[:, cidx] for cidx in range(lay.X)], dim=-1)
+         for r in rows],
+        dim=-2,
+    )
+    cols = [vb[:, :, cidx, :, :, :nl] for cidx in range(lay.X)]
+    cols.append(vb[:, :, lay.X - 1, :, :, nl:])
+    v = torch.cat(
+        [torch.cat([cpart[:, b] for b in range(lay.Y)], dim=-2)
+         for cpart in cols],
+        dim=-1,
+    )
+    return u, v
+
+
+def make_tiled_spmd_dycore_stepper(
+    g: CubedSphereGrid,
+    nz: int,
+    mesh: CubedSphereMesh,
+    lay: TileLayout,
+    dt_atmos: float,
+    k_split: int = 1,
+    n_split: int = 6,
+    hord: int = 5,
+    kord: int = 9,
+    d2_damp: float = 0.12,
+    ptop: float = 300.0,
+    dtype=torch.float32,
+    device=None,
+):
+    """The (face, y, x)-tiled multi-rank dycore step.
+
+    Returns (run, shard, gather): ``run(state, phis, nsteps)`` steps this
+    rank's tile (cells [L, nz, nl, nl], blocked winds u [L, nz, nl+1, nl]
+    and v [L, nz, nl, nl+1], q [ntracer, L, ...], phis [L, nl, nl]) on
+    `device` (the CUDA device unless the caller names one); ``shard``
+    cuts this rank's tile from a full state; ``gather`` rebuilds the full
+    state on every rank (through the host).
+    """
+    if (mesh.face_shards, mesh.y_shards, mesh.x_shards) != (
+        lay.F, lay.Y, lay.X
+    ):
+        raise ValueError(f"mesh {mesh} does not match layout {lay}")
+    if g.n != lay.n or g.halo != lay.h:
+        raise ValueError("grid/layout mismatch")
+    if device is None:
+        device = default_device("make_tiled_spmd_dycore_stepper")
+    a, b, c, _ = mesh.coords()
+    m = SWMetrics.make(g, dtype, device=device)
+    ml = _slice_metrics_tiled(m, lay, a, b, c)
+    one_dt = _one_dt_builder(
+        ml, nz, ptop, dtype, device, dt_atmos=dt_atmos, k_split=k_split,
+        n_split=n_split, hord=hord, kord=kord, d2_damp=d2_damp,
+    )
+    comm = mesh.face_comm
+    L, nl = lay.L, lay.nl
+    fs = slice(a * L, (a + 1) * L)
+    ys, xs = slice(b * nl, (b + 1) * nl), slice(c * nl, (c + 1) * nl)
+
+    def run(state: DycoreState, phis, nsteps: int):
+        with halo_mod.spmd_mode(comm, tiling=lay):
+            for _ in range(nsteps):
+                state = one_dt(state, phis)
+        return state
+
+    def shard(state: DycoreState, phis):
+        def put(x):
+            return None if x is None else x.to(device).contiguous()
+
+        u = state.u[fs, :, b * nl : b * nl + nl + 1, xs]
+        v = state.v[fs, :, ys, c * nl : c * nl + nl + 1]
+        local = DycoreState(
+            delp=put(state.delp[fs, :, ys, xs]),
+            pt=put(state.pt[fs, :, ys, xs]),
+            u=put(u), v=put(v),
+            q=None if state.q is None else put(state.q[:, fs, :, ys, xs]),
+            w=None if state.w is None else put(state.w[fs, :, ys, xs]),
+            delz=(None if state.delz is None
+                  else put(state.delz[fs, :, ys, xs])),
+        )
+        return local, put(phis[fs, ys, xs])
+
+    def gather(state: DycoreState):
+        D = lay.D
+
+        def cells(x, lead=0):
+            if x is None:
+                return None
+            parts = _all_gather(x, mesh)
+            shape = list(x.shape)
+            shape[lead] = 6
+            shape[-2] = shape[-1] = lay.n
+            out = torch.empty(shape, dtype=x.dtype)
+            for d in range(D):
+                da, rem = divmod(d, lay.Y * lay.X)
+                db, dc = divmod(rem, lay.X)
+                idx = [slice(None)] * len(shape)
+                idx[lead] = slice(da * L, (da + 1) * L)
+                idx[-2] = slice(db * nl, (db + 1) * nl)
+                idx[-1] = slice(dc * nl, (dc + 1) * nl)
+                out[tuple(idx)] = parts[d]
+            return out.to(x.device)
+
+        def blocked(x):
+            parts = _all_gather(x, mesh)
+            out = torch.empty((6, lay.Y, lay.X) + tuple(x.shape[1:]),
+                              dtype=x.dtype)
+            for d in range(D):
+                da, rem = divmod(d, lay.Y * lay.X)
+                db, dc = divmod(rem, lay.X)
+                out[da * L : (da + 1) * L, db, dc] = parts[d]
+            return out
+
+        u, v = unblock_winds(blocked(state.u), blocked(state.v), lay)
+        return DycoreState(
+            delp=cells(state.delp), pt=cells(state.pt),
+            u=u.to(state.u.device), v=v.to(state.v.device),
+            q=cells(state.q, lead=1), w=cells(state.w),
+            delz=cells(state.delz),
+        )
+
+    run.one_dt = one_dt
+    run.comm = comm
+    return run, shard, gather

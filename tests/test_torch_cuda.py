@@ -1054,3 +1054,97 @@ def test_regrid_on_card(dev):
     const = rg.regrid(torch.full((6, n, n), 5.0, device=dev))
     filled = const.cpu().numpy()[rg.dst_area.reshape(24, 48) > 0]
     np.testing.assert_allclose(filled, 5.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("width", [12, 48, 192])
+def test_filter_pair_entry_equals_table_entry(dev, width):
+    """K3's exchanged-pair entry (the face mesh's) on [6, nz, N, N]: the
+    same arithmetic as the table-reading entry, bit for bit; one launch."""
+    from fv3net_tpu_torch.ops.cuda_filter import (
+        del4_filter_cuda,
+        del4_filter_pair_cuda,
+    )
+
+    rng = np.random.RandomState(width + 1)
+    area = _t(1.0 + 0.1 * rng.rand(6, width, width), dev)
+    apx = halo_exchange(area, H, fill="x")
+    apy = halo_exchange(area, H, fill="y")
+    q = _t(rng.randn(6, NZ, width, width), dev)
+    qx = halo_exchange(q, H, fill="x").contiguous()
+    qy = halo_exchange(q, H, fill="y").contiguous()
+    launches = del4_filter_pair_cuda.launches
+    got = del4_filter_pair_cuda(qx, qy, apx, apy, sw.FILTER_COEF, H)
+    assert del4_filter_pair_cuda.launches == launches + 1
+    assert torch.equal(got, del4_filter_cuda(q, apx, apy, sw.FILTER_COEF,
+                                             H))
+
+
+@pytest.mark.parametrize("width", [12, 48])
+def test_filter_pair_entry_one_face(dev, width):
+    """The pair entry on one face [1, nz, N, N] (a face-mesh rank's
+    shape) against the plain scalar_filter of the whole cube on that face
+    and against its own plain version, the JAX kernel test's tolerance."""
+    from fv3net_tpu_torch.ops.cuda_filter import del4_filter_pair_cuda
+
+    rng = np.random.RandomState(width + 2)
+    area = _t(1.0 + 0.1 * rng.rand(6, width, width), dev)
+    m = type("M", (), dict(
+        n=width, halo=H, area_px=halo_exchange(area, H, fill="x"),
+        area_py=halo_exchange(area, H, fill="y"), rarea=1.0 / area,
+    ))
+    q = _t(rng.randn(6, NZ, width, width), dev)
+    want = sw.scalar_filter_plain(q, m, sw.FILTER_COEF)
+    for f in range(6):
+        args = [a[f:f + 1].contiguous() for a in (
+            halo_exchange(q, H, fill="x"), halo_exchange(q, H, fill="y"),
+            m.area_px, m.area_py)]
+        got = del4_filter_pair_cuda(*args, sw.FILTER_COEF, H)
+        torch.testing.assert_close(got[0], want[f], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(
+            got, sw.scalar_filter_pair_plain(*args, sw.FILTER_COEF, H),
+            rtol=1e-4, atol=1e-5,
+        )
+
+
+def test_multiband_radiation_on_card_matches_cpu(dev):
+    """MultibandRadiationDriver on a seeded C12 x 63 state on the card in
+    float32: every output as close to the CPU's float64 driver as the
+    CPU's float32 driver is (parity.f32_rule, F32_FACTOR), tensors on the
+    card."""
+    import datetime
+
+    from fv3net_tpu_torch import parity
+    from fv3net_tpu_torch.physics.radiation import MultibandRadiationDriver
+
+    rng = np.random.RandomState(5)
+    pe = np.linspace(100.0, 101325.0, NZ + 1)[None, :, None, None] * (
+        1.0 + 0.01 * rng.rand(6, 1, n, n))
+    delp = pe[:, 1:] - pe[:, :-1]
+    p_lay = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    temp = 288.0 - 60.0 * (1.0 - p_lay / 101325.0) + rng.randn(*p_lay.shape)
+    sphum = 0.012 * (p_lay / 101325.0) ** 3 * rng.rand(*p_lay.shape) + 1e-6
+    ql = np.where(rng.rand(*p_lay.shape) < 0.3, 1e-4, 0.0)
+    tsfc = 285.0 + 10.0 * rng.rand(6, n, n)
+    land = (rng.rand(6, n, n) < 0.4).astype(np.float64)
+    snow = 20.0 * rng.rand(6, n, n) * land
+    lat = rng.uniform(-85.0, 85.0, (6, n, n))
+    lon = rng.uniform(0.0, 360.0, (6, n, n))
+    t = datetime.datetime(2016, 8, 1, 12)
+    drv = MultibandRadiationDriver()
+    drv.radupdate(t)
+
+    def run(device, dtype):
+        def c(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        return drv.gfs_radiation_driver(
+            t, lon, lat, c(p_lay), c(delp), c(temp), c(sphum), c(tsfc),
+            ql=c(ql), land_mask=c(land), snow=c(snow),
+        )
+
+    got = run(dev, torch.float32)
+    assert all(v.device.type == "cuda" for v in got.values())
+    rule = parity.f32_rule(got, [run("cpu", torch.float32)],
+                           run("cpu", torch.float64))
+    for k, (err, bound, _, _, finite) in rule.items():
+        assert finite and err <= bound, (k, err, bound)

@@ -63,3 +63,23 @@ def test_scalar_filter_conserves_and_zero_coef(metrics):
         (q.abs() * area).sum()
     )
     assert tsw.scalar_filter(q, mt, 0.0) is q
+
+
+@pytest.mark.parametrize("faces", [slice(0, 6), slice(2, 3)])
+def test_pair_plain_matches_pallas_interpret(metrics, faces):
+    """scalar_filter_pair_plain, the plain version of K3's exchanged-pair
+    entry (the face mesh's), on the exchanged pair of all six faces or of
+    one face (a face-mesh rank's [1, nz, N, N]) against the JAX Pallas
+    kernel in interpret mode on the same pair, float64."""
+    mj, _ = metrics
+    q = jnp.asarray(np.random.RandomState(7).randn(6, 3, n, n))
+    qx, qy = (jhalo_exchange(q, H, fill=f)[faces] for f in ("x", "y"))
+    apx, apy = mj.area_px[faces], mj.area_py[faces]
+    want = del4_filter_pallas(qx, qy, apx, apy, jsw.FILTER_COEF, H,
+                              interpret=True)
+    got = tsw.scalar_filter_pair_plain(
+        *(torch.as_tensor(np.asarray(a)) for a in (qx, qy, apx, apy)),
+        jsw.FILTER_COEF, H,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13,
+                               atol=1e-13)
