@@ -8,8 +8,12 @@ Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA; print the card, its power limit, torch/CUDA;
   2. build: compile the eight kernels (csrc/*.cu) with nvcc, then the
      toolchain probe path (fv3net_tpu_torch.probe, K7 x*2+1 and K8 the
-     3-point lane stencil on [256, 256]): launch counts, each kernel
-     bit for bit equal to its plain version, times;
+     3-point lane stencil on [256, 256]): launch counts; each kernel
+     bit for bit equal to its plain version on [256, 256], [16384,
+     16384] (PROBE_BIG), shapes whose columns are no multiple of 4 and
+     views starting 1-3 floats past a 16-byte boundary; times at
+     [256, 256] and [16384, 16384] (CUDA events, host, and the device
+     time of the kernel and of torch.addcmul from a profiler trace);
   3. kernels: each dycore kernel against its plain torch version on the
      card, f32, nz = 63, seeded inputs, at the widths of C12, C48 and
      C192 (padded N = 18, 54, 198; the vertical solve and the remap on
@@ -290,7 +294,8 @@ path for K1-K5, the C192 path for K6, the probe path for K7/K8, the spmd
 face path for K3's pair entry; each path's in ``launches_by_path``) and
 its phase-3 numbers at the shapes of the path its launches come from
 (K1-K5 C48, K6 C192, K7/K8 [256, 256], the pair entry one face
-[1, 63, 54, 54]).  The last two lines are the kernels'
+[1, 63, 54, 54]); K7/K8's also their device ms and, under "at_16384",
+their numbers at [16384, 16384].  The last two lines are the kernels'
 JSON summary and {"ok": true, "device": {...}}.
 """
 
@@ -389,6 +394,15 @@ SHARD_SHAPES = ((1, 48), (3, 24))
 LAUNCHES_PROBE = dict(
     {k: 0 for k in WRAPPERS}, probe_affine=1, probe_stencil=1
 )
+PROBES = (
+    ("probe_affine", probe.affine_cuda, probe.affine_plain),
+    ("probe_stencil", probe.stencil_cuda, probe.stencil_plain),
+)
+# the probes are also held at an HBM-bound size (1 GiB a tensor; each
+# kernel moves 2 GiB, 0.641 ms at 3.35 TB/s) and on shapes whose columns
+# are no multiple of 4 (the kernels' scalar paths and row wraps)
+PROBE_BIG = (16384, 16384)
+PROBE_ODD = ((1, 1), (2, 1), (1, 2), (3, 7), (4099, 4097))
 # slice tolerance: u, v and w after one dt are small residuals of large
 # cancelling terms, so one f32 dt differs from the float64 dt by ~1e-2 of
 # their magnitude on ANY device (CPU f32 vs f64 at C12x63: u 3.0e-3, w
@@ -625,10 +639,58 @@ def phase_build():
         f"(report: {path}.ptxas.log)")
 
 
+def device_ms(fn, reps=20):
+    """Device time of one call of fn() in ms: the summed durations of the
+    device operations in a torch.profiler trace of `reps` calls (after
+    one warm-up call) over `reps`, with their names; (None, []) where the
+    trace holds no device operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    ops = [e for e in prof.events() if e.device_type == cuda_t]
+    if not ops:
+        return None, []
+    us = sum(e.time_range.elapsed_us() for e in ops)
+    return us / 1e3 / reps, sorted({e.name for e in ops})
+
+
+def check_probe_shapes():
+    """K7 and K8 bit for bit against their plain versions on shapes whose
+    columns are no multiple of 4 and on contiguous views starting 1-3
+    floats past a 16-byte boundary (the allocator's blocks start on one)."""
+    rng = np.random.RandomState(1)
+    cases = [((r, c), 0) for r, c in PROBE_ODD]
+    cases += [(shape, off) for shape in ((3, 7), probe.SHAPE, (4099, 4097))
+              for off in (1, 2, 3)]
+    for (r, c), off in cases:
+        buf = torch.as_tensor(rng.randn(r * c + off).astype(np.float32),
+                              device="cuda")
+        x = buf[off:].view(r, c)
+        if x.data_ptr() % 16 != 4 * off:
+            raise AssertionError(f"probe view [{r}, {c}] + {off}: "
+                                 f"address {x.data_ptr()} off the plan")
+        for name, fn, plain in PROBES:
+            if not torch.equal(fn(x), plain(x)):
+                raise AssertionError(
+                    f"{name} [{r}, {c}] (+{off} floats): differs from its "
+                    f"plain version")
+    say(f"probes: bit for bit equal to plain on {len(cases)} shapes and "
+        f"offsets {sorted(set(cases))}")
+
+
 def phase_probe():
     """The toolchain probe path (K7, K8): one call of each through the
-    probe's entry points, counted, then each against its plain version
-    bit for bit, and timed."""
+    probe's entry points, counted; each against its plain version bit for
+    bit on the odd shapes and misaligned views, and at [256, 256] and
+    PROBE_BIG, where each is timed (CUDA events, host, device time from a
+    profiler trace) beside its plain version and, for K7, torch.addcmul."""
     x = torch.as_tensor(
         np.random.RandomState(0).randn(*probe.SHAPE).astype(np.float32),
         device="cuda",
@@ -638,23 +700,48 @@ def phase_probe():
     torch.cuda.synchronize()
     launches = read_counts()
     check_counts("probe", launches, LAUNCHES_PROBE)
+    for name, _, plain in PROBES:
+        if not torch.equal(ys[name], plain(x)):
+            raise AssertionError(f"{name}: differs from its plain version")
+    check_probe_shapes()
     stats = {}
-    # x * 2 + 1 in one PyTorch call (1 + x * 2); no single call computes
-    # the periodic stencil
+    time_probes(stats, x)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    big = torch.randn(PROBE_BIG, device="cuda", generator=gen)
+    time_probes(stats, big)
+    del big
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def time_probes(stats, x):
+    """K7 and K8 on x against their plain versions bit for bit, timed
+    into stats[(name, rows)]; K7 beside torch.addcmul(1, x, 2), which
+    computes x * 2 + 1 in one PyTorch call (no single call computes the
+    periodic stencil)."""
+    rows, cols = x.shape
     one, two = (torch.tensor(v, device="cuda") for v in (1.0, 2.0))
     library = {"probe_affine": lambda: torch.addcmul(one, x, two)}
-    for name, fn, plain in (
-        ("probe_affine", probe.affine_cuda, probe.affine_plain),
-        ("probe_stencil", probe.stencil_cuda, probe.stencil_plain),
-    ):
-        want = plain(x)
-        if not torch.equal(ys[name], want):
-            raise AssertionError(f"{name}: differs from its plain version")
-        err = float((ys[name] - want).abs().max())
-        record(stats, name, 256, err, lambda: fn(x), lambda: plain(x),
+    for name, fn, plain in PROBES:
+        got, want = fn(x), plain(x)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} [{rows}, {cols}]: differs from its plain version")
+        err = float((got - want).abs().max())
+        del got
+        record(stats, name, rows, err, lambda: fn(x), lambda: plain(x),
                [x], [want], 2 * x.numel(), library=library.get(name))
-        say(f"{name} [256, 256]: bit for bit equal to plain")
-    return launches, stats
+        del want
+        r = stats[(name, rows)]
+        r["device_ms"], kernels = device_ms(lambda: fn(x))
+        lib = library.get(name)
+        r["library_device_ms"], lib_kernels = (
+            (None, []) if lib is None else device_ms(lib))
+        say(f"{name} [{rows}, {cols}]: bit for bit equal to plain; device "
+            f"{r['device_ms']} ms {kernels}"
+            + ("" if lib is None else
+               f", torch.addcmul device {r['library_device_ms']} ms "
+               f"{lib_kernels}"))
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -1074,7 +1161,10 @@ def report_kernels(stats):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of it) host "
             f"{r['host_ms']:.4f} ms library "
-            + ("none" if lib is None else f"{lib:.4f} ms"))
+            + ("none" if lib is None else f"{lib:.4f} ms")
+            + ("" if "device_ms" not in r else
+               f" device {r['device_ms']} ms library device "
+               f"{r['library_device_ms']} ms"))
 
 
 # --- phases 4 and 5 ---------------------------------------------------------
@@ -4364,6 +4454,12 @@ def kernel_summary(stats, probe_launches, paths):
             "host_ms": r["host_ms"],
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
         })
+        if name.startswith("probe_"):
+            big = stats[(name, PROBE_BIG[0])]
+            kernels[-1].update(
+                device_ms=r["device_ms"],
+                library_device_ms=r["library_device_ms"],
+                at_16384=dict(big))
     for tag, launches in paths.items():
         if tag == "sw" or tag.startswith("spmd"):
             # single-layer or shard shapes, which phase 3 does not time

@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import default_device
 from . import _shared
 from ._shared import Predictor, register, register_training_function
 
@@ -113,10 +114,13 @@ class RankDivider:
 class Reservoir:
     """Leaky echo-state network core (fv3fit/reservoir/reservoir.py:31):
     float32 ``W_res`` [state, state] (masked, rescaled to the spectral
-    radius) and ``W_in`` [state, n_input] on `device`."""
+    radius) and ``W_in`` [state, n_input] on `device` (the CUDA device
+    unless the caller names another)."""
 
     def __init__(self, hp: ReservoirHyperparameters, n_input: int,
-                 device="cpu"):
+                 device=None):
+        if device is None:
+            device = default_device("Reservoir")
         self.hp = hp
         gen = torch.Generator().manual_seed(int(hp.seed))
         shape = (hp.state_size, hp.state_size)

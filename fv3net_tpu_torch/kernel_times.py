@@ -23,12 +23,16 @@ columns at n = 192 and 48, the wrapper alone on the contiguous interior
 fields and ``riemann.sim1_solve`` as the step calls it (on the
 halo-padded pem, pm and ws with ``halo=3`` where the checkout's wrapper
 takes a halo, else on their interior views, which it copies); K4 on dp
-[6, 63, N, N] at N = 198 and 54.  Each call is timed by CUDA events,
+[6, 63, N, N] at N = 198 and 54; the probes K7 and K8
+(``probe.affine_cuda``, ``probe.stencil_cuda``) on seeded [256, 256] and
+[16384, 16384] arrays (1 GiB each), beside ``torch.addcmul(1, x, 2)``,
+which computes K7's function.  Each call is timed by CUDA events,
 median of 20 after 3 warm-up calls.  The host time of the Python call
 alone (median of 20, not synchronised, the card kept busy) is taken for
-the K7 probe, K1 at N = 54, K3 at n = 48, K2 and K4 at the C48 shapes,
-and for the pieces of the wrappers' shared call path.  --save writes the
-outputs to FILE; --reference compares them with a FILE saved by another
+the K7 and K8 probes, K1 at N = 54, K3 at n = 48, K2 and K4 at the C48
+shapes, and for the pieces of the wrappers' shared call path.  --save
+writes the outputs to FILE (the [16384, 16384] probes' as a sha256 of
+their bytes); --reference compares them with a FILE saved by another
 checkout (bit for bit, else the max abs difference).  Prints one JSON
 line with the card's name and power limit.  Running two checkouts in
 turns in one call (A, B, B, A) compares them on one card.
@@ -37,6 +41,7 @@ turns in one call (A, B, B, A) compares them on one card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -51,6 +56,7 @@ import numpy as np
 NZ, N192 = 63, 192
 H, PTOP = 3, 300.0
 REMAP_VARIANTS = ((1, 9), (-1, 9), (0, 9), (1, 10), (1, 17))
+PROBE_SIZES = (256, 16384)  # the probe's [256, 256] and an HBM-bound size
 
 
 def _cuda_ms(torch, fn, reps=20, warmup=3):
@@ -171,8 +177,8 @@ def _host_ms(torch, fn, reps=20, warmup=3):
 
 def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda,
                 step_sim1, column_pressures_cuda, dp):
-    """Host ms of five wrappers at the C48 path's shapes (K7 at its
-    [256, 256]) and of the pieces of their shared call path."""
+    """Host ms of six wrappers at the C48 path's shapes (K7 and K8 at
+    their [256, 256]) and of the pieces of their call paths."""
     x = torch.as_tensor(rng.randn(*probe.SHAPE).astype(np.float32),
                         device="cuda")
     N = 54
@@ -187,6 +193,8 @@ def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda,
     return {
         "probe_affine [256, 256]": _host_ms(torch,
                                             lambda: probe.affine_cuda(x)),
+        "probe_stencil [256, 256]": _host_ms(torch,
+                                             lambda: probe.stencil_cuda(x)),
         "fv_tp_2d N=54 hord=5": _host_ms(torch,
                                          lambda: fv_tp_2d_cuda(*tp, 5)),
         "scalar_filter n=48": _host_ms(
@@ -199,11 +207,55 @@ def _host_times(torch, rng, probe, sw, halo_exchange, _build, fv_tp_2d_cuda,
             torch, lambda: torch.empty(sh, device="cuda")),
         "_build.check": _host_ms(
             torch, lambda: _build.check(tp[0], "q", sh, tp[0].device)),
-        "_build.call (the probe's launch)": _host_ms(
-            torch, lambda: _build.call(
-                "fv3_probe_affine", x.data_ptr(), x.data_ptr(), x.numel(),
-                _build.stream())),
+        "torch.empty_like [256, 256]": _host_ms(
+            torch, lambda: torch.empty_like(x)),
+        "C entry (the probe's launch)": _host_ms(
+            torch, _probe_launch(probe, _build, x)),
+        **({} if not hasattr(probe, "affine_plan") else {
+            "probe.affine_plan [256, 256] (cached)": _host_ms(
+                torch, lambda: probe.affine_plan(
+                    x.numel(), x.data_ptr() & 15, x.data_ptr() & 15,
+                    135168)),
+            "probe.affine_plan [256, 256] (uncached)": _host_ms(
+                torch, lambda: probe.affine_plan.__wrapped__(
+                    x.numel(), x.data_ptr() & 15, x.data_ptr() & 15,
+                    135168))}),
     }
+
+
+def _probe_launch(probe, _build, x):
+    """K7's launch on x alone, as the checkout's wrapper makes it: its C
+    entry through ``_build.call`` (the four-argument entry), or bound once
+    and given the wrapper's plan."""
+    n, p = x.numel(), x.data_ptr()
+    if len(_build.SIGNATURES["fv3_probe_affine"]) == 4:
+        return lambda: _build.call("fv3_probe_affine", p, p, n,
+                                   _build.stream())
+    affine, _, max_blocks, _ = probe._entry or probe._bind()
+    plan = probe.affine_plan(n, p & 15, p & 15, max_blocks)
+    return lambda: affine(p, p, n, *plan, _build.stream())
+
+
+def _probe_times(torch, probe, times, outs):
+    """K7 and K8 at PROBE_SIZES on seeded arrays made on the card, and
+    torch.addcmul(1, x, 2) beside K7; outputs above [256, 256] kept as
+    the sha256 of their bytes."""
+    one, two = (torch.tensor(v, device="cuda") for v in (1.0, 2.0))
+    for n in PROBE_SIZES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn((n, n), device="cuda", generator=gen)
+        for name, fn in (("probe_affine", probe.affine_cuda),
+                         ("probe_stencil", probe.stencil_cuda)):
+            key = f"{name} [{n}, {n}]"
+            y = fn(x).cpu()
+            outs[key] = y if n <= 256 else hashlib.sha256(
+                y.numpy().tobytes()).hexdigest()
+            del y
+            times[key] = _cuda_ms(torch, lambda: fn(x))
+        times[f"torch.addcmul [{n}, {n}]"] = _cuda_ms(
+            torch, lambda: torch.addcmul(one, x, two))
+        del x
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -297,6 +349,7 @@ def main(argv=None):
         key = f"column_pressures_cuda N={N}"
         outs[key] = [o.cpu() for o in column_pressures_cuda(dp, PTOP)]
         times[key] = _cuda_ms(torch, lambda: column_pressures_cuda(dp, PTOP))
+    _probe_times(torch, probe, times, outs)
     host = _host_times(torch, rng, probe, sw, halo_exchange, _build,
                        fv_tp_2d_cuda, step_sim1, column_pressures_cuda, dp)
     result = {"tag": args.tag, "root": root, "card": card, "ms": times,
@@ -305,6 +358,9 @@ def main(argv=None):
         ref = torch.load(reference)
         diff = {}
         for k, v in outs.items():
+            if isinstance(v, str):  # a sha256 of the output's bytes
+                diff[k] = "bit for bit" if v == ref[k] else "differs"
+                continue
             a = v if isinstance(v, list) else [v]
             b = ref[k] if isinstance(ref[k], list) else [ref[k]]
             same = all(torch.equal(x, y) for x, y in zip(a, b))

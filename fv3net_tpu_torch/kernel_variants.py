@@ -1,13 +1,14 @@
 """Design experiments on the GPU: variants of the K1 transport kernel
 (``csrc/tp2d.cu``), the level runs of K1 and K3 (``csrc/filter.cu``), the
 tile widths and the split of the column kernels K2 (``csrc/sim1.cu``) and
-K4 (``csrc/column.cu``), and builds without FMA contraction, timed or
-compared in turns in one process on one card.
+K4 (``csrc/column.cu``), builds without FMA contraction, and the probes'
+unroll and grid sizes (``csrc/probe.cu``), timed or compared in turns in
+one process on one card.
 
 Run on the GPU machine from the repository root:
 
     python -m fv3net_tpu_torch.kernel_variants [--reps 2]
-        [--only k1,k3,slab,fmad] [--parent DIR] [--k3-parent FILE]
+        [--only k1,k3,slab,fmad,probe] [--parent DIR] [--k3-parent FILE]
 
 Each K1 variant is ``csrc/tp2d.cu`` with its tile (TX x TY), its threads a
 block and its blocks an SM changed, or with the 8-byte copies off (4-byte
@@ -43,8 +44,16 @@ a-column kernel with its global scratch) and for an older K3 source
 y-fill exchanges, a scratch and the output).  Each pair is compared (bit
 for bit, else the max abs difference): where two sources differ in the
 default build and agree without contraction, the difference is how nvcc
-contracted each, not the arithmetic.  Prints one JSON line per
-measurement, then the card's name and power limit.
+contracted each, not the arithmetic.
+
+``probe``: K7 and K8 with kUnroll 2, 4 (the package's) and 8, each on a
+seeded [16384, 16384] array (1 GiB) with grids of 1, 4, 16 and 64 times
+the blocks the card holds at once, of the package's cap
+(``probe.WAVES`` times) and over the whole work (no cap), the plans
+otherwise the wrappers' (``probe.affine_plan``, ``probe.stencil_plan``);
+each checked bit for bit against the package's wrappers, beside a
+``copy_`` of the same bytes.  Prints one JSON line per measurement, then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -139,6 +148,10 @@ SLAB_VARIANTS = {
         "TC32 t128 compute": (_K4, ("kMemory",)),
     },
 }
+# K7/K8's unrolls (the package's first) and grids in multiples of the
+# blocks the card holds at once (0: over the whole work)
+PROBE_UNROLLS = (4, 2, 8)
+PROBE_WAVES = (1, 4, 16, 64, None, 0)  # None: the package's probe.WAVES
 # the C entry point's argument types of a K2 with its global scratch (the
 # one-thread-a-column kernel: pp and gam after ppe, n * n for n and h)
 OLD_SIM1_SIGNATURE = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
@@ -149,7 +162,7 @@ OLD_DEL4_SIGNATURE = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
 
 
 def slab_variant_source(src: str, ints: dict, off=()) -> str:
-    """A column kernel's source with the integer constants `ints` and the
+    """A kernel's source with the integer constants `ints` and the
     switches `off` turned off; raises if the source lacks one of them."""
     edits = [(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {v};")
              for k, v in ints.items()]
@@ -183,12 +196,13 @@ def _compile(jobs, out: Path):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
-        fn = getattr(ctypes.CDLL(str(out / f"variant_{i}.so")), entry)
+        fn_lib = ctypes.CDLL(str(out / f"variant_{i}.so"))
+        fn = getattr(fn_lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         regs = max(int(r) for r in re.findall(r"Used (\d+) registers", log))
         spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
-        libs[name] = (fn, regs, spill)
+        libs[name] = (fn, regs, spill, fn_lib)
     return libs
 
 
@@ -238,6 +252,14 @@ def _fmad_jobs(parent, k3_parent):
     return jobs
 
 
+def _probe_jobs():
+    src = (_build.CSRC / "probe.cu").read_text()
+    return [(f"probe u{u}", slab_variant_source(src, {"kUnroll": u}),
+             _build.CSRC, (), "fv3_probe_affine",
+             _build.SIGNATURES["fv3_probe_affine"])
+            for u in PROBE_UNROLLS]
+
+
 def _cuda_ms(torch, fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -261,8 +283,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=2,
                     help="turns over all variants")
-    ap.add_argument("--only", default="k1,k3,slab,fmad",
-                    help="comma-separated parts: k1, k3, slab, fmad")
+    ap.add_argument("--only", default="k1,k3,slab,fmad,probe",
+                    help="comma-separated parts: k1, k3, slab, fmad, probe")
     ap.add_argument("--parent", help="another checkout's root (fmad)")
     ap.add_argument("--k3-parent",
                     help="a filter.cu that takes the exchanges (fmad)")
@@ -275,9 +297,10 @@ def main(argv=None):
     jobs = ((_k1_jobs() if "k1" in parts else [])
             + (_slab_jobs() if "slab" in parts else [])
             + (_fmad_jobs(args.parent, args.k3_parent)
-               if "fmad" in parts else []))
+               if "fmad" in parts else [])
+            + (_probe_jobs() if "probe" in parts else []))
     libs = _compile(jobs, Path(_build.BUILD_DIR).parent / "variants")
-    for name, (_, regs, spill) in libs.items():
+    for name, (_, regs, spill, _) in libs.items():
         _say(variant=name, registers=regs, spill_bytes=spill)
     if "k1" in parts:
         _k1(torch, libs, args.reps)
@@ -287,6 +310,8 @@ def main(argv=None):
         _slab(torch, libs, args.reps)
     if "fmad" in parts:
         _fmad(torch, libs)
+    if "probe" in parts:
+        _probe(torch, libs, args.reps)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -438,6 +463,65 @@ def _slab(torch, libs, reps):
         del inner, padded, outs, want, dp, col_outs, col_want
 
 
+def _probe(torch, libs, reps):
+    """K7 and K8's unrolls and grid sizes at [16384, 16384]."""
+    from . import probe
+
+    n = 16384
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn((n, n), device="cuda", generator=gen)
+    y = torch.empty_like(x)
+    want = {"affine": probe.affine_cuda(x), "stencil": probe.stencil_cuda(x)}
+    px, py, stream = x.data_ptr(), y.data_ptr(), _build.stream()
+    for rep in range(reps):
+        for u in PROBE_UNROLLS:
+            lib = libs[f"probe u{u}"][3]
+            for name in ("fv3_probe_affine", "fv3_probe_stencil",
+                         "fv3_probe_resident"):
+                getattr(lib, name).argtypes = _build.SIGNATURES[name]
+                getattr(lib, name).restype = ctypes.c_int
+            resident = [lib.fv3_probe_resident(k) for k in range(3)]
+            for waves in PROBE_WAVES:
+                w = probe.WAVES if waves is None else waves
+                cap = [w * r if w else 2 ** 31 - 1 for r in resident]
+                # the variant's tiles, past the plans' cache
+                unroll, probe.UNROLL = probe.UNROLL, u
+                try:
+                    plans = {
+                        "affine": probe.affine_plan.__wrapped__(
+                            n * n, px & 15, py & 15, cap[0]),
+                        "stencil": probe.stencil_plan.__wrapped__(
+                            n, n, px & 15, py & 15, (cap[1], cap[2])),
+                    }
+                finally:
+                    probe.UNROLL = unroll
+                for kernel, plan in plans.items():
+                    fn = getattr(lib, f"fv3_probe_{kernel}")
+                    args = ((px, py, n * n, *plan, stream)
+                            if kernel == "affine"
+                            else (px, py, n, n, *plan, stream))
+
+                    def run(fn=fn, args=args):
+                        err = fn(*args)
+                        if err != 0:
+                            raise RuntimeError(f"probe u{u}: error {err}")
+
+                    y.zero_()
+                    run()
+                    torch.cuda.synchronize()
+                    if not torch.equal(y, want[kernel]):
+                        raise AssertionError(
+                            f"probe u{u} {kernel} {plan} differs from the "
+                            f"package's wrapper")
+                    _say(kernel=f"probe_{kernel}", shape=[n, n], unroll=u,
+                         waves=waves if waves is not None else
+                         f"{probe.WAVES} (the package's)",
+                         plan=plan, turn=rep, ms=_cuda_ms(torch, run))
+        _say(kernel="copy_", shape=[n, n], turn=rep,
+             ms=_cuda_ms(torch, lambda: y.copy_(x)))
+    del x, y, want
+
+
 def _diff(a, b):
     """'bit for bit', else the max abs difference of two output lists."""
     if all(x.shape == y.shape and bool((x == y).all()) for x, y in zip(a, b)):
@@ -470,7 +554,7 @@ def _fmad(torch, libs):
                 for f in ("x", "y")]
         qx, qy = (halo_mod.halo_exchange(q, H, fill=f) for f in ("x", "y"))
         c8 = 0.02 / 8.0  # sw.FILTER_COEF / 8
-        for name, (fn, _, _) in libs.items():
+        for name, (fn, _, _, _) in libs.items():
             if not name.endswith(("fmad=true", "fmad=false")):
                 continue
             tree, file, _ = name.split(" ")

@@ -235,6 +235,11 @@ def diffuse_column(x, mass, g_if, dt, sfc_g, x_sfc):
     return tridiagonal_solve(a, b, c, d)
 
 
+def rho_layer_mass(delp):
+    """The layer's mass per unit area, delp / g (kg m^-2)."""
+    return delp / GRAV
+
+
 # --------------------------------------------------------------------------
 # Betts-Miller convection (SAS role)
 # --------------------------------------------------------------------------

@@ -269,6 +269,38 @@ def test_probe_kernels(dev):
     assert torch.equal(probe.stencil(x), probe.stencil_plain(x))
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (3, 7),
+                                   (16, 1024), (4099, 4097)])
+def test_probe_kernels_odd_shapes_and_offsets(dev, shape, offset):
+    """K7 and K8 bit for bit on shapes whose columns are not a multiple
+    of 4 and on views starting 0-3 floats past a 16-byte boundary (the
+    allocator's blocks start on one), one launch each."""
+    rows, cols = shape
+    buf = _t(np.random.RandomState(rows + offset).randn(rows * cols
+                                                        + offset), dev)
+    x = buf[offset:].view(rows, cols)
+    assert x.data_ptr() % 16 == 4 * offset
+    before = probe.affine_cuda.launches, probe.stencil_cuda.launches
+    assert torch.equal(probe.affine(x), probe.affine_plain(x))
+    assert torch.equal(probe.stencil(x), probe.stencil_plain(x))
+    assert (probe.affine_cuda.launches - before[0],
+            probe.stencil_cuda.launches - before[1]) == (1, 1)
+
+
+def test_probe_wrappers_refuse_and_skip_empty(dev):
+    x = _t(np.ones((4, 8)), dev)
+    for fn in (probe.affine_cuda, probe.stencil_cuda):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.t())
+        with pytest.raises(TypeError, match="float32"):
+            fn(x.double())
+        with pytest.raises(ValueError, match="2-D"):
+            fn(x[0])
+        before = fn.launches
+        assert fn(x[:0]).shape == (0, 8) and fn.launches == before
+
+
 def _multi5_args(rng, N, nz, dev):
     sh = (6, nz, N, N)
     area = 1.0 + 0.1 * rng.rand(6, N, N)

@@ -13,6 +13,7 @@ import torch
 from fv3net_tpu_torch import convert, fit, wrapper
 from fv3net_tpu_torch.diagnostics import compute, offline
 from fv3net_tpu_torch.device import default_device
+from fv3net_tpu_torch.fit import reservoir as fit_reservoir
 from fv3net_tpu_torch.fit import train as fit_train
 from fv3net_tpu_torch.fit import transformed as fit_transformed
 from fv3net_tpu_torch.dycore import hydro, sw
@@ -63,6 +64,8 @@ ENTRY_POINTS = {
         fit_transformed.TransformedParameters(), []),
     "train_reservoir_model": lambda: fit.train_reservoir_model(
         fit.ReservoirHyperparameters(), []),
+    "Reservoir": lambda: fit_reservoir.Reservoir(
+        fit.ReservoirHyperparameters(), 3),
     "train_fmr_model": lambda: fit.train_fmr_model(
         fit.FMRHyperparameters(), []),
     "train_graph_model": lambda: fit.train_graph_model(

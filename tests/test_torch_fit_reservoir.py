@@ -100,8 +100,8 @@ def test_reservoir_draws_and_increment():
     increment with the JAX package's matrices equals the JAX package's.
     Measured: <= 1.2e-7 of the state."""
     hp = tfit.ReservoirHyperparameters(**HP)
-    res = trsv.Reservoir(hp, 30)
-    again = trsv.Reservoir(hp, 30)
+    res = trsv.Reservoir(hp, 30, device="cpu")
+    again = trsv.Reservoir(hp, 30, device="cpu")
     assert torch.equal(res.W_in, again.W_in)
     assert torch.equal(res.W_res, again.W_res)
     assert res.W_res.dtype == res.W_in.dtype == torch.float32

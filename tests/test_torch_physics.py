@@ -171,6 +171,13 @@ def test_tridiagonal_solve():
     np.testing.assert_allclose(r, d, atol=1e-12)
 
 
+def test_rho_layer_mass():
+    got, want = _run(jgfs.rho_layer_mass, tgfs.rho_layer_mass,
+                     C["delp"])
+    assert got.dtype == torch.float64
+    _both(got, want, "rho_layer_mass")
+
+
 def test_pbl_height_and_k_profile():
     cfg = jgfs.GFSPhysicsConfig()
     tcfg = tgfs.GFSPhysicsConfig()

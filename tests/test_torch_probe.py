@@ -1,10 +1,11 @@
 """K7/K8, the port's toolchain probes (fv3net_tpu_torch.probe), on the
 CPU: the plain versions against numpy x*2+1 and
 x + np.roll(x, 1, 1) + np.roll(x, -1, 1), CPU tensors dispatched to them
-with no launch counted, and the CUDA wrappers refusing CPU tensors.
-tools/probe_pallas.py, whose f and g these port, runs non-interpret
-pallas_calls when it is imported (:21-46), so this test cannot import it
-and holds the port to numpy instead."""
+with no launch counted, and the CUDA wrappers refusing CPU tensors.  The
+reference's own kernel bodies (``kern``, ``stenc`` of
+tools/probe_pallas.py, in Pallas interpret mode) hold the port in
+tests/test_torch_probe_reference.py, and the kernels' launch plans are
+walked in tests/test_torch_probe_plan.py."""
 
 import numpy as np
 import pytest
