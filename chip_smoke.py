@@ -38,17 +38,41 @@ Phases (any failure raises and the script exits non-zero):
      field (see F32_FACTOR), with the fused transport off and on;
   5. main path: the benchmark's C48 x 63 nonhydrostatic step
      (make_dycore_stepper, k_split=1, n_split=6, hord=5, kord=9, f32,
-     fused transport off as the JAX package's default) on CUDA: per-dt
-     kernel launch counts, ms per dt (CUDA events), finite state, global
+     fused transport off as the JAX package's default) on CUDA, where
+     ``run`` replays a CUDA graph of one dt (fv3net_tpu_torch.graphs):
+     two eager dts (``run.one_dt``) from one state, the replayed dt
+     against them (bit for bit, or within their run-to-run spread,
+     printed); per-dt kernel launch counts of the first replayed dt
+     (the capture's warm-up is not counted) and of a later one; ms per dt
+     of the eager loop and of the replay, AB_DTS_C48 of each in turns
+     (CUDA events); one replay traced with torch.profiler, each kernel's
+     device function counted by name (TRACE_NAMES) against the launch
+     counts, the device busy time and the idle share of the replayed and
+     of the eager dt; ms per dt over 5 replays, finite state, global
      dry-mass conservation, one dt against the CPU as in 4;
   6. C192 kernel path: the C192 x 63 step with the fused transport on
      (dt_atmos=225, bench.py rung 2), the configuration in which the JAX
-     package runs its remap and fused-transport kernels: launch counts,
-     ms per dt, finite state, dry mass, and one dt against the same dt
-     with the fused transport off (see FUSED_BOUND).  A float64 CPU
+     package runs its remap and fused-transport kernels, replayed as in
+     5: the replayed dt against two eager dts, launch counts, eager and
+     replayed ms (AB_DTS_C192 each, in turns), one replay traced (K6's
+     two device functions a launch), ms per dt, finite state, dry mass,
+     and one replayed dt against the same dt with the fused transport off,
+     also replayed (another graph of the same stepper: the fused switch
+     is part of the graph's key; see FUSED_BOUND).  A float64 CPU
      reference dt at C192 is out of reach (memory and hours of CPU), so
      this path is held to the unfused card dt, which phases 3-5 hold to
      the CPU.
+ 6b. C384 path: bench.py rung 4, C384 x 63 at dt_atmos 112.5 with the
+     fused transport on, built with donate=True: the eager first dt
+     (parked on the host), the first call (two eager warm-up dts, the
+     capture, one replayed dt: launches counted, the peak of allocated
+     memory), the returned state in the donated state's own buffers, the
+     replayed dt against the eager one (bit for bit, or within the spread
+     of a second eager dt, run only where they differ); C384_DTS
+     replayed dts timed (CUDA events), one traced (each kernel's launches
+     and device ms a dt, the idle share), finite state, dry mass; then
+     the stepper built with donate=False, its first call's peak from the
+     state reached.  There is no CPU reference at this size.
   7. exchange transposes: at the widths of C48 and C192 (nz = 63, f32),
      the vjp of each staggered halo exchange (D grid; C grid, fill x and
      y) through its gather-form transpose (grid/halo_transpose.py)
@@ -65,11 +89,16 @@ Phases (any failure raises and the script exits non-zero):
   9. coupled path: bench.py rung 3 at C48 x 63 (the dense model trained
      on the card as bench.py trains it, but on waves mapped onto physical
      sizes, so it is not bench.py's model: runtime.coupled_bench, dumped
-     in the JAX package's format and read back through fit.load): per-step
-     kernel launches, ms per step and simulated
-     years per day (CUDA events), ms per stage (dynamics, physics,
-     postphysics), finite state, mass gates of each stage and the ML
-     fill fractions.
+     in the JAX package's format and read back through fit.load), the
+     CompiledTimeLoop's step a replayed CUDA graph with the state
+     donated: COUPLED_HELD_STEPS steps, each against two eager full_steps
+     from the same state (state, total precipitation and every
+     diagnostic, bit for bit or within the eager spread) with its kernel
+     launches; step 0's diagnostics unchanged after the later steps; ms
+     per full_step eager and replayed (AB_DTS_C48 each, in turns); ms per
+     loop step and simulated years per day (CUDA events), ms per stage
+     (dynamics, physics, postphysics; each stage its own graph), finite
+     state, mass gates of each stage and the ML fill fractions.
  10. hydrostatic parity: one hydrostatic dt (no w, delz) at C12 x 63 f32
      with seeded phis on the card against the CPU in f32 and float64 by
      phase 4's rule, with its launch counts; and one eager wrapper step
@@ -282,9 +311,12 @@ Phases (any failure raises and the script exits non-zero):
      package's tiled path), so it is held by phase 4's rule against
      phase 5's CPU dts (its distance to the single-process card dt
      printed); K3 does not run there.
+Each phase's wall seconds are printed ("phase NAME: S s").  On the card
+every dycore ``run`` and the coupled step replay CUDA graphs: the
+wrappers' launch counters move by the launches each replay makes.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
 C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
-emulated and series paths, K6 on the C192 path, K1, K3, K4 and K5 on the
+emulated and series paths, K6 on the C192 and C384 paths, K1, K3, K4 and K5 on the
 prognostic path, K5 on the C384 -> C48 coarsening path, K1 and K3 on the
 shallow-water path (a step at C48 and at C192, "sw"), K1-K5 in every rank
 of the multi-rank paths ("spmd face C48", "spmd tiled C48": a rank's
@@ -342,17 +374,9 @@ from fv3net_tpu_torch.runtime import names, timing
 
 H, NZ, DT_ATMOS, PTOP = 3, 63, 900.0, 300.0
 DT_C192 = 225.0  # bench.py rung 2
-WRAPPERS = {
-    "fv_tp_2d": fv_tp_2d_cuda,
-    "sim1_solver": sim1_solver_cuda,
-    "del4_filter": del4_filter_cuda,
-    "del4_filter_pair": del4_filter_pair_cuda,
-    "column_pressures": cuda_column.column_pressures_cuda,
-    "ppm_remap": ppm_remap_cuda,
-    "fv_tp_2d_multi5": fv_tp_2d_multi5_cuda,
-    "probe_affine": probe.affine_cuda,
-    "probe_stencil": probe.stencil_cuda,
-}
+DT_C384 = 112.5  # bench.py rung 4 (bench.py:417-431)
+# each kernel wrapper's source and the TPU kernel it replaces, by the
+# name the wrapper registered its launch counter under (ops._build.counted)
 META = {
     "fv_tp_2d": ("fv3net_tpu_torch/csrc/tp2d.cu",
                  "fv3net_tpu/ops/pallas_tp.py:262"),
@@ -373,6 +397,10 @@ META = {
     "probe_stencil": ("fv3net_tpu_torch/csrc/probe.cu",
                       "tools/probe_pallas.py:34"),
 }
+if _build.COUNTED.keys() != META.keys():
+    raise SystemExit(f"kernel wrappers {sorted(_build.COUNTED)} against "
+                     f"the sources named here {sorted(META)}")
+WRAPPERS = {k: _build.COUNTED[k] for k in META}
 # launches per dt on the C48 main path (fused transport off): 5 transports
 # x 6 substeps + 1 tracer, 1 vertical solve, 4 filters and 2 column chains
 # per substep, and 6 remaps (pt, u, v, w, delz via sv, the tracer stack)
@@ -387,6 +415,20 @@ LAUNCHES_PER_DT = {
 LAUNCHES_PER_DT_FUSED = dict(LAUNCHES_PER_DT, fv_tp_2d=1, fv_tp_2d_multi5=6)
 # kernels that run on the n x n interior (the others on the padded lattice)
 INTERIOR = ("sim1_solver", "ppm_remap")
+# each wrapper's device function, by the name a profiler trace gives it
+# (csrc/*.cu); K6's call launches two (transport3, then transport2)
+TRACE_NAMES = {
+    "fv_tp_2d": "tp2d<", "sim1_solver": "sim1_kernel",
+    "del4_filter": "del4<false>", "del4_filter_pair": "del4<true>",
+    "column_pressures": "column_kernel", "ppm_remap": "remap_kernel",
+    "fv_tp_2d_multi5": "transport3<", "probe_affine": "affine_kernel",
+    "probe_stencil": "stencil_kernel",
+}
+# eager and replayed dts (and coupled steps) timed in turns at C48: the C48
+# steps spread 15-75% between dts on a shared host (PERF.md section 2)
+AB_DTS_C48 = 32
+AB_DTS_C192 = 6  # device bound: 0.2-1.3% between dts
+C384_DTS = 2  # timed replayed dts of the C384 path after the counted one
 # (faces, interior width) of a rank of the multi-rank paths at C48: one
 # face of the face mesh, three faces' 24 x 24 tiles of the (2, 2, 2) mesh
 SHARD_SHAPES = ((1, 48), (3, 24))
@@ -430,6 +472,7 @@ FUSED_RTOL = 1e-6  # K6 vs five K1 calls: max|diff| <= FUSED_RTOL * max|K1|
 # ... on the coupled path: the dycore's launches with two tracers (the
 # wrapper's specific humidity and cloud water), so one more transport
 LAUNCHES_COUPLED = dict(LAUNCHES_PER_DT, fv_tp_2d=32)
+COUPLED_HELD_STEPS = 3  # replayed coupled steps held against eager ones
 # ... on the prognostic path (hydrostatic, two tracers): per dt three
 # transports a substep (delp, pt, vorticity) and one a tracer, two
 # filters a substep, one column chain a substep (the C-grid half-stage;
@@ -1170,10 +1213,10 @@ def report_kernels(stats):
 # --- phases 4 and 5 ---------------------------------------------------------
 
 
-def stepper(g, device, dtype=torch.float32, dt_atmos=DT_ATMOS):
+def stepper(g, device, dtype=torch.float32, dt_atmos=DT_ATMOS, **flags):
     return make_dycore_stepper(
         g, NZ, dt_atmos, k_split=1, n_split=6, hord=5, kord=9,
-        ptop=PTOP, dtype=dtype, device=device,
+        ptop=PTOP, dtype=dtype, device=device, **flags,
     )
 
 
@@ -1243,18 +1286,35 @@ def dry_mass(state, m):
 
 
 def phase_main_path():
+    """The C48 dt: two eager dts against each other, the replayed dt
+    (the counted main path) against them, eager and replayed ms in turns,
+    one replay traced, mass and the CPU references."""
     n = 48
     g = CubedSphereGrid.make(n, halo=H)
     run, m, _ = stepper(g, "cuda")
     state = benchmark_state(n, NZ, PTOP, "cuda")
     phis = torch.zeros((6, n, n), device="cuda")
     mass0 = dry_mass(state, m)
+    eager = run.one_dt(state, phis)
+    again = run.one_dt(state, phis)
 
     reset_counts()
-    first = run(state, phis, 1)  # one dt, the counted run (and warm-up)
+    first = run(state, phis, 1)  # capture, then one replayed dt: counted
     torch.cuda.synchronize()
     launches = read_counts()
-    check_counts("C48x63 one dt", launches, LAUNCHES_PER_DT)
+    check_counts("C48x63 one replayed dt", launches, LAUNCHES_PER_DT)
+    hold_replay("C48x63", first, eager, again)
+    reset_counts()
+    run(first, phis, 1)
+    torch.cuda.synchronize()
+    check_counts("C48x63 a later replayed dt", read_counts(), LAUNCHES_PER_DT)
+    med = ab_ms("C48x63 dt", lambda s: run.one_dt(s, phis),
+                lambda s: run(s, phis, 1), first, AB_DTS_C48)
+    busy, _ = trace_replay("C48x63", lambda: run(first, phis, 1),
+                           LAUNCHES_PER_DT)
+    say(f"C48x63 device busy {busy:.3f} ms a dt: idle share of the "
+        f"replayed dt {1.0 - busy / med['replay']:.3f}, of the eager dt "
+        f"{1.0 - busy / med['eager']:.3f}")
     s = timed_dts("C48x63", run, first, phis, n, steps=5)
     check_state("C48x63", s, m, mass0, 6)
     compare_states("C48x63", first, *cpu_references(g, n))
@@ -1292,6 +1352,93 @@ def check_state(tag, s, m, mass0, dts):
         raise AssertionError(f"{tag}: dry mass not conserved: {rel:.3e}")
 
 
+def fields_of(x):
+    """name -> tensor of a DycoreState or of a mapping (None dropped)."""
+    items = x._asdict().items() if hasattr(x, "_asdict") else x.items()
+    return {k: v for k, v in items if v is not None}
+
+
+def hold_replay(tag, got, eager, again):
+    """The replayed result against the eager one, field by field: each
+    element within |eager - again| of it, the spread of two eager runs
+    from the same inputs (bit for bit where they agree)."""
+    got, eager, again = (fields_of(x) for x in (got, eager, again))
+    worst = {}
+    for k, e in eager.items():
+        diff = (got[k] - e).abs()
+        spread = (e - again[k]).abs()
+        bad = int((diff > spread).sum())
+        worst[k] = (float(diff.max()), float(spread.max()))
+        if bad or not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(
+                f"{tag} {k}: {bad} values of the replay outside the eager "
+                f"spread (max|replay-eager| {worst[k][0]:.3e}, max "
+                f"spread {worst[k][1]:.3e})")
+    same = all(d == 0.0 for d, _ in worst.values())
+    spread = max(sp for _, sp in worst.values())
+    say(f"{tag} replay vs eager: bit for bit {same}; max|replay-eager| "
+        f"{max(d for d, _ in worst.values()):.3e}, eager run-to-run spread "
+        f"{spread:.3e} ({len(worst)} fields)")
+    return same, spread
+
+
+def ab_ms(tag, eager, replay, s0, n):
+    """ms per call of `eager` and of `replay` (callables of the carried
+    state), n of each in turns (A B B A ...) by CUDA events, each chain
+    from s0; returns their medians."""
+    times = {"eager": [], "replay": []}
+    chains = {"eager": s0, "replay": s0}
+    fns = {"eager": eager, "replay": replay}
+    for i in range(n):
+        for k in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            chains[k] = fns[k](chains[k])
+            t1.record()
+            torch.cuda.synchronize()
+            times[k].append(t0.elapsed_time(t1))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say(f"{tag} ms eager {med['eager']:.3f} replay {med['replay']:.3f} "
+        f"(medians of {n} each, in turns; eager "
+        f"{[round(t, 3) for t in times['eager']]}; replay "
+        f"{[round(t, 3) for t in times['replay']]})")
+    return med
+
+
+def trace_replay(tag, step, expected):
+    """One replayed step under torch.profiler: each kernel's device
+    launches, found by its device function's name (TRACE_NAMES), must be
+    the wrappers' counts `expected`; returns (device busy ms, {kernel:
+    (launches, device ms)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    ops = [e for e in prof.events() if e.device_type == cuda_t]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    seen = {}
+    for k, pat in TRACE_NAMES.items():
+        hits = [e for e in ops if pat in e.name]
+        seen[k] = (len(hits),
+                   sum(e.time_range.elapsed_us() for e in hits) / 1e3)
+    second = sum(1 for e in ops if "transport2<" in e.name)
+    say(f"{tag} trace of one replay: {len(ops)} device ops, busy "
+        f"{busy:.3f} ms; kernels (launches, device ms) "
+        f"{ {k: (c, round(ms, 4)) for k, (c, ms) in seen.items() if c} }")
+    wrong = {k: (seen[k][0], c) for k, c in expected.items()
+             if seen[k][0] != c}
+    if wrong or second != expected["fv_tp_2d_multi5"]:
+        raise AssertionError(
+            f"{tag}: traced launches differ from the counts {wrong}, "
+            f"transport2 {second}")
+    return busy, seen
+
+
 def phase_c192_path():
     """The C192 x 63 step with the fused transport on (module docstring,
     phase 6)."""
@@ -1303,16 +1450,26 @@ def phase_c192_path():
     mass0 = dry_mass(state, m)
     advection.set_fused_transport(True)
     try:
+        eager = run.one_dt(state, phis)
+        again = run.one_dt(state, phis)
         reset_counts()
-        fused = run(state, phis, 1)  # the counted dt (and warm-up)
+        fused = run(state, phis, 1)  # capture, then the counted replay
         torch.cuda.synchronize()
         launches = read_counts()
-        check_counts("C192x63 fused one dt", launches, LAUNCHES_PER_DT_FUSED)
+        check_counts("C192x63 fused one replayed dt", launches,
+                     LAUNCHES_PER_DT_FUSED)
+        hold_replay("C192x63 fused", fused, eager, again)
+        del eager, again
+        ab_ms("C192x63 fused dt", lambda s: run.one_dt(s, phis),
+              lambda s: run(s, phis, 1), fused, AB_DTS_C192)
+        trace_replay("C192x63 fused", lambda: run(fused, phis, 1),
+                     LAUNCHES_PER_DT_FUSED)
         s = timed_dts("C192x63 fused", run, fused, phis, n, steps=5)
     finally:
         advection.set_fused_transport(False)
     check_state("C192x63 fused", s, m, mass0, 6)
     del s
+    # both replayed: the unfused dt is another graph of the same stepper
     unfused = run(state, phis, 1)
     again = run(state, phis, 1)
     for k in fused._fields:
@@ -1321,9 +1478,105 @@ def phase_c192_path():
         err = float((a - b).abs().max())
         say(f"C192x63 {k:5s} max|field| {scale:.3e} max|fused-unfused| "
             f"{err:.3e} max|unfused-unfused| {float((b - c).abs().max()):.3e}"
-            f" (bound {FUSED_BOUND} x max|field|)")
+            f" (bound {FUSED_BOUND} x max|field|; both replayed)")
         if not bool(torch.isfinite(a).all()) or err > FUSED_BOUND * scale:
             raise AssertionError(f"C192x63 fused vs unfused {k}: {err:.3e}")
+    return launches
+
+
+def first_replay(tag, run, state, phis):
+    """The first call of a C384 stepper (two eager warm-up dts, the
+    capture, one replayed dt), counted; returns (state, launches, peak
+    allocated bytes during the call)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = run(state, phis, 1)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"{tag}: first call (2 eager warm-up dts, capture, one replay) "
+        f"{time.perf_counter() - t0:.1f} s; peak allocated {peak / 1e9:.3f} "
+        f"GB ({base / 1e9:.3f} GB before the call: the state and the "
+        f"metrics), reserved {torch.cuda.memory_reserved() / 1e9:.3f} GB")
+    check_counts(f"{tag} one replayed dt", launches, LAUNCHES_PER_DT_FUSED)
+    return s, launches, peak
+
+
+def phase_c384_path():
+    """bench.py rung 4: C384 x 63 at dt_atmos 112.5 with the state
+    donated, on one card (module docstring, phase 6b)."""
+    n = 384
+    g = CubedSphereGrid.make(n, halo=H)
+    phis = torch.zeros((6, n, n), device="cuda")
+    advection.set_fused_transport(True)
+    try:
+        t0 = time.perf_counter()
+        run, m, _ = stepper(g, "cuda", dt_atmos=DT_C384, donate=True)
+        state = benchmark_state(n, NZ, PTOP, "cuda")
+        say(f"C384x63: stepper and state built in "
+            f"{time.perf_counter() - t0:.1f} s; one f32 field "
+            f"{6 * NZ * n * n * 4 / 1e9:.3f} GB")
+        mass0 = dry_mass(state, m)
+        # the initial state and the eager first dt, parked on the host
+        start = [x.cpu() for x in state]
+        eager = {k: v.cpu() for k, v in fields_of(
+            run.one_dt(state, phis)).items()}
+        s, launches, peak = first_replay("C384x63 donate=True", run, state,
+                                         phis)
+        if [x.data_ptr() for x in s] != [x.data_ptr() for x in state]:
+            raise AssertionError("C384x63: the donated state was copied")
+        diff = {k: (v.cpu() - eager[k]).abs() for k, v in fields_of(s).items()}
+        same = not any(bool(d.any()) for d in diff.values())
+        spread = 0.0
+        if not same:
+            # a second eager dt from the initial state: the run-to-run
+            # spread the replay is held to
+            again = fields_of(run.one_dt(
+                type(state)(*(x.cuda() for x in start)), phis))
+            sp = {k: (v.cpu() - eager[k]).abs() for k, v in again.items()}
+            bad = {k: int((d > sp[k]).sum()) for k, d in diff.items()}
+            spread = max(float(v.max()) for v in sp.values())
+            if any(bad.values()):
+                raise AssertionError(f"C384x63 replay vs eager: {bad}")
+        say(f"C384x63 first replayed dt vs the eager first dt: bit for bit "
+            f"{same}; max|replay-eager| "
+            f"{max(float(d.max()) for d in diff.values()):.3e}, eager "
+            f"spread {spread:.3e}")
+        del start, eager, diff
+        times = []
+        for _ in range(C384_DTS):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            s = run(s, phis, 1)
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+        ms = statistics.median(times)
+        say(f"C384x63 fused ms/dt {ms:.3f} (replayed, donated; median of "
+            f"{C384_DTS}: {[round(t, 3) for t in times]}) simulated "
+            f"days/day {DT_C384 / (ms / 1e3):.2f}")
+        busy, seen = trace_replay("C384x63 fused", lambda: run(s, phis, 1),
+                                  LAUNCHES_PER_DT_FUSED)
+        say(f"C384x63 idle share of the replayed dt {1.0 - busy / ms:.3f} "
+            f"(busy from the traced replay); kernels' device ms a dt "
+            f"{ {k: round(v[1], 3) for k, v in seen.items() if v[0]} }")
+        check_state("C384x63 fused", s, m, mass0, C384_DTS + 2)
+        # the same dt without donation, from the state reached: its
+        # first call's peak (the donated graph freed first)
+        del run, m, state
+        torch.cuda.empty_cache()
+        run, _, _ = stepper(g, "cuda", dt_atmos=DT_C384)
+        _, _, peak_nd = first_replay("C384x63 donate=False", run, s, phis)
+        del run, s
+    finally:
+        advection.set_fused_transport(False)
+    torch.cuda.empty_cache()
+    say(f"C384x63 peak allocated: donate=True {peak / 1e9:.3f} GB, "
+        f"donate=False {peak_nd / 1e9:.3f} GB")
     return launches
 
 
@@ -1496,14 +1749,57 @@ def phase_coupled_path():
     loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
     area = torch.as_tensor(mdl.area, dtype=torch.float64, device="cuda")
 
-    reset_counts()
-    diags = loop.step()  # the counted step (and warm-up)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    check_counts("C48x63 coupled one step", launches, LAUNCHES_COUPLED)
+    eager = loop._step_fn.eager
+
+    def clone(st):
+        return type(st)(*(None if x is None else x.clone() for x in st))
+
+    kept = None
+    for step in range(COUPLED_HELD_STEPS):
+        # two eager full_steps from the loop's state, then the loop's
+        # replayed step (the first captures; each counted)
+        cosz, solcon = loop._astronomy()
+        args = (mdl.phis, loop._tsfc, loop._on_device(mdl.total_precip),
+                cosz, solcon)
+        runs = [eager(clone(mdl.state), *args) for _ in range(2)]
+        reset_counts()
+        diags = loop.step()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_counts(f"C48x63 coupled replayed step {step}", launches,
+                     LAUNCHES_COUPLED)
+        got = dict(fields_of(mdl.state), total_precip=mdl.total_precip,
+                   **{f"diag {k}": q.data for k, q in diags.items()})
+        want = [dict(fields_of(r[0]), total_precip=r[1],
+                     **{f"diag {k}": v for k, v in r[3].items()})
+                for r in runs]
+        hold_replay(f"C48x63 coupled step {step}", got, *want)
+        del runs, want
+        if kept is None:
+            first = diags
+            kept = {k: q.data.clone() for k, q in diags.items()}
+    changed = [k for k, q in first.items() if not torch.equal(q.data, kept[k])]
+    say(f"C48x63 coupled: step 0's {len(kept)} diagnostics after "
+        f"{COUPLED_HELD_STEPS - 1} more steps unchanged: {not changed}")
+    if changed:
+        raise AssertionError(f"C48x63 coupled: step 0's {changed} changed")
     for k, q in diags.items():
         if k.endswith("_filled_frac") and float(q.data) != 0.0:
             raise AssertionError(f"C48x63 coupled: {k} = {float(q.data)}")
+    cosz, solcon = loop._astronomy()
+    args = (mdl.phis, loop._tsfc, loop._on_device(mdl.total_precip), cosz,
+            solcon)
+    # (the replayed chain runs in the step's donated buffers: the loop's)
+    med = ab_ms("C48x63 coupled step (full_step)",
+                lambda st: eager(st, *args)[0],
+                lambda st: loop._step_fn(st, *args)[0], clone(mdl.state),
+                AB_DTS_C48)
+    busy, _ = trace_replay("C48x63 coupled",
+                           lambda: loop._step_fn(mdl.state, *args),
+                           LAUNCHES_COUPLED)
+    say(f"C48x63 coupled device busy {busy:.3f} ms a step: idle share of "
+        f"the replayed step {1.0 - busy / med['replay']:.3f}, of the eager "
+        f"step {1.0 - busy / med['eager']:.3f}")
     times = []
     for _ in range(6):
         t0 = torch.cuda.Event(enable_timing=True)
@@ -4429,8 +4725,9 @@ def kernel_summary(stats, probe_launches, paths):
     """The kernels' JSON entries: each kernel's launches from the path
     that runs it (K1-K5 from the coupled C48 path, K6 from the C192 path)
     beside its launches on every path (`paths`: name -> launches a step,
-    all at C48 but "C192 fused", of the whole C384 -> C48 coarsening
-    for "coarsening C384", and a shallow-water step for "sw"), and its
+    all at C48 but "C192 fused" and "C384 fused", of the whole C384 -> C48
+    coarsening for "coarsening C384", and a shallow-water step for "sw"),
+    and its
     phase-3 numbers at that path's shapes (the probes at theirs); prints
     launches x (time - bound) of each kernel on each path whose width
     phase 3 times (not C384's, not the single-layer "sw")."""
@@ -4465,7 +4762,8 @@ def kernel_summary(stats, probe_launches, paths):
             # single-layer or shard shapes, which phase 3 does not time
             # (phase 22 prints the SW step's loss)
             continue
-        n = {"C192 fused": 192, "coarsening C384": 384}.get(tag, 48)
+        n = {"C192 fused": 192, "C384 fused": 384,
+             "coarsening C384": 384}.get(tag, 48)
         loss = {
             k: round(c * (stats[(k, width(k, n))]["ms"]
                           - stats[(k, width(k, n))]["bound_ms"]), 4)
@@ -4475,43 +4773,56 @@ def kernel_summary(stats, probe_launches, paths):
     return kernels
 
 
+def timed(name, fn, *args):
+    """fn(*args), its wall seconds printed as phase `name`'s."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
-    phase_device()
-    phase_build()
-    probe_launches, stats = phase_probe()
-    stats.update(phase_kernels())
+    t0 = time.perf_counter()
+    timed("device", phase_device)
+    timed("build", phase_build)
+    probe_launches, stats = timed("probe", phase_probe)
+    stats.update(timed("kernels", phase_kernels))
     report_kernels(stats)
-    phase_slice_parity()
-    main_launches = phase_main_path()
-    fused_launches = phase_c192_path()
-    phase_transposes()
+    timed("slice parity", phase_slice_parity)
+    main_launches = timed("main path C48", phase_main_path)
+    fused_launches = timed("C192 fused", phase_c192_path)
+    c384_launches = timed("C384 fused", phase_c384_path)
+    timed("transposes", phase_transposes)
     os.makedirs(os.path.dirname(DENSE_DIR), exist_ok=True)
-    phase_coupled_parity()
-    coupled_launches = phase_coupled_path()
-    phase_hydrostatic_parity()
-    prognostic_launches = phase_prognostic_run()
-    phase_nudged_parity()
-    nudged_launches, case = phase_nudged_run()
-    model_dir = phase_training(case.name)
-    ml_launches = phase_ml_run(case.name, model_dir)
-    emulated_launches = phase_emulated_run(case.name)
-    series_launches, series_path = phase_series_run(case.name)
-    graph_dir = phase_families(case.name, series_path)
-    phase_offline(case.name, model_dir, graph_dir)
-    phase_diagnostics(case.name)
+    timed("coupled parity", phase_coupled_parity)
+    coupled_launches = timed("coupled C48", phase_coupled_path)
+    timed("hydrostatic parity", phase_hydrostatic_parity)
+    prognostic_launches = timed("prognostic run", phase_prognostic_run)
+    timed("nudged parity", phase_nudged_parity)
+    nudged_launches, case = timed("nudged run", phase_nudged_run)
+    model_dir = timed("training", phase_training, case.name)
+    ml_launches = timed("ML run", phase_ml_run, case.name, model_dir)
+    emulated_launches = timed("emulated run", phase_emulated_run, case.name)
+    series_launches, series_path = timed("series", phase_series_run,
+                                         case.name)
+    graph_dir = timed("families", phase_families, case.name, series_path)
+    timed("offline", phase_offline, case.name, model_dir, graph_dir)
+    timed("diagnostics", phase_diagnostics, case.name)
     case.cleanup()
-    coarsening_launches = phase_coarsening()
-    sw_launches = phase_sw_parity()
-    if phase_sw_c192() != sw_launches:
+    coarsening_launches = timed("coarsening", phase_coarsening)
+    sw_launches = timed("SW parity", phase_sw_parity)
+    if timed("SW C192", phase_sw_c192) != sw_launches:
         raise AssertionError("SW launches a step differ at C48 and C192")
-    phase_sw_times()
-    phase_dycore_options()
-    phase_regrid()
-    phase_radiation()
-    spmd_face_launches = phase_spmd("face")
-    spmd_tiled_launches = phase_spmd("tiled")
+    timed("SW times", phase_sw_times)
+    timed("dycore options", phase_dycore_options)
+    timed("regrid", phase_regrid)
+    timed("radiation", phase_radiation)
+    spmd_face_launches = timed("spmd face", phase_spmd, "face")
+    spmd_tiled_launches = timed("spmd tiled", phase_spmd, "tiled")
     kernels = kernel_summary(stats, probe_launches, {
         "C48": main_launches, "C192 fused": fused_launches,
+        "C384 fused": c384_launches,
         "coupled C48": coupled_launches,
         "prognostic C48": prognostic_launches, "nudged C48": nudged_launches,
         "ML-corrected C48": ml_launches, "emulated C48": emulated_launches,
@@ -4519,6 +4830,7 @@ def main():
         "coarsening C384": coarsening_launches, "sw": sw_launches,
         "spmd face C48": spmd_face_launches,
         "spmd tiled C48": spmd_tiled_launches})
+    say(f"all phases: {time.perf_counter() - t0:.1f} s")
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -50,6 +50,7 @@ from ..constants import (
     REFERENCE_SURFACE_PRESSURE,
 )
 from ..device import default_device
+from ..graphs import Graphed
 from ..grid.geometry import CubedSphereGrid
 from ..grid.halo import (
     average_dgrid_boundary,
@@ -99,33 +100,54 @@ class DycoreState(NamedTuple):
     delz: Optional[torch.Tensor] = None  # [6, nz, n, n] thickness (m)
 
 
-def hybrid_coefficients(nz: int, ptop: float = 300.0):
+def hybrid_coefficients(
+    nz: int,
+    ptop: float = 300.0,
+    transition_eta: float = 0.2,
+    exponent: float = 1.0,
+    stretch: float = 1.4,
+    table=None,
+):
     """Hybrid sigma-p coefficients: pe = ak + bk * ps (float64 CPU tensors).
 
-    The Jablonowski & Williamson (2006) / DCMIP hybrid definition (the
-    JAX package's default): eta levels from eta_top = ptop/p0 to 1 with a
-    power-law stretch (1.4) clustering resolution near the surface,
-    bk = (eta - 0.2)/(1 - 0.2) below the transition eta = 0.2 and 0 above
-    it (FV3's `ks` pure-pressure top layers), ak = p0*(eta - bk).
+    Default: the Jablonowski & Williamson (2006) / DCMIP hybrid
+    definition (the JAX package's): eta levels from eta_top = ptop/p0 to
+    1 with a power-law `stretch` clustering resolution near the surface,
+    bk = ((eta - eta_t)/(1 - eta_t))^exponent below the transition
+    eta_t = `transition_eta` and 0 above it (FV3's `ks` pure-pressure
+    top layers), ak = p0*(eta - bk).  ``table=(ak, bk)`` (e.g. read from
+    a Fortran ``fv_core.res.nc`` restart) returns those exact values;
+    each must have nz + 1 interfaces.
     """
-    transition_eta, stretch = 0.2, 1.4
+    if table is not None:
+        ak, bk = (np.asarray(c, np.float64) for c in table)
+        if ak.shape != (nz + 1,) or bk.shape != (nz + 1,):
+            raise ValueError(
+                f"ak/bk table must have {nz + 1} interfaces, got "
+                f"{ak.shape}/{bk.shape}"
+            )
+        return torch.as_tensor(ak), torch.as_tensor(bk)
     p0 = REFERENCE_SURFACE_PRESSURE
     eta_top = ptop / p0
     s = np.linspace(0.0, 1.0, nz + 1)
     eta = eta_top + (1.0 - eta_top) * s ** stretch
+    # the base clipped at 0: the branch not taken raises no warning
     bk = np.where(
         eta > transition_eta,
-        (eta - transition_eta) / (1.0 - transition_eta),
+        (np.maximum(eta - transition_eta, 0.0) / (1.0 - transition_eta))
+        ** exponent,
         0.0,
     )
     bk[-1] = 1.0
     ak = p0 * (eta - bk)
     ak[-1] = 0.0
     # interfaces must stay monotone down to mountain-top surface pressures
+    # (exponent > 1 transitions lose this below ~p0(1-1/c'))
     for ps in (45000.0, 101300.0):
         if not (np.diff(ak + bk * ps) > 0).all():
             raise ValueError(
-                f"non-monotone hybrid coordinate for ps={ps}, ptop={ptop}"
+                f"non-monotone hybrid coordinate for ps={ps}; lower "
+                f"`exponent` or `transition_eta`"
             )
     return torch.as_tensor(ak), torch.as_tensor(bk)
 
@@ -644,6 +666,13 @@ def remap_step(state: DycoreState, ak, bk, ptop, kord_tm=9, kord_mt=9,
     )
 
 
+def capture_key():
+    """What a dt reads at capture time besides its arguments: the
+    fused-transport switch (``ops.advection.set_fused_transport``).  A
+    graph of a step that composes the dt joins it to its cache key."""
+    return (_fused5_enabled(),)
+
+
 def make_dycore_stepper(
     g: CubedSphereGrid,
     nz: int,
@@ -655,9 +684,11 @@ def make_dycore_stepper(
     d2_damp: float = 0.12,
     ptop: float = 300.0,
     dtype=torch.float32,
+    remat: bool = False,
     metric_cwinds: bool = True,
     metric_ke: bool = True,
     corner_damp: bool = True,
+    donate: bool = False,
     c_half: bool = True,
     device=None,
 ):
@@ -669,8 +700,21 @@ def make_dycore_stepper(
     caller passes another (``device="cpu"`` for the plain path).
     metric_cwinds, metric_ke, corner_damp: SWMetrics.make's scheme
     switches; c_half=False: the legacy two-stage midpoint substep
-    (dyn_substep).  Returns (run, m, (ak, bk)) with run(state, phis,
-    nsteps) -> state.
+    (dyn_substep).  remat: checkpoint each acoustic substep (its
+    activations recomputed in the backward pass, ``build_one_dt``),
+    trading recompute for memory in a differentiated step; a forward
+    step is unchanged.
+
+    Returns (run, m, (ak, bk)) with run(state, phis, nsteps) -> state.
+    On CUDA tensors ``run`` replays a CUDA graph of one dt nsteps times
+    (``graphs.Graphed``; the counterpart of the JAX package's jitted
+    scan), captured on the first call for each set of shapes and fused
+    transport switch; on the CPU it is the eager loop.  donate=True: the
+    input state is consumed and the result returned in its buffers (no
+    state copy at the call boundary; valid until the next call); else
+    the input is left untouched and the result is fresh tensors.
+    ``run.one_dt`` is the eager one-dt body, which the coupled step
+    composes and autograd differentiates.
     """
     if device is None:
         device = default_device("make_dycore_stepper")
@@ -683,25 +727,86 @@ def make_dycore_stepper(
     bk = bk.to(dtype=dtype, device=device)
     one_dt = build_one_dt(
         m, ak, bk, nz, dt_atmos, k_split, n_split, hord, kord, d2_damp,
-        ptop, dtype, c_half=c_half,
+        ptop, dtype, remat, c_half=c_half,
     )
+    graphed = Graphed(one_dt, carry="all", donate=donate, key=capture_key)
 
     def run(state: DycoreState, phis, nsteps: int):
+        if state.delp.device.type == "cuda":
+            return graphed(state, phis, steps=nsteps)
         for _ in range(nsteps):
             state = one_dt(state, phis)
         return state
 
     run.one_dt = one_dt
+    run.graphed = graphed
     return run, m, (ak, bk)
 
 
+class _Remat(torch.autograd.Function):
+    """fn(*xs) -> tuple of tensors (or None), its activations not kept:
+    the forward runs without a graph, and the backward recomputes it and
+    takes the vector-Jacobian product of the recomputed graph.  The
+    checkpoint of ``build_one_dt(remat=True)``.  Neither form of
+    ``torch.utils.checkpoint`` serves here: the non-reentrant one
+    installs saved-tensor hooks, which the dampers' ``torch.func.vjp``
+    refuses, and the reentrant one cannot be differentiated by
+    ``torch.autograd.grad``."""
+
+    @staticmethod
+    def forward(ctx, fn, *xs):
+        ctx.fn = fn
+        ctx.save_for_backward(*xs)
+        with torch.no_grad():
+            return fn(*xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs = [
+            None if x is None else x.detach().requires_grad_(x.requires_grad)
+            for x in ctx.saved_tensors
+        ]
+        with torch.enable_grad():
+            out = ctx.fn(*xs)
+        pairs = [(o, g) for o, g in zip(out, grads)
+                 if o is not None and g is not None and o.requires_grad]
+        wrt = [x for x in xs if x is not None and x.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True,
+        ) if pairs and wrt else [None] * len(wrt))
+        return (None, *(
+            next(got) if x is not None and x.requires_grad else None
+            for x in xs
+        ))
+
+
 def build_one_dt(m, ak, bk, nz, dt_atmos, k_split, n_split, hord, kord,
-                 d2_damp, ptop, dtype, c_half=True):
+                 d2_damp, ptop, dtype, remat=False, c_half=True):
     """The full-dt step (k_split x [n_split substeps + tracer transport
-    + remap]) as a function of (state, phis)."""
+    + remap]) as a function of (state, phis).  remat: each acoustic
+    substep checkpointed (``_Remat``) where the JAX package puts
+    ``jax.checkpoint``: in a differentiated step its activations are
+    recomputed in the backward pass instead of kept; a forward step is
+    unchanged."""
     dt_sub = dt_atmos / (k_split * n_split)
     h, n = m.halo, m.n
     N = n + 2 * h
+
+    def substep(st, acc, phis):
+        return dyn_substep(
+            st, m, dt_sub, ptop, hord, d2_damp, phis, *acc, c_half=c_half,
+        )
+
+    def substep_remat(st, acc, phis):
+        ns = len(st)
+
+        def flat(*xs):
+            s2, a2 = substep(type(st)(*xs[:ns]), xs[ns:-1], xs[-1])
+            return (*s2, *a2)
+
+        out = _Remat.apply(flat, *st, *acc, phis)
+        return type(st)(*out[:ns]), tuple(out[ns:])
 
     def one_dt(state: DycoreState, phis):
         for _ in range(k_split):
@@ -714,10 +819,8 @@ def build_one_dt(m, ak, bk, nz, dt_atmos, k_split, n_split, hord, kord,
                 acc = (None,) * 4
             st2 = st
             for _ in range(n_split):
-                st2, acc = dyn_substep(
-                    st2, m, dt_sub, ptop, hord, d2_damp, phis, *acc,
-                    c_half=c_half,
-                )
+                st2, acc = (substep_remat if remat else substep)(
+                    st2, acc, phis)
             mfx, mfy, cxa, cya = acc
             # tracer transport with accumulated mass fluxes
             if st2.q is not None:

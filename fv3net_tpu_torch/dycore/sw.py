@@ -781,8 +781,15 @@ def _inv_corner_mult(m, u):
     if m.inv_corner_mult is not None:
         im = m.inv_corner_mult  # [L, nl+1, nl+1]
         return _lead_bc(im, u.ndim - 3).to(u.dtype)
+    return _inv_corner_mult_table(m.n, u.dtype, u.device)
+
+
+@lru_cache(maxsize=None)
+def _inv_corner_mult_table(n: int, dtype: torch.dtype, device: torch.device):
+    """1/_corner_multiplicity(n) on `device`, staged once (a copy from
+    host memory inside a step would break its CUDA-graph capture)."""
     return torch.as_tensor(
-        1.0 / _corner_multiplicity(m.n), dtype=u.dtype, device=u.device
+        1.0 / _corner_multiplicity(n), dtype=dtype, device=device
     )
 
 

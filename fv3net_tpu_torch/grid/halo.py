@@ -115,6 +115,26 @@ def _quantize(xyz: np.ndarray) -> np.ndarray:
 
 
 
+def _edge_keys(A, B):
+    """Quantized corner pairs [..., 3] -> (key [..., 6] with the two
+    corners in lexicographic order, the quantized first corner)."""
+    qa, qb = _quantize(A), _quantize(B)
+    # qa <= qb as tuples: decided by the first component that differs
+    diff = qa != qb
+    first = np.argmax(diff, axis=-1)[..., None]
+    a_first = ~diff.any(-1) | (np.take_along_axis(qa, first, -1)[..., 0]
+                               < np.take_along_axis(qb, first, -1)[..., 0])
+    lo = np.where(a_first[..., None], qa, qb)
+    hi = np.where(a_first[..., None], qb, qa)
+    return np.concatenate([lo, hi], axis=-1), qa
+
+
+def _as_void(keys):
+    """[M, 6] int64 rows as one comparable value each."""
+    keys = np.ascontiguousarray(keys)
+    return keys.view(np.dtype((np.void, keys.dtype.itemsize * 6)))[:, 0]
+
+
 @lru_cache(maxsize=None)
 def _dgrid_tables(n: int, h: int):
     """Gather tables for D-grid staggered wind halo exchange.
@@ -127,7 +147,10 @@ def _dgrid_tables(n: int, h: int):
     its (unordered) corner pair; the sign is +1 when the stored direction
     agrees with the query direction.  This derivation makes every corner
     case (including edges straddling the face boundary and the literal
-    cube corners) fall out automatically.
+    cube corners) fall out automatically.  (The JAX package builds the
+    same tables with a Python loop over every edge; here the lookup is
+    vectorised: the same keys, the same first-writer-wins order, the
+    same tables, tests/test_torch_grid.py.)
     """
     from .geometry import extended_corners, gnomonic_grid
 
@@ -135,76 +158,62 @@ def _dgrid_tables(n: int, h: int):
     ext = extended_corners(n, h)  # [6, n+2h+1, n+2h+1, 3] (NaN corners)
     nu = (n + 1) * n  # one face's u count; v entries offset by 6*nu
 
-    # Build lookup: quantized (unordered corner pair) -> (flat pool index,
-    # quantized "from" corner).  Shared-boundary edges are stored by two
-    # faces; first writer wins (values are consistent by construction).
-    table = {}
-
-    def store(kind, g, a_idx, b_idx, A, B):
-        ka, kb = tuple(_quantize(A)), tuple(_quantize(B))
-        key = (ka, kb) if ka <= kb else (kb, ka)
-        if key in table:
-            return
-        if kind == "u":
-            flat = (g * (n + 1) + a_idx) * n + b_idx
-        else:
-            flat = 6 * nu + (g * n + a_idx) * (n + 1) + b_idx
-        table[key] = (flat, ka)
-
+    # every stored edge, in the order the faces store them (face by face,
+    # its u edges then its v edges): shared-boundary edges are stored by
+    # two faces, and the first writer wins (values are consistent by
+    # construction)
+    keys, froms, flats = [], [], []
     for g in range(6):
-        for J in range(n + 1):
-            for i in range(n):
-                store("u", g, J, i, base[g, J, i], base[g, J, i + 1])
-        for j in range(n):
-            for I in range(n + 1):
-                store("v", g, j, I, base[g, j, I], base[g, j + 1, I])
+        for kind in ("u", "v"):
+            if kind == "u":
+                A, B = base[g, :, :-1], base[g, :, 1:]
+                flat = (g * (n + 1) + np.arange(n + 1)[:, None]) * n \
+                    + np.arange(n)[None, :]
+            else:
+                A, B = base[g, :-1, :], base[g, 1:, :]
+                flat = 6 * nu + (g * n + np.arange(n)[:, None]) * (n + 1) \
+                    + np.arange(n + 1)[None, :]
+            k, qa = _edge_keys(A, B)
+            keys.append(k.reshape(-1, 6))
+            froms.append(qa.reshape(-1, 3))
+            flats.append(flat.reshape(-1))
+    keys, froms, flats = (np.concatenate(x) for x in (keys, froms, flats))
+    table, first = np.unique(_as_void(keys), return_index=True)
+    froms, flats = froms[first], flats[first]
 
     def build(kind: str):
         if kind == "u":
             shp = (6, n + 2 * h + 1, n + 2 * h)
+            A, B = ext[:, :, :-1], ext[:, :, 1:]
         else:
             shp = (6, n + 2 * h, n + 2 * h + 1)
+            A, B = ext[:, :-1, :], ext[:, 1:, :]
+        f, a, b = np.meshgrid(*(np.arange(m) for m in shp), indexing="ij")
+        # own lattice positions (interior AND own boundary) pass through
+        # identically -- the exchange must never overwrite a face's own
+        # stored edge values.
+        if kind == "u":
+            own = (h <= a) & (a <= h + n) & (h <= b) & (b < h + n)
+            own_flat = (f * (n + 1) + (a - h)) * n + (b - h)
+        else:
+            own = (h <= a) & (a < h + n) & (h <= b) & (b <= h + n)
+            own_flat = 6 * nu + (f * n + (a - h)) * (n + 1) + (b - h)
         flat = np.zeros(shp, dtype=np.int64)
         sign = np.zeros(shp, dtype=np.float64)
-        for f in range(6):
-            for a in range(shp[1]):
-                for b in range(shp[2]):
-                    # own lattice positions (interior AND own boundary)
-                    # pass through identically -- the exchange must never
-                    # overwrite a face's own stored edge values.
-                    if kind == "u":
-                        own = h <= a <= h + n and h <= b < h + n
-                    else:
-                        own = h <= a < h + n and h <= b <= h + n
-                    if own:
-                        if kind == "u":
-                            flat[f, a, b] = (f * (n + 1) + (a - h)) * n + (
-                                b - h
-                            )
-                        else:
-                            flat[f, a, b] = (
-                                6 * nu + (f * n + (a - h)) * (n + 1) + (b - h)
-                            )
-                        sign[f, a, b] = 1.0
-                        continue
-                    if kind == "u":
-                        A, B = ext[f, a, b], ext[f, a, b + 1]
-                    else:
-                        A, B = ext[f, a, b], ext[f, a + 1, b]
-                    if not (np.isfinite(A).all() and np.isfinite(B).all()):
-                        continue
-                    ka, kb = tuple(_quantize(A)), tuple(_quantize(B))
-                    key = (ka, kb) if ka <= kb else (kb, ka)
-                    hit = table.get(key)
-                    if hit is None:
-                        continue
-                    idx, stored_from = hit
-                    flat[f, a, b] = idx
-                    sign[f, a, b] = 1.0 if stored_from == ka else -1.0
+        flat[own] = own_flat[own]
+        sign[own] = 1.0
+        query = ~own & np.isfinite(A).all(-1) & np.isfinite(B).all(-1)
+        k, qa = _edge_keys(A[query], B[query])
+        k = _as_void(k)
+        pos = np.minimum(np.searchsorted(table, k), table.size - 1)
+        hit = table[pos] == k
+        idx = np.flatnonzero(query)[hit]
+        flat.reshape(-1)[idx] = flats[pos[hit]]
+        same = (froms[pos[hit]] == qa[hit]).all(-1)
+        sign.reshape(-1)[idx] = np.where(same, 1.0, -1.0)
         return flat, sign
 
     return build("u"), build("v")
-
 
 
 def _rot_matrix(rot: int) -> np.ndarray:
@@ -671,18 +680,25 @@ def halo_exchange_vector_cgrid(u, v, h: int):
 
     u, v: [6, ..., n, n] components along the face-local x / y directions.
     Returns padded (u, v) with halo components rotated into this face's
-    frame (the rotation tables are numpy, moved to the fields' device).
+    frame (the rotation tables staged to the fields' device once).
     """
     n = u.shape[-1]
     up = halo_exchange(u, h)
     vp = halo_exchange(v, h)
-    m00, m01, m10, m11 = (
-        torch.as_tensor(a, dtype=u.dtype, device=u.device)
-        for a in _agrid_vector_tables(n, h)
-    )
+    m00, m01, m10, m11 = _agrid_vector_tensors(n, h, u.dtype, u.device)
     uo = m00 * up + m01 * vp
     vo = m10 * up + m11 * vp
     return uo, vo
+
+
+@lru_cache(maxsize=None)
+def _agrid_vector_tensors(n: int, h: int, dtype: torch.dtype,
+                          device: torch.device):
+    """The rotation tables of halo_exchange_vector_cgrid on `device`."""
+    return tuple(
+        torch.as_tensor(a, dtype=dtype, device=device)
+        for a in _agrid_vector_tables(n, h)
+    )
 
 
 def _staggered_exchange(a, b, kind, h, fill):

@@ -61,40 +61,45 @@ def _inverse_tables(kind: str, n: int, h: int, fill: str):
         else _h._cgrid_tables(n, h, fill)
     )
     P = ra * ca + rb * cb
-    readers = [[[] for _ in range(P)] for _ in range(6)]
+    # every reader (a slot of H with a nonzero sign) of a pool entry, in
+    # the order the exchange's tables list them (table, face, slot)
+    dest, rf, rq, rs = [], [], [], []
     q0 = 0
     for flat, sign in tables:
         face, pos = _h._decode_pool(flat.reshape(6, -1), ra, ca, rb, cb)
         sg = np.asarray(sign).reshape(6, -1)
         for f in range(6):
-            for q in np.flatnonzero(sg[f]):
-                readers[face[f, q]][pos[f, q]].append(
-                    (f, q0 + q, float(sg[f, q]))
-                )
+            q = np.flatnonzero(sg[f])
+            dest.append(face[f, q] * P + pos[f, q])
+            rf.append(np.full(q.size, f))
+            rq.append(q0 + q)
+            rs.append(sg[f, q].astype(np.float64))
         q0 += sg.shape[1]
     Q = q0
-    direct = np.zeros((6, P), np.int64)
-    band = [[] for _ in range(6)]
-    for g in range(6):
-        for p in range(P):
-            rd = readers[g][p]
-            if len(rd) == 1 and rd[0][0] == g and rd[0][2] == 1.0:
-                direct[g, p] = rd[0][1]
-            else:
-                direct[g, p] = Q + len(band[g])
-                band[g].append(rd)
-    E = max(len(b) for b in band)
-    K = max((len(rd) for b in band for rd in b), default=1)
+    dest, rf, rq, rs = (np.concatenate(x) for x in (dest, rf, rq, rs))
+    order = np.argsort(dest, kind="stable")  # by entry, readers in order
+    dest, rf, rq, rs = dest[order], rf[order], rq[order], rs[order]
+    count = np.bincount(dest, minlength=6 * P)
+    start = np.cumsum(count) - count  # each entry's first reader
+    k = np.arange(dest.size) - start[dest]  # each reader's rank
+    g_of = np.arange(6 * P) // P
+    first = np.minimum(start, max(dest.size - 1, 0))
+    is_direct = (count == 1) & (rf[first] == g_of) & (rs[first] == 1.0)
+    # band entries of face g, in pool order
+    e_of = (np.cumsum(~is_direct.reshape(6, P), axis=1) - 1).reshape(-1)
+    direct = np.where(is_direct, rq[first], Q + e_of).reshape(6, P)
+    band_count = (~is_direct).reshape(6, P).sum(axis=1)
+    E = int(band_count.max())
+    K = int(count[~is_direct].max()) if E else 1
     band_face = np.zeros((6, K, E), np.int64)
     band_pos = np.zeros((6, K, E), np.int64)
     band_sign = np.zeros((6, K, E))
-    for g in range(6):
-        band_face[g] = g
-        for e, rd in enumerate(band[g]):
-            for k, (f, q, s) in enumerate(rd):
-                band_face[g, k, e] = f
-                band_pos[g, k, e] = q
-                band_sign[g, k, e] = s
+    band_face[:] = np.arange(6)[:, None, None]
+    in_band = ~is_direct[dest]
+    g, e = dest[in_band] // P, e_of[dest[in_band]]
+    band_face[g, k[in_band], e] = rf[in_band]
+    band_pos[g, k[in_band], e] = rq[in_band]
+    band_sign[g, k[in_band], e] = rs[in_band]
     return (
         direct, band_face.reshape(6, -1), band_pos.reshape(6, -1),
         band_sign.reshape(6, -1), K, E,

@@ -53,7 +53,22 @@ SIGNATURES = {
 
 _lib = None
 _entry = {}  # name -> the library's C entry point, bound once
+# name -> kernel wrapper; each counts its launches in ``.launches``
+COUNTED = {}
 build_info = {}  # path, seconds and compiler output of the last build
+
+
+def counted(name: str):
+    """Register a kernel wrapper under `name` in ``COUNTED``, its
+    ``launches`` counter at 0.  The wrapper adds one where it launches
+    its kernel; a replayed graph (``graphs.Graphed``) adds the launches
+    it captured."""
+    def register(fn):
+        fn.launches = 0
+        COUNTED[name] = fn
+        return fn
+
+    return register
 
 
 def find_nvcc() -> str:

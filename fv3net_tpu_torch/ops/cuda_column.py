@@ -47,6 +47,7 @@ def exner_chain(dp, ptop: float):
     return pe, pik, pi_lay
 
 
+@_build.counted("column_pressures")
 def column_pressures_cuda(dp, ptop: float):
     """(pe, pi_lay, pm) from the CUDA kernel; dp [F, nz, Y, X] float32."""
     dev = dp.device
@@ -63,6 +64,3 @@ def column_pressures_cuda(dp, ptop: float):
     )
     column_pressures_cuda.launches += 1
     return pe, pi_lay, pm
-
-
-column_pressures_cuda.launches = 0

@@ -26,6 +26,7 @@ from . import _build
 TX, TY = 48, 16  # csrc/filter.cu's tile
 
 
+@_build.counted("del4_filter")
 def del4_filter_cuda(q, area_px, area_py, c: float, halo: int):
     """q - (c/8) L(L(q)) on the interior, from q itself.
 
@@ -61,9 +62,7 @@ def del4_filter_cuda(q, area_px, area_py, c: float, halo: int):
     return out
 
 
-del4_filter_cuda.launches = 0
-
-
+@_build.counted("del4_filter_pair")
 def del4_filter_pair_cuda(qx, qy, area_px, area_py, c: float, halo: int):
     """q - (c/8) L(L(q)) on the interior, from the exchanged pair.
 
@@ -94,6 +93,3 @@ def del4_filter_pair_cuda(qx, qy, area_px, area_py, c: float, halo: int):
     )
     del4_filter_pair_cuda.launches += 1
     return out
-
-
-del4_filter_pair_cuda.launches = 0

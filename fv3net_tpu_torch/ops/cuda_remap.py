@@ -15,6 +15,7 @@ from . import _build
 from .remap import kernel_covers
 
 
+@_build.counted("ppm_remap")
 def ppm_remap_cuda(q1, pe1, pe2, iv: int, kord: int):
     """q2 [F, kn, Y, X] of ``remap_levels_plain`` from the CUDA kernel.
 
@@ -49,6 +50,3 @@ def ppm_remap_cuda(q1, pe1, pe2, iv: int, kord: int):
     )
     ppm_remap_cuda.launches += 1
     return q2
-
-
-ppm_remap_cuda.launches = 0

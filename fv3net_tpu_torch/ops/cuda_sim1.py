@@ -16,6 +16,7 @@ from . import _build
 GAMMA = CP_AIR / CV_AIR
 
 
+@_build.counted("sim1_solver")
 def sim1_solver_cuda(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05,
                      halo: int = 0):
     """(w2, dz2, ppe) of ``sim1_solver`` from the CUDA kernel.
@@ -54,6 +55,3 @@ def sim1_solver_cuda(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05,
     )
     sim1_solver_cuda.launches += 1
     return w2, dz2, ppe
-
-
-sim1_solver_cuda.launches = 0

@@ -22,6 +22,7 @@ from . import _build
 TX, TY = 33, 18  # csrc/tp2d.cu's tile
 
 
+@_build.counted("fv_tp_2d")
 def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
                   hord: int):
     """(fx, fy) of ``fv_tp_2d`` from the CUDA kernel, on the whole padded
@@ -77,13 +78,11 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
     return fx, fy
 
 
-fv_tp_2d_cuda.launches = 0
-
-
 MULTI5_IN = ("dpx", "dpy", "ptx", "pty", "wx", "wy", "dzx", "dzy", "ox",
              "oy", "crx", "cry", "xfx", "yfx", "sfx", "sfy")
 
 
+@_build.counted("fv_tp_2d_multi5")
 def fv_tp_2d_multi5_cuda(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
                          crx, cry, xfx, yfx, sfx, sfy, area_px, area_py,
                          hord: int):
@@ -119,6 +118,3 @@ def fv_tp_2d_multi5_cuda(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
     )
     fv_tp_2d_multi5_cuda.launches += 1
     return tuple(out)
-
-
-fv_tp_2d_multi5_cuda.launches = 0

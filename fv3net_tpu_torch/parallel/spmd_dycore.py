@@ -18,6 +18,11 @@ The reference scales by 6*x*y MPI ranks with FMS halo updates
 (runtime/segmented_run/run.py:34-35): ``make_spmd_dycore_stepper`` is the
 6-rank face mesh, ``make_tiled_spmd_dycore_stepper`` the (face=F, y=Y,
 x=X) mesh of parallel/tiling.py.
+
+Both steppers take ``remat`` (each acoustic substep checkpointed, as
+``build_one_dt`` does it).  Their steps stay eager on the card: every
+exchange is staged through the host over gloo, which a CUDA graph cannot
+hold, so unlike the single-process ``run`` they replay no graph.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ def _one_dt_builder(m, nz, ptop, dtype, device, **kw):
     bk = bk.to(dtype=dtype, device=device)
     return build_one_dt(
         m, ak, bk, nz, kw["dt_atmos"], kw["k_split"], kw["n_split"],
-        kw["hord"], kw["kord"], kw["d2_damp"], ptop, dtype,
+        kw["hord"], kw["kord"], kw["d2_damp"], ptop, dtype, kw["remat"],
     )
 
 
@@ -77,6 +82,7 @@ def make_spmd_dycore_stepper(
     d2_damp: float = 0.12,
     ptop: float = 300.0,
     dtype=torch.float32,
+    remat: bool = False,
     device=None,
 ):
     """The multi-rank dycore step over a 6-way face mesh (one face a
@@ -99,6 +105,7 @@ def make_spmd_dycore_stepper(
     one_dt = _one_dt_builder(
         ml, nz, ptop, dtype, device, dt_atmos=dt_atmos, k_split=k_split,
         n_split=n_split, hord=hord, kord=kord, d2_damp=d2_damp,
+        remat=remat,
     )
     comm = mesh.face_comm
 
@@ -248,6 +255,7 @@ def make_tiled_spmd_dycore_stepper(
     d2_damp: float = 0.12,
     ptop: float = 300.0,
     dtype=torch.float32,
+    remat: bool = False,
     device=None,
 ):
     """The (face, y, x)-tiled multi-rank dycore step.
@@ -273,6 +281,7 @@ def make_tiled_spmd_dycore_stepper(
     one_dt = _one_dt_builder(
         ml, nz, ptop, dtype, device, dt_atmos=dt_atmos, k_split=k_split,
         n_split=n_split, hord=hord, kord=kord, d2_damp=d2_damp,
+        remat=remat,
     )
     comm = mesh.face_comm
     L, nl = lay.L, lay.nl

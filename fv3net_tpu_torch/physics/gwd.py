@@ -34,16 +34,16 @@ class GWDConfig:
     u_min: float = 1.0         # floor on |U| (m/s)
 
 
-def brunt_vaisala(t, p):
-    """Dry N^2 on the interfaces between layers (level axis 1) from
+def brunt_vaisala(t, p, axis=1):
+    """Dry N^2 on the interfaces between layers (level axis `axis`) from
     theta differences."""
     theta = t * (1.0e5 / p) ** KAPPA
-    dlth = torch.diff(torch.log(theta), dim=1)
+    dlth = torch.diff(torch.log(theta), dim=axis)
     # layer spacing from hydrostatics: |dz| = (R Tbar / g) dlnp
     # (positive: p increases downward so dlnp > 0 along k)
-    dz = (RDGAS * 0.5 * (t[:, :-1] + t[:, 1:]) / GRAV) * torch.diff(
-        torch.log(p), dim=1
-    )
+    nz = t.shape[axis]
+    dz = (RDGAS * 0.5 * (t.narrow(axis, 0, nz - 1) + t.narrow(axis, 1, nz - 1))
+          / GRAV) * torch.diff(torch.log(p), dim=axis)
     # k increases downward: theta decreasing with k (dlth < 0) is
     # stable, N^2 = -g dln(theta)/dz > 0
     n2 = -GRAV * dlth / torch.clamp_min(dz, 1.0)

@@ -123,6 +123,7 @@ def _like_offset(x, px):
     return buf[o:o + n].view(x.shape)
 
 
+@_build.counted("probe_affine")
 def affine_cuda(x):
     """K7 on a contiguous [rows, cols] float32 CUDA tensor."""
     if not (isinstance(x, torch.Tensor) and x.is_cuda
@@ -145,6 +146,7 @@ def affine_cuda(x):
     return y
 
 
+@_build.counted("probe_stencil")
 def stencil_cuda(x):
     """K8 on a contiguous [rows, cols] float32 CUDA tensor."""
     if not (isinstance(x, torch.Tensor) and x.is_cuda
@@ -163,10 +165,6 @@ def stencil_cuda(x):
                                f"code {err}")
         stencil_cuda.launches += 1
     return y
-
-
-affine_cuda.launches = 0
-stencil_cuda.launches = 0
 
 
 def affine(x):

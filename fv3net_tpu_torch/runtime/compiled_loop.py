@@ -5,8 +5,12 @@ GFS physics suite (or the simple saturation adjustment), the ML
 model's ``pure_fn``, the MSE-conserving humidity limiter, the NaN fill
 with its filled-fraction diagnostics, the dry-mass-conserving humidity
 and delp update, and the Monitor tendency/storage diagnostics.  The JAX
-package jits the whole step into one dispatch; here it is a plain
-function call of eager torch (a CUDA graph of it is later work, ROADMAP).
+package jits the whole step into one dispatch with the state donated;
+on a CUDA model the port captures it as one CUDA graph
+(``graphs.Graphed``) and replays it, the state donated: a step returns
+the state in the graph's buffers, and its diagnostics, precipitation
+and total precipitation as fresh tensors that later replays leave
+alone.  On the CPU the step is the eager function.
 
 Per-substep semantics follow the reference's runtime/loop.py:
   - water_vapor_path before dynamics
@@ -17,8 +21,9 @@ Per-substep semantics follow the reference's runtime/loop.py:
     MSE-conserving limiter -> add tendency -> mass-conserving set ->
     Monitor(python)
 
-Host work per step is the cos-zenith-angle field and the solar constant
-(numpy, copied to the device once per step) and the datetime advance.
+Host work per step is the cos-zenith-angle field (numpy, copied to the
+device once per step), the solar constant (a 0-d device tensor, so that
+a replayed graph reads each step's value) and the datetime advance.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..constants import GRAV
+from ..graphs import Graphed
 from ..util.quantity import Quantity
 from ..utils.zenith import cos_zenith_angle
 from . import names
@@ -96,9 +102,14 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
     Returns
         step(state, phis, tsfc, total_precip, cosz, solcon)
           -> (state', total_precip', precip_rate, diags)
-    with every tensor on the model's device (solcon a float).
-    split=True also returns the three stage functions (dynamics,
-    physics, postphysics) for per-stage timing.
+    with every tensor on the model's device (solcon a 0-d tensor or a
+    float).  split=True also returns the three stage functions
+    (dynamics, physics, postphysics) for per-stage timing.  On a CUDA
+    model each is captured as a CUDA graph on its first call and
+    replayed; the step donates its state (the JAX package's
+    ``donate_argnums=(0,)``), the stages donate nothing.  ``step.eager``
+    and ``step.eager_stages`` are the eager coupled step and stages (on
+    the CPU the step and stages themselves).
     """
     from ..physics.gfs import MP_TRACER_NAMES, gfs_physics_step
     from ..wrapper import pressure_layers, pt_from_temperature, \
@@ -246,20 +257,55 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         st, d3 = stage_postphysics(st)
         return st, total_precip, precip_rate, {**d1, **d2, **d3}
 
-    if not split:
-        return full_step
-    return full_step, {
+    stages = eager_stages = {
         "dynamics": stage_dynamics,
         "physics": stage_physics,
         "postphysics": stage_postphysics,
     }
+    eager = full_step
+    if mdl.device.type == "cuda":
+        # what the composed dycore reads at capture time
+        key = mdl.run_step.graphed.key
+        full_step = _solcon_tensor(
+            Graphed(full_step, carry=0, donate=True, key=key),
+            dtype, mdl.device,
+        )
+        # without an ML model the postphysics stage makes no device op
+        # (there would be nothing to capture)
+        stages = {
+            k: f if k == "postphysics" and ml_model is None
+            else Graphed(f, key=key)
+            for k, f in stages.items()
+        }
+        stages["physics"] = _solcon_tensor(stages["physics"], dtype,
+                                           mdl.device)
+    full_step.eager = eager
+    full_step.eager_stages = eager_stages
+    if not split:
+        return full_step
+    return full_step, stages
+
+
+def _solcon_tensor(fn, dtype, device):
+    """fn with its last argument, the solar constant, as a 0-d tensor of
+    the state's dtype (a float would be baked into a captured graph)."""
+    def call(*args):
+        *rest, solcon = args
+        if not isinstance(solcon, torch.Tensor):
+            solcon = torch.full((), solcon, dtype=dtype, device=device)
+        return fn(*rest, solcon)
+
+    return call
 
 
 class CompiledTimeLoop:
-    """TimeLoop over the coupled step: iterates (time, diagnostics)
+    """Drop-in TimeLoop with the whole coupled step as one dispatch (a
+    replayed CUDA graph on a CUDA model): iterates (time, diagnostics)
     pairs (the reference TimeLoop contract, runtime/loop.py:239); the
-    diagnostics are Quantities over device tensors, copied to the host
-    only when a sink reads ``.values``."""
+    diagnostics are Quantities over device tensors of their own, copied
+    to the host only when a sink reads ``.values``.  The model's state
+    is donated to each step: a reference to ``mdl.state`` taken before a
+    step sees the step's result."""
 
     def __init__(self, wrapper_module, ml_model=None,
                  n_steps: Optional[int] = None):
@@ -281,7 +327,8 @@ class CompiledTimeLoop:
     def _astronomy(self):
         """Solar inputs at the END time of the step: the eager loop
         advances the clock inside step_dynamics, so radiation sees
-        time + dt_atmos."""
+        time + dt_atmos.  (cosz, solcon) on the model's device, solcon
+        a 0-d tensor of the state's dtype."""
         mdl = self.mdl
         t_rad = mdl.time + datetime.timedelta(seconds=mdl.config.dt_atmos)
         if mdl._radiation is not None:
@@ -293,7 +340,9 @@ class CompiledTimeLoop:
             cos_zenith_angle(t_rad, np.rad2deg(mdl.lon), np.rad2deg(mdl.lat)),
             0.0,
         )
-        return self._on_device(cosz), solcon
+        return self._on_device(cosz), torch.full(
+            (), solcon, dtype=mdl.dtype, device=mdl.device
+        )
 
     def step(self) -> Mapping[str, Quantity]:
         """Advance one dt_atmos; returns the diagnostics mapping."""

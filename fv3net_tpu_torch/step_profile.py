@@ -14,8 +14,8 @@ k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
 225 s at C192, bench.py's rung 2), with the fused 5-field transport
 (``ops.advection.set_fused_transport``) on if --fused; or with --coupled
 the coupled step of bench.py rung 3 (``runtime.coupled_bench``: the
-dycore + radiation + GFS physics + dense ML corrector, C48 only, its
-three stages labelled in the traced steps); or with --prognostic one
+dycore + radiation + GFS physics + dense ML corrector, C48 only); or
+with --prognostic one
 step of the eager TimeLoop over the wrapper's phases (the default model:
 hydrostatic C48 x 63, simple suite, f32, from the wrapper's initial
 state; C48 only, its substeps labelled); or with --nudged one step of the
@@ -25,17 +25,23 @@ microphysics over six advected species, the nudger of T and humidity
 toward two snapshots; C48 only, its substeps labelled); or with --sw one
 step of the shallow-water model (``dycore.make_sw_stepper`` at C<n>, dt
 600 * 24 / n s, hord 5, d2 0.12, f32, a 3000 m layer with smooth 5 m/s
-winds; its operators labelled).  Warms up one dt, then:
+winds; its operators labelled).  The dycore dt and the coupled step are
+what a user runs on the card: replays of their CUDA graphs
+(``make_dycore_stepper``'s ``run``, ``CompiledTimeLoop.step``; the
+warm-up dt captures them), as is the dycore inside the prognostic and
+nudged steps.  With --eager the dycore dt is ``run.one_dt`` and the
+coupled step ``build_compiled_step``'s eager stages, its three stages
+and the dycore's functions labelled.  Warms up one dt, then:
   * times 5 dts with the host clock (synchronized), the step time a user
     sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
     the device-busy time per dt (sum of kernel times), hence the device
     idle share, the number of kernel launches per dt, the copies per dt
     (torch's copy kernels and memcpy activities), the kernels by device
-    time, and the host time of the dycore's stages (each stage wrapped in
-    a record_function label for the traced dts only).
-Writes ``step_profile_c<n>[_fused|_coupled|_prognostic|_nudged|_sw].json``
-and
+    time, and the host time of the labelled stages (each wrapped in a
+    record_function label for the traced dts only).
+Writes ``step_profile_c<n>[_fused|_coupled|_prognostic|_nudged|_sw]``
+``[_eager].json`` and
 ``.txt`` under
 --out and prints the JSON summary.
 """
@@ -63,7 +69,7 @@ from .runtime import nudged_case
 
 NZ, PTOP = 63, 300.0
 DT_ATMOS = {48: 900.0, 192: 225.0}
-# module-level callables of dycore.hydro labelled in the traced dts
+# module-level callables of dycore.hydro labelled in the eager dts
 STAGES = (
     "_c_sw_half_3d", "_substep_core", "remap_step", "fv_tp_2d",
     "scalar_filter", "div_damp", "vort_damp", "corner_div_damp",
@@ -71,7 +77,7 @@ STAGES = (
     "halo_exchange_dgrid", "average_dgrid_boundary", "padded_cgrid_winds",
     "remap_levels", "fv_tp_2d_multi5",
 )
-# ... and of dycore.sw in the shallow-water step's
+# ... and of dycore.sw in the shallow-water step's traced steps
 SW_STAGES = (
     "_c_sw_half_2d", "_sw_core", "fv_tp_2d", "scalar_filter", "div_damp",
     "vort_damp", "corner_div_damp", "halo_exchange", "halo_exchange_dgrid",
@@ -94,8 +100,9 @@ def _us(event):
     return event.time_range.elapsed_us()
 
 
-def _dycore_steps(N, fused):
-    """(step, traced step) of the dycore benchmark configuration."""
+def _dycore_steps(N, fused, eager):
+    """(step, traced step) of the dycore benchmark configuration: the
+    replayed ``run``, or with `eager` the eager ``run.one_dt``."""
     advection.set_fused_transport(fused)
     run, _, _ = hydro.make_dycore_stepper(
         CubedSphereGrid.make(N, halo=3), NZ, DT_ATMOS[N], k_split=1,
@@ -106,34 +113,40 @@ def _dycore_steps(N, fused):
     phis = torch.zeros((6, N, N), device="cuda")
 
     def step():
-        state[0] = run(state[0], phis, 1)
+        state[0] = run.one_dt(state[0], phis) if eager else run(
+            state[0], phis, 1)
 
     return step, step
 
 
-def _coupled_steps(N, out):
-    """(step, traced step) of the coupled configuration: the fused step
-    through CompiledTimeLoop, and its three stages in turn, labelled."""
+def _coupled_steps(N, out, eager):
+    """(step, traced step) of the coupled configuration: the replayed
+    step through CompiledTimeLoop, both; or with `eager` its eager step,
+    and its three eager stages in turn, labelled."""
     dense = coupled_bench.train_dense_artifact(
         os.path.join(out, f"dense_c{N}"), NZ, "cuda")
     wm, model = coupled_bench.initialize(N, "cuda", dense)
     loop = compiled_loop.CompiledTimeLoop(wm, ml_model=model)
+    if not eager:
+        return loop.step, loop.step
     mdl = loop.mdl
-    _, stages = compiled_loop.build_compiled_step(mdl, model, split=True)
-    dyn, phys, post = (
-        _labelled(f"coupled_{k}", stages[k])
-        for k in ("dynamics", "physics", "postphysics")
-    )
+    stages = compiled_loop.build_compiled_step(mdl, model).eager_stages
 
-    def traced_step():
-        cosz, solcon = loop._astronomy()
-        st, _ = dyn(mdl.state, mdl.phis)
-        st, tp, _, _ = phys(st, loop._tsfc, loop._on_device(mdl.total_precip),
-                            cosz, solcon)
-        mdl.state, _ = post(st)
-        mdl.total_precip = tp
+    def eager_step(dyn, phys, post):
+        def step():
+            cosz, solcon = loop._astronomy()
+            st, _ = dyn(mdl.state, mdl.phis)
+            st, tp, _, _ = phys(st, loop._tsfc,
+                                loop._on_device(mdl.total_precip), cosz,
+                                solcon)
+            mdl.state, _ = post(st)
+            mdl.total_precip = tp
 
-    return loop.step, traced_step
+        return step
+
+    keys = ("dynamics", "physics", "postphysics")
+    return eager_step(*(stages[k] for k in keys)), eager_step(*(
+        _labelled(f"coupled_{k}", stages[k]) for k in keys))
 
 
 def _sw_steps(N):
@@ -202,6 +215,9 @@ def main(argv=None):
                     help="one step of the nudged run (C48)")
     ap.add_argument("--sw", action="store_true",
                     help="one step of the shallow-water model")
+    ap.add_argument("--eager", action="store_true",
+                    help="the dycore dt or the coupled step eager, its "
+                         "stages labelled")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     N = args.n
@@ -218,6 +234,9 @@ def main(argv=None):
     if args.sw and (args.fused or args.coupled or args.prognostic
                     or args.nudged):
         raise ValueError("--sw runs the shallow-water model alone")
+    if args.eager and (args.sw or args.prognostic or args.nudged):
+        raise ValueError("--eager profiles the dycore dt or the coupled "
+                         "step")
     if not args.sw and N not in DT_ATMOS:
         raise ValueError(f"the dycore step runs at C{sorted(DT_ATMOS)}")
     card = subprocess.run(
@@ -231,10 +250,10 @@ def main(argv=None):
     case = tempfile.TemporaryDirectory() if args.nudged else None
     step, traced_step = (
         _sw_steps(N) if args.sw
-        else _coupled_steps(N, args.out) if args.coupled
+        else _coupled_steps(N, args.out, args.eager) if args.coupled
         else _prognostic_steps(N) if args.prognostic
         else _prognostic_steps(N, case.name) if args.nudged
-        else _dycore_steps(N, args.fused)
+        else _dycore_steps(N, args.fused, args.eager)
     )
     step()  # warm-up
     torch.cuda.synchronize()
@@ -246,7 +265,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
-    module, names = (sw, SW_STAGES) if args.sw else (hydro, STAGES)
+    module, names = ((sw, SW_STAGES) if args.sw
+                     else (hydro, STAGES) if args.eager else (None, ()))
     originals = {name: getattr(module, name) for name in names}
     traced_dts = 2
     try:
@@ -304,7 +324,8 @@ def main(argv=None):
                      "suite)" if args.prognostic else "")
                   + (" nudged (eager TimeLoop from restarts, "
                      "nonhydrostatic, GFS suite, GFDL microphysics, six "
-                     "tracers, nudger)" if args.nudged else ""),
+                     "tracers, nudger)" if args.nudged else "")
+                  + (" eager" if args.eager else ""),
         "card": card,
         "host_ms_per_dt": host_ms,
         "host_ms_per_dt_median": host_med,
@@ -341,6 +362,7 @@ def main(argv=None):
            else "_coupled" if args.coupled
            else "_prognostic" if args.prognostic
            else "_nudged" if args.nudged else "")
+        + ("_eager" if args.eager else "")
     )
     with open(stem + ".json", "w") as f:
         json.dump(summary, f, indent=1)

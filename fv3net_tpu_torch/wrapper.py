@@ -416,6 +416,9 @@ class _Model:
     # --- steps ------------------------------------------------------------
 
     def step_dynamics(self):
+        # on the card a replay of the stepper's captured dt; not donated
+        # (the stepper's default), as the JAX wrapper's: callers may hold
+        # the state from before the step
         self.state = self.run_step(self.state, self.phis, 1)
         self.step_count += 1
         self.time += datetime.timedelta(seconds=self.config.dt_atmos)

@@ -1180,3 +1180,150 @@ def test_multiband_radiation_on_card_matches_cpu(dev):
                            run("cpu", torch.float64))
     for k, (err, bound, _, _, finite) in rule.items():
         assert finite and err <= bound, (k, err, bound)
+
+
+# --- the captured steps (fv3net_tpu_torch.graphs) ---------------------------
+
+# launches of one C12 x 63 nonhydrostatic dt (chip_smoke.LAUNCHES_PER_DT):
+# 5 transports x 6 substeps + 1 tracer, a vertical solve, 4 filters and 2
+# column chains a substep, 6 remaps
+DT_LAUNCHES = {"fv_tp_2d_cuda": 31, "sim1_solver_cuda": 6,
+               "del4_filter_cuda": 24, "column_pressures_cuda": 12,
+               "ppm_remap_cuda": 6, "fv_tp_2d_multi5_cuda": 0}
+
+
+def _c12_stepper(dev, **flags):
+    from fv3net_tpu_torch.dycore import hydro
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+
+    run, m, _ = hydro.make_dycore_stepper(
+        CubedSphereGrid.make(n, halo=H), NZ, 900.0, device=dev, **flags)
+    return run, hydro.benchmark_state(n, NZ, 300.0, dev), torch.zeros(
+        (6, n, n), device=dev)
+
+
+def _launch_counts():
+    from fv3net_tpu_torch.ops import _build, cuda_filter  # noqa: F401
+
+    return {w.__name__: w.launches for w in _build.COUNTED.values()}
+
+
+def _assert_states_equal(a, b, tag):
+    for k, x, y in zip(a._fields, a, b):
+        if x is not None:
+            assert torch.equal(x, y), f"{tag} {k}: {(x - y).abs().max()}"
+
+
+def test_replayed_dt_equals_eager(dev):
+    """Two eager dts from one state agree bit for bit (no accumulation
+    order changes between them at C12), and so do the replayed dt and
+    two chained replays against two eager dts."""
+    run, st, phis = _c12_stepper(dev)
+    e1 = run.one_dt(st, phis)
+    _assert_states_equal(e1, run.one_dt(st, phis), "eager twice")
+    _assert_states_equal(run(st, phis, 1), e1, "replay")
+    _assert_states_equal(run(st, phis, 2), run.one_dt(e1, phis), "2 dts")
+
+
+def test_replay_moves_launch_counts(dev):
+    """The first call (warm-up, capture, replay) and each later replay
+    count one dt's launches a dt; the warm-up and the capture count
+    none."""
+    run, st, phis = _c12_stepper(dev)
+    before = _launch_counts()
+    run(st, phis, 1)
+    mid = _launch_counts()
+    run(st, phis, 3)
+    after = _launch_counts()
+    for k, per_dt in DT_LAUNCHES.items():
+        assert mid[k] - before[k] == per_dt, k
+        assert after[k] - mid[k] == 3 * per_dt, k
+
+
+def test_donate_aliases_and_no_donate_copies(dev):
+    run_d, st, phis = _c12_stepper(dev, donate=True)
+    ptrs = [x.data_ptr() for x in st]
+    s1 = run_d(st, phis, 1)
+    s2 = run_d(s1, phis, 1)
+    # the donated input's own buffers carry the result, call after call
+    assert [x.data_ptr() for x in s1] == ptrs
+    assert [x.data_ptr() for x in s2] == ptrs
+    run, st, phis = _c12_stepper(dev)
+    keep = [x.clone() for x in st]
+    a = run(st, phis, 1)
+    a_keep = [x.clone() for x in a]
+    b = run(a, phis, 1)
+    _assert_states_equal(st, type(st)(*keep), "input")
+    _assert_states_equal(a, type(a)(*a_keep), "kept step k")
+    assert all(x.data_ptr() != y.data_ptr() for x, y in zip(a, b))
+    _assert_states_equal(s2, b, "donate vs not")
+
+
+def test_fused_switch_is_part_of_the_key(dev):
+    """A graph captured with the fused transport off is not replayed with
+    it on: the second call captures anew, launches K6, and equals the
+    eager fused dt."""
+    from fv3net_tpu_torch.ops import advection
+
+    run, st, phis = _c12_stepper(dev)
+    off = run(st, phis, 1)
+    advection.set_fused_transport(True)
+    try:
+        before = _launch_counts()
+        on = run(st, phis, 1)
+        after = _launch_counts()
+        eager_on = run.one_dt(st, phis)
+    finally:
+        advection.set_fused_transport(False)
+    assert after["fv_tp_2d_multi5_cuda"] - before["fv_tp_2d_multi5_cuda"] == 6
+    assert after["fv_tp_2d_cuda"] - before["fv_tp_2d_cuda"] == 1
+    assert len(run.graphed.captures) == 2
+    _assert_states_equal(on, eager_on, "fused")
+    _assert_states_equal(off, run.one_dt(st, phis), "unfused")
+
+
+def _spread_equal(got, eager, again, tag):
+    """got equals eager within the eager run-to-run spread (|eager -
+    again|, element by element; bit for bit where two eager runs agree)."""
+    for k in eager:
+        bad = (got[k] - eager[k]).abs() > (eager[k] - again[k]).abs()
+        assert not bool(bad.any()), f"{tag} {k}: {int(bad.sum())} values"
+
+
+def test_compiled_loop_replays_and_keeps_diagnostics(dev, tmp_path):
+    """Two replayed coupled steps (CompiledTimeLoop) against two eager
+    full_steps from the same state, state and diagnostics; a diagnostic
+    kept from step k is unchanged after step k+1."""
+    from fv3net_tpu_torch import fit
+    from fv3net_tpu_torch.runtime import compiled_loop, coupled_bench
+
+    wrapper = _init_cuda(dev, physics_suite="gfs", do_radiation=True,
+                         hydrostatic=False)
+    _moist_state(wrapper, seed=4)
+    mdl = wrapper.get_model()
+    model = fit.load(coupled_bench.train_dense_artifact(
+        str(tmp_path / "dense"), NZ, dev))
+    loop = compiled_loop.CompiledTimeLoop(wrapper, ml_model=model)
+    eager = loop._step_fn.eager
+
+    def fields(st, diags):
+        out = {k: x.clone() for k, x in st._asdict().items() if x is not None}
+        out.update({f"diag {k}": v.clone() for k, v in diags.items()})
+        return out
+
+    kept = None
+    for step in range(2):
+        cosz, solcon = loop._astronomy()
+        args = (mdl.phis, loop._tsfc, loop._on_device(mdl.total_precip),
+                cosz, solcon)
+        runs = [eager(type(mdl.state)(*(None if x is None else x.clone()
+                                        for x in mdl.state)), *args)
+                for _ in range(2)]
+        diags = loop.step()
+        got = fields(mdl.state, {k: q.data for k, q in diags.items()})
+        _spread_equal(got, *(fields(r[0], r[3]) for r in runs),
+                      f"step {step}")
+        if kept is None:
+            first, kept = diags, {k: q.data.clone() for k, q in diags.items()}
+    for k, q in first.items():
+        assert torch.equal(q.data, kept[k]), k

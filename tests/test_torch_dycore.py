@@ -91,6 +91,40 @@ def test_add_nonhydrostatic_fields_matches_jax(jax_run):
     assert not bool(got.w.any())
 
 
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(ptop=64.247),
+    dict(transition_eta=0.1, exponent=1.5, stretch=1.2),
+    dict(transition_eta=0.3, exponent=0.8, stretch=1.0),
+])
+def test_hybrid_coefficients_match_jax(kw):
+    """The coordinate's keywords (float64, the same arithmetic)."""
+    want = jhydro.hybrid_coefficients(NZ, **kw)
+    got = thydro.hybrid_coefficients(NZ, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-15,
+                                   atol=1e-12)
+
+
+def test_hybrid_coefficients_table_and_errors():
+    """An exact (ak, bk) table is returned as given; a table of the wrong
+    length and a non-monotone coordinate raise in both packages."""
+    rng = np.random.RandomState(3)
+    ak = np.sort(rng.rand(NZ + 1)) * 1e4
+    bk = np.linspace(0.0, 1.0, NZ + 1)
+    want = jhydro.hybrid_coefficients(NZ, table=(ak, bk))
+    got = thydro.hybrid_coefficients(NZ, table=(list(ak), bk))
+    for g, w, a in zip(got, want, (ak, bk)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), a)
+    for mod in (jhydro, thydro):
+        with pytest.raises(ValueError, match="interfaces"):
+            mod.hybrid_coefficients(NZ, table=(ak[:-1], bk))
+        with pytest.raises(ValueError, match="non-monotone"):
+            mod.hybrid_coefficients(NZ, transition_eta=0.02, exponent=6.0)
+
+
 def test_rest_state_matches_graft_entry():
     from __graft_entry__ import _rest_state
 

@@ -120,3 +120,16 @@ def test_port_import_leaves_jax_out():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("n,h", [(2, 1), (4, 3), (8, 2), (13, 4), (24, 3)])
+def test_dgrid_tables_equal_the_reference_loop(n, h):
+    """The port builds the D-grid exchange's tables with one vectorised
+    lookup; the JAX package's loop over every edge is the reference:
+    the same gather indices and signs, bit for bit (the first of two
+    faces storing a shared edge wins in both)."""
+    for (gf, gs), (wf, ws) in zip(thalo._dgrid_tables(n, h),
+                                  jhalo._dgrid_tables(n, h)):
+        np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_array_equal(gs, ws)
+        assert gf.dtype == wf.dtype and gs.dtype == ws.dtype

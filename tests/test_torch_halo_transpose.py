@@ -169,3 +169,56 @@ def test_vjp_dispatches_no_scatter(name):
     assert "aten::gather" in ops or "aten::index" in ops, ops
     bad = sorted(o for o in ops if any(s in o for s in SCATTERS))
     assert not bad, bad
+
+
+def _inverse_tables_loop(kind, n, h, fill):
+    """ht._inverse_tables as a loop over every reader of every pool entry
+    (its first form): the reference of the vectorised one."""
+    ra, ca, rb, cb = ht._pool_shapes(kind, n)
+    tables = (thalo._dgrid_tables(n, h) if kind == "dgrid"
+              else thalo._cgrid_tables(n, h, fill))
+    P = ra * ca + rb * cb
+    readers = [[[] for _ in range(P)] for _ in range(6)]
+    q0 = 0
+    for flat, sign in tables:
+        face, pos = thalo._decode_pool(flat.reshape(6, -1), ra, ca, rb, cb)
+        sg = np.asarray(sign).reshape(6, -1)
+        for f in range(6):
+            for q in np.flatnonzero(sg[f]):
+                readers[face[f, q]][pos[f, q]].append(
+                    (f, q0 + q, float(sg[f, q])))
+        q0 += sg.shape[1]
+    direct = np.zeros((6, P), np.int64)
+    band = [[] for _ in range(6)]
+    for g in range(6):
+        for p in range(P):
+            rd = readers[g][p]
+            if len(rd) == 1 and rd[0][0] == g and rd[0][2] == 1.0:
+                direct[g, p] = rd[0][1]
+            else:
+                direct[g, p] = q0 + len(band[g])
+                band[g].append(rd)
+    E = max(len(b) for b in band)
+    K = max((len(rd) for b in band for rd in b), default=1)
+    bf = np.zeros((6, K, E), np.int64)
+    bp = np.zeros((6, K, E), np.int64)
+    bs = np.zeros((6, K, E))
+    for g in range(6):
+        bf[g] = g
+        for e, rd in enumerate(band[g]):
+            for k, (f, q, sgn) in enumerate(rd):
+                bf[g, k, e], bp[g, k, e], bs[g, k, e] = f, q, sgn
+    return (direct, bf.reshape(6, -1), bp.reshape(6, -1), bs.reshape(6, -1),
+            K, E)
+
+
+@pytest.mark.parametrize("n,h", [(2, 1), (6, 3), (13, 4)])
+@pytest.mark.parametrize("kind,fill", [("dgrid", ""), ("cgrid", "x"),
+                                       ("cgrid", "y")])
+def test_inverse_tables_equal_the_reference_loop(kind, fill, n, h):
+    got = ht._inverse_tables(kind, n, h, fill)
+    want = _inverse_tables_loop(kind, n, h, fill)
+    assert got[4:] == want[4:]
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype

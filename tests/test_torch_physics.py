@@ -273,6 +273,19 @@ def test_shallow_convection():
     _both(got, want, "shallow_convection")
 
 
+@pytest.mark.parametrize("axis", [1, -3, 0])
+def test_brunt_vaisala_axis(axis):
+    """N^2 along the level axis at 1 (the drag's), its negative form, and
+    with the levels moved to axis 0."""
+    t, p = C["t"], C["p"]
+    if axis == 0:
+        t, p = np.moveaxis(t, 1, 0), np.moveaxis(p, 1, 0)
+    got, want = _run(jgwd.brunt_vaisala, tgwd.brunt_vaisala, t, p,
+                     axis=axis)
+    assert np.shape(want)[axis] == NZ - 1
+    _both(got, want, f"brunt_vaisala axis={axis}")
+
+
 def test_saturation_adjustment():
     got, want = _run(jsimple.saturation_adjustment,
                      tsimple.saturation_adjustment,

@@ -10,7 +10,11 @@ one nonhydrostatic dt (k_split=1, n_split=2):
   tests/test_multihost.py layout, here TileLayout(F=2, Y=1, X=1)), equal
   the port's single-process dt bit for bit: the same arithmetic on each
   face, exchanges that copy, and transposes that sum in the
-  single-process order.
+  single-process order;
+- both steppers built with remat=True (the JAX package's flag: the
+  substeps checkpointed) step as they do without it: to 1e-12 of the
+  JAX package's dt built with remat=True, and bit for bit with the
+  port's dt without it.
 
 The ranks run while the parent compiles the JAX step."""
 
@@ -33,7 +37,8 @@ from torch_parity import benchmark_like_state
 
 N, NZ, DT, NSPLIT = 8, 4, 900.0, 2
 WORKER = os.path.join(os.path.dirname(__file__), "torch_spmd_worker.py")
-MESHES = {"face": 6, "tiled_2_2_2": 8, "tiled_2_1_1": 2}
+MESHES = {"face": 6, "tiled_2_2_2": 8, "tiled_2_1_1": 2,
+          "face_remat": 6, "tiled_2_1_1_remat": 2}
 FIELDS = ("delp", "pt", "u", "v", "q", "w", "delz")
 
 
@@ -64,6 +69,10 @@ def runs(tmp_path_factory):
                                 k_split=1, n_split=NSPLIT,
                                 dtype=jnp.float64)
         want_j = run_j(st, jnp.asarray(phis), 1)
+        run_jr, _, _ = j_stepper(JGrid.make(N, halo=3), NZ, dt_atmos=DT,
+                                 k_split=1, n_split=NSPLIT,
+                                 dtype=jnp.float64, remat=True)
+        want_jr = run_jr(st, jnp.asarray(phis), 1)
         run_t, _, _ = t_stepper(TGrid.make(N, halo=3), NZ, dt_atmos=DT,
                                 k_split=1, n_split=NSPLIT,
                                 dtype=torch.float64, device="cpu")
@@ -77,12 +86,12 @@ def runs(tmp_path_factory):
     finally:
         for group in groups.values():
             group.kill()
-    return got, want_j, want_t
+    return got, want_j, want_t, want_jr
 
 
 @pytest.mark.parametrize("mode", ["face", "tiled_2_2_2"])
 def test_multi_rank_dt_matches_jax_single_device(runs, mode):
-    got, want_j, _ = runs
+    got, want_j, _, _ = runs
     for k in FIELDS:
         np.testing.assert_allclose(
             got[mode][k].numpy(), np.asarray(getattr(want_j, k)),
@@ -92,9 +101,21 @@ def test_multi_rank_dt_matches_jax_single_device(runs, mode):
 
 @pytest.mark.parametrize("mode", ["face", "tiled_2_1_1"])
 def test_whole_face_ranks_match_single_process_bitwise(runs, mode):
-    got, _, want_t = runs
+    got, _, want_t, _ = runs
     for k in FIELDS:
         w = getattr(want_t, k)
         assert torch.equal(got[mode][k], w), (
             f"{mode} {k}: max |diff| {(got[mode][k] - w).abs().max():.3e}"
         )
+
+
+@pytest.mark.parametrize("mode", ["face", "tiled_2_1_1"])
+def test_remat_steppers_match_jax_remat_and_plain(runs, mode):
+    got, want_j, _, want_jr = runs
+    for k in FIELDS:
+        r = got[f"{mode}_remat"][k]
+        np.testing.assert_allclose(
+            r.numpy(), np.asarray(getattr(want_jr, k)), rtol=1e-12,
+            atol=1e-12, err_msg=f"{mode} remat {k}",
+        )
+        assert torch.equal(r, got[mode][k]), f"{mode} remat {k}"

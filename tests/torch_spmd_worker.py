@@ -1,6 +1,7 @@
 """One rank of the multi-rank CPU tests of fv3net_tpu_torch.parallel
 (tests/test_torch_halo_spmd.py, tests/test_torch_spmd_dycore.py):
-``python torch_spmd_worker.py MODE INPUT.npz OUTDIR``, started by
+``python torch_spmd_worker.py MODE INPUT.npz OUTDIR`` (MODE ending in
+``_remat``: the dycore modes with remat=True), started by
 ``multihost.spawn`` (RANK, WORLD_SIZE and the FileStore come from the
 environment).  Imports torch and the port only; float64 on the CPU.
 Each rank writes ``OUTDIR/<MODE>_rank<r>.pt``."""
@@ -99,8 +100,9 @@ def _state(inp):
     ]), _t(inp["phis"])
 
 
-def dycore(inp, mesh, layout):
-    """One dt of the multi-rank step; the gathered state."""
+def dycore(inp, mesh, layout, remat=False):
+    """One dt of the multi-rank step (its substeps checkpointed with
+    `remat`); the gathered state."""
     from fv3net_tpu_torch.grid.geometry import CubedSphereGrid
     from fv3net_tpu_torch.parallel import spmd_dycore
     from fv3net_tpu_torch.parallel.tiling import TileLayout
@@ -109,7 +111,7 @@ def dycore(inp, mesh, layout):
     g = CubedSphereGrid.make(n, halo=h)
     kw = dict(dt_atmos=float(inp["dt"]), k_split=1,
               n_split=int(inp["n_split"]), dtype=torch.float64,
-              device="cpu")
+              remat=remat, device="cpu")
     state, phis = _state(inp)
     if layout is None:
         run, shard, gather = spmd_dycore.make_spmd_dycore_stepper(
@@ -129,15 +131,18 @@ def main():
     mode, path, outdir = sys.argv[1], sys.argv[2], sys.argv[3]
     rank, world = multihost.initialize()
     inp = dict(np.load(path))
+    # "<mesh>_remat": the same dt with remat=True
+    base, remat = mode.removesuffix("_remat"), mode.endswith("_remat")
     if mode == "exchanges":
         out = exchanges(inp, make_mesh())
-    elif mode == "face":
-        out = dycore(inp, make_mesh(), None)
+    elif base == "face":
+        out = dycore(inp, make_mesh(), None, remat)
     else:  # "tiled F Y X"
-        F, Y, X = (int(c) for c in mode.split("_")[1:])
+        F, Y, X = (int(c) for c in base.split("_")[1:])
         from fv3net_tpu_torch.parallel.mesh import CubedSphereMesh
 
-        out = dycore(inp, CubedSphereMesh(F, 1, Y, X, rank=rank), (F, Y, X))
+        out = dycore(inp, CubedSphereMesh(F, 1, Y, X, rank=rank), (F, Y, X),
+                     remat)
     torch.save(out, os.path.join(outdir, f"{mode}_rank{rank}.pt"))
     print(f"rank {rank}/{world}: {mode} ok", flush=True)
 
