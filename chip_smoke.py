@@ -109,6 +109,21 @@ Phases (any failure raises and the script exits non-zero):
      white-noise winds and humidity clipped flat at 20 g/kg by the f32
      spread (the CPU's f32 steps from 5 1-ulp perturbations of the
      inputs as well, see F32_FACTOR).
+ 10b. units: each unit the JAX package jits one by one on the serving
+     paths, a ``graphs.jit`` on the card, at C48 x 63 f32 from a seeded
+     moist state (parity.moist_inputs) with the GFS suite: the wrapper's
+     Held-Suarez forcing, saturation adjustment, gscond and precpd,
+     gfs_physics_step (Zhao-Carr; mass flux, gravity-wave drag and GFDL
+     with the prognostic hydrometeors), the gray radiation's core, the
+     steppers' humidity limiter and one jitted apply of each fit family
+     (seeded weights, T and q in: dense apply and pure_fn, convolutional,
+     graph, autoencoder and its encoder, CycleGAN both ways,
+     precipitative, the FMR's rollout, the reservoir's step, the
+     transformed family's heads): the first call (warm-up, capture,
+     replay) and a second replay each against two eager calls
+     (hold_replay), ms a call eager and replayed (UNIT_REPS each, in
+     turns, CUDA events), the captures and the device memory they hold.
+     The multiband driver's compute is held in phase 23.
  11. prognostic run: ``runtime.cli.main(["run-native", cfg, rundir])``
      on the card in a temporary directory, the default model (C48 x 63
      hydrostatic, simple suite, f32, dt_atmos 900, n_split 6) for
@@ -119,7 +134,14 @@ Phases (any failure raises and the script exits non-zero):
      scalar writes), per mainloop and per substep from the loop's Timer,
      each clock read after a synchronisation, finite state,
      dry mass across each step_dynamics, the restart round trip, the
-     model time and the segments' files.
+     model time and the segments' files.  The steps take turns
+     (SyncTimer, ``alternating``): even steps replay the captured dycore
+     and units, odd steps run them eagerly (``graphs.eager()``), and the
+     medians of each side are printed; steps PROGNOSTIC_TRACED of each
+     segment (one of each side) run under torch.profiler: device busy
+     ms and idle share.  Phases 13 (NUDGED_TRACED traced: its one
+     replayed step after the capturing one stays untraced), 15, 16 and
+     17 (SERIES_TRACED traced) take turns the same way.
  12. nudged parity: one eager step of the nudged run (a TimeLoop step
      with the nudger, runtime.nudged_case: the slice's configuration,
      nonhydrostatic, GFS suite with gray radiation and GFDL microphysics
@@ -201,7 +223,8 @@ Phases (any failure raises and the script exits non-zero):
      every step, ms per step and per substep, finite state, dry mass and
      column water as in 13; T, q, the surface temperature, the physics'
      precipitation rate and the cosine of the solar zenith angle of each
-     step stored as phase 13 stores (series.zarr).
+     step stored as phase 13 stores (series.zarr).  Phases 15-16 print
+     the captures of the live units and the memory they hold.
  18. families: the train CLI (fit.train.main, no --device: the card) at
      C48x63 (T and q, 126 channels) and each family's default
      hyperparameters: the reservoir on the series (its last step held
@@ -233,7 +256,9 @@ Phases (any failure raises and the script exits non-zero):
      model's column Jacobian against the float64 network's, the CPU's
      f32 Jacobian setting the spread (the graph model predicts whole
      cubes: the evaluation has no column Jacobian for it, as the JAX
-     package's).
+     package's); the predictions (predict_over_mapper) again, eager
+     beside replayed (OFFLINE_AB each, in turns), and the captures of
+     each model's apply with the memory they hold.
  20. prognostic-run diagnostics: ``diagnostics.cli compute`` (no
      --device: the card) of phase 15's ML-corrected run with phase 13's
      nudged run as --verification, at C48 x 63, against the same with
@@ -290,8 +315,10 @@ Phases (any failure raises and the script exits non-zero):
      card in f32 against the CPU in f32 and float64 by phase 4's rule,
      every output; the SW and LW energy closure of the JAX package's
      tests (SW_CLOSURE, LW_CLOSURE) on the card's outputs and the
-     float64 ones; ms a call (CUDA events, median of RAD_REPS), wall ms
-     and the device's busy time (torch.profiler), hence the host's share.
+     float64 ones; the driver's jitted compute replayed against two
+     eager calls (hold_replay); ms a call eager and replayed (CUDA
+     events, RAD_REPS of each in turns), wall ms and the device's busy
+     time (torch.profiler) of each, hence the host's share.
  24. spmd face: the multi-rank dycore (parallel/spmd_dycore.py) on the
      6-rank face mesh at C48 x 63 (the main path's configuration) on this
      card: 6 processes of one gloo group (multihost.spawn, each running
@@ -312,8 +339,9 @@ Phases (any failure raises and the script exits non-zero):
      phase 5's CPU dts (its distance to the single-process card dt
      printed); K3 does not run there.
 Each phase's wall seconds are printed ("phase NAME: S s").  On the card
-every dycore ``run`` and the coupled step replay CUDA graphs: the
-wrappers' launch counters move by the launches each replay makes.
+every dycore ``run``, the coupled step and each unit of 10b replay CUDA
+graphs: the wrappers' launch counters move by the launches each replay
+makes.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
 C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
 emulated and series paths, K6 on the C192 and C384 paths, K1, K3, K4 and K5 on the
@@ -346,7 +374,7 @@ import types
 import numpy as np
 import torch
 
-from fv3net_tpu_torch import parity, probe, wrapper
+from fv3net_tpu_torch import graphs, parity, probe, wrapper
 from fv3net_tpu_torch.constants import GRAV
 from fv3net_tpu_torch.dycore import riemann, sw
 from fv3net_tpu_torch.dycore.hydro import (
@@ -485,11 +513,13 @@ LAUNCHES_PROGNOSTIC = dict(
 )
 # ... and with one tracer (phase 10's hydrostatic dt)
 LAUNCHES_HYDRO_1TR = dict(LAUNCHES_PROGNOSTIC, fv_tp_2d=19)
-PROGNOSTIC_STEPS = 3  # steps of each segment of phase 11
+PROGNOSTIC_STEPS = 6  # steps of each segment of phase 11
+PROGNOSTIC_TRACED = (4, 5)  # steps of each segment traced (replayed, eager)
 # ... on the nudged path (nonhydrostatic, six tracers): the C48 main
 # path's launches with five transports a substep and one a tracer
 LAUNCHES_NUDGED = dict(LAUNCHES_PER_DT, fv_tp_2d=36)
 NUDGED_STEPS = 4  # TimeLoop steps of phase 13, inside the snapshots' hour
+NUDGED_TRACED = (3,)  # the step of phase 13 traced (eager; 2 is replayed)
 # phase 13's column water budget across apply_physics: six species and
 # the precipitation, less the surface evaporation, relative to the water
 WATER_BOUND = 1e-5
@@ -1920,31 +1950,320 @@ def eager_parity(n, config, noisy):
     compare_states(tag, got, plain32, ref64, perturbed=perturbed)
 
 
+# --- phase 10b ---------------------------------------------------------------
+
+UNIT_REPS = 10  # calls of each side of a unit's A/B (phase 10b, 23)
+
+
+def leaves_of(x):
+    """The tensors of an output tree, by position, in float64 (exact for
+    float32): hold_replay's mapping."""
+    return {str(i): t.double() for i, t in enumerate(graphs._flatten(x)[0])}
+
+
+def eagerly(fn):
+    """fn within graphs.eager(): the eager side of an A/B."""
+    def call():
+        with graphs.eager():
+            return fn()
+
+    return call
+
+
+def ab_calls(tag, eager, replay, n):
+    """ms per call of `eager` and of `replay` (callables of no argument),
+    n of each in turns (A B B A ...) by CUDA events; returns the medians.
+    The events bracket the host's launches too, so a host-paced call
+    shows its host time."""
+    times = {"eager": [], "replay": []}
+    fns = {"eager": eager, "replay": replay}
+    for i in range(n):
+        for k in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fns[k]()
+            t1.record()
+            torch.cuda.synchronize()
+            times[k].append(t0.elapsed_time(t1))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say(f"{tag} ms a call: eager {med['eager']:.3f}, replayed "
+        f"{med['replay']:.3f} (medians of {n} each, in turns)")
+    return med
+
+
+def hold_unit(tag, unit, *args, **kwargs):
+    """A jit unit on the card: its first call (warm-up, capture, replay)
+    and a second replay against two eager calls (hold_replay), its ms
+    eager and replayed (ab_calls), its captures and the memory they
+    hold.  Returns the eager and replayed medians."""
+    got = unit(*args, **kwargs)
+    again_r = unit(*args, **kwargs)
+    eager = unit.eager(*args, **kwargs)
+    again = unit.eager(*args, **kwargs)
+    torch.cuda.synchronize()
+    hold_replay(tag, leaves_of(got), leaves_of(eager), leaves_of(again))
+    hold_replay(f"{tag} (second replay)", leaves_of(again_r),
+                leaves_of(eager), leaves_of(again))
+    med = ab_calls(tag, lambda: unit.eager(*args, **kwargs),
+                   lambda: unit(*args, **kwargs), UNIT_REPS)
+    say(f"{tag}: {unit.captures()} capture(s) of {unit.name}, "
+        f"{unit.memory() / 2**20:.2f} MiB held")
+    return med
+
+
+def report_units(tag):
+    """Every live jit unit with a capture: its captures and the device
+    memory they hold (static inputs and the graphs' pools), by unit, and
+    the bound on captures a unit keeps."""
+    units = sorted((u for u in graphs.units() if u.captures()),
+                   key=lambda u: u.name)
+    total = sum(u.memory() for u in units)
+    say(f"{tag} captured units (at most {graphs.MAX_CAPTURES} graphs a "
+        f"unit, the least recently used dropped beyond it): "
+        + ", ".join(f"{u.name} {u.captures()} ({u.memory() / 2**20:.2f} "
+                    f"MiB)" for u in units)
+        + f"; {total / 2**20:.2f} MiB in all")
+
+
+def unit_families(t, qv):
+    """One predictor of each fit family with seeded weights on the card
+    at C48 x 63 (T and q in, 126 features or channels), and the inputs
+    of each jitted apply: (tag, unit, args)."""
+    from fv3net_tpu_torch.fit import (
+        convolutional, dense, generative, graph, precipitative, recurrent,
+        reservoir)
+    from fv3net_tpu_torch.fit._shared import ArrayPacker, StandardScaler
+    from fv3net_tpu_torch.util.quantity import Quantity
+
+    torch.manual_seed(0)
+    dev = t.device
+    nf = 2 * NZ
+    cols = 6 * 48 * 48
+    dims = ("tile", "z", "y", "x")
+    X = {names.TEMP: Quantity(t.cpu().numpy(), dims),
+         names.SPHUM: Quantity(qv.cpu().numpy(), dims)}
+    X.update({"dQ1": X[names.TEMP], "dQ2": X[names.SPHUM]})
+    packers = [ArrayPacker(v) for v in TRAIN_VARIABLES]
+    scalers = [StandardScaler().fit(pk.to_array(X)) for pk in packers]
+    mlp = dense.DenseModel(*TRAIN_VARIABLES, *packers, *scalers,
+                           dense._MLP(nf, [64] * 3, nf).to(dev))
+    cube = torch.randn(6, 48, 48, nf, device=dev)
+    col = torch.randn(cols, nf, device=dev)
+    wide = {"T": NZ, "q": NZ}
+
+    def scaler(n):
+        sc = StandardScaler()
+        sc.mean, sc.std = np.zeros(n), np.ones(n)
+        return sc
+
+    conv = convolutional.ConvolutionalModel(
+        ["T", "q"], ["T", "q"], wide, wide, None, None,
+        convolutional._CNN(nf, 32, 2, 3, nf).to(dev), 2)
+    gnn = graph.GraphModel(["T", "q"], ["T", "q"], wide, wide, None, None,
+                           None, graph._GraphMPG(nf, 32, 3, nf).to(dev))
+    ae = generative.AutoencoderModel(
+        ["T", "q"], wide, None, generative._AE(nf, 16, 2, 8, nf).to(dev))
+    gan = generative.CycleGANModel(
+        ["T", "q"], ["T", "q"], wide, None, None,
+        *(generative._Generator(nf, 16, 2, nf).to(dev) for _ in range(2)))
+    prec = precipitative.PrecipitativeModel(
+        ["T", "q"], None, None, scaler(NZ), scaler(NZ),
+        precipitative._Trunk(nf, [64] * 3, NZ).to(dev), NZ)
+    fmr = recurrent.FMRModel(["f"], ["T", "q"], None, None, None, None, None,
+                             recurrent._FMRCore(64, nf, 2).to(dev))
+    hp = reservoir.ReservoirHyperparameters()
+    n_input = nf * (24 + 2 * hp.overlap) ** 2  # a 2 x 2 layout's subdomain
+    res = reservoir.ReservoirComputingModel(
+        ["T", "q"], ["T", "q"], hp,
+        reservoir.Reservoir(hp, n_input, device=dev),
+        torch.zeros(2 * hp.state_size, nf, device=dev),
+        types.SimpleNamespace(n_subdomains=4), None, None)
+    emulator = train_emulator({k: np.random.RandomState(0).rand(
+        2048, NZ).astype(np.float32) for k in GSCOND_KEYS}, dev, epochs=1)
+    n_em = emulator.module.trunk[0].in_features
+    return [
+        ("dense _apply", mlp._apply, (col,)),
+        ("dense _dev_fn (pure_fn)", mlp._dev_fn,
+         (mlp.params_on(dev), {names.TEMP: t, names.SPHUM: qv})),
+        ("convolutional _apply", conv._apply, (cube,)),
+        ("graph _apply", gnn._apply, (cube,)),
+        ("autoencoder _apply", ae._apply, (cube,)),
+        ("autoencoder _encode", ae._encode, (cube,)),
+        ("cyclegan _fwd", gan._fwd, (cube,)),
+        ("cyclegan _bwd", gan._bwd, (cube,)),
+        ("precipitative _jit_fwd", prec._jit_fwd,
+         (col, torch.rand(cols, NZ, device=dev))),
+        ("fmr _jit_rollout", fmr._jit_rollout,
+         (col, torch.randn(4, cols, 2, device=dev))),
+        ("reservoir _step", res._step,
+         (torch.randn(24, n_input, device=dev), res._x)),
+        ("transformed _apply", emulator._apply,
+         (torch.randn(cols, n_em, device=dev),)),
+    ]
+
+
+def phase_units():
+    """Each unit the JAX package jits on the serving paths, on the card at
+    C48 x 63 f32 (module docstring, 10b)."""
+    from fv3net_tpu_torch.physics.radiation import RadiationDriver
+    from fv3net_tpu_torch.runtime import steppers
+    from fv3net_tpu_torch.utils.zenith import cos_zenith_angle
+
+    n = 48
+    inputs = parity.moist_inputs(n, NZ)
+    wrapper.initialize(wrapper.ModelConfig(npx=n + 1, npz=NZ,
+                                           physics_suite="gfs"),
+                       device="cuda")
+    wrapper.set_state(inputs)
+    mdl = wrapper.get_model()
+    st = mdl.state
+    t, qv, qc, u, v, delp = (mdl._temperature(), st.q[0], st.q[1], st.u,
+                             st.v, st.delp)
+    tsfc = mdl._tsfc_tensor()
+    pe, _ = mdl._pressure_layers(delp)
+    p = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def rand(shape, scale):
+        return scale * torch.rand(shape, generator=gen, device="cuda")
+
+    cfg = gfs.GFSPhysicsConfig()
+    gfdl = gfs.GFSPhysicsConfig(convection_scheme="mass_flux",
+                                microphysics_scheme="gfdl")
+    mp = tuple(rand(t.shape, 1e-5) for _ in range(4))
+    tag = f"C{n}x{NZ}"
+    hold_unit(f"{tag} held_suarez_tendencies",
+              wrapper._held_suarez_tendencies, t, u, v, pe, mdl._lat_t,
+              DT_ATMOS)
+    hold_unit(f"{tag} saturation_adjustment", wrapper._saturation_adjustment,
+              t, qv, qc, p, delp, DT_ATMOS)
+    hold_unit(f"{tag} gfs_physics_step (Zhao-Carr)", gfs.gfs_physics_step,
+              t, qv, qc, u, v, delp, tsfc, PTOP, DT_ATMOS, cfg=cfg)
+    hold_unit(f"{tag} gfs_physics_step (mass flux, gwd, GFDL, mp_tracers)",
+              gfs.gfs_physics_step, t, qv, qc, u, v, delp, tsfc, PTOP,
+              DT_ATMOS, cfg=gfdl, h_std=rand(tsfc.shape, 400.0),
+              mp_tracers=mp)
+    hold_unit(f"{tag} gscond", wrapper._gscond, t, qv, qc, p, DT_ATMOS)
+    hold_unit(f"{tag} precpd", wrapper._precpd, t, qv, rand(t.shape, 1e-4),
+              p, delp, DT_ATMOS, cfg)
+    drv = RadiationDriver()
+    drv.radupdate(RAD_TIME)
+    cosz = np.maximum(cos_zenith_angle(
+        RAD_TIME, np.rad2deg(mdl.lon), np.rad2deg(mdl.lat)), 0.0)
+    hold_unit(f"{tag} gray radiation _core", drv._jit_core,
+              mdl._tensor(cosz), p, delp, t, qv, tsfc,
+              mdl._tensor(float(np.float32(drv._solcon))))
+    hold_unit(f"{tag} non_negative_sphum", steppers._non_negative_sphum, qv,
+              rand(t.shape, 1e-4) - 5e-5, rand(t.shape, 1e-7) - 5e-8,
+              dt=DT_ATMOS)
+    for name, unit, args in unit_families(t, qv):
+        hold_unit(f"{tag} {name}", unit, *args)
+
+
 class SyncTimer(timing.Timer):
     """The loop's Timer with a synchronisation before each clock read
     (entry and exit), the host clock when each "mainloop" block starts,
     and the kernel launches of each step, read when a "mainloop" block
-    ends."""
+    ends.  Within ``alternating()`` (phases 11, 13 and 15-17) the steps
+    take turns: even steps replay the captured units (step 0 captures
+    them), odd steps run every unit eagerly (``graphs.eager()``); the
+    steps whose index is in ``traced`` run under torch.profiler, their
+    device busy ms in ``busy``."""
 
     instances = []
+    ab = False
+    traced = ()
 
     def __init__(self):
         super().__init__()
         self.launches = []
         self.starts = []
+        self.eager = []
+        self.busy = {}
         SyncTimer.instances.append(self)
 
     @contextlib.contextmanager
     def clock(self, name):
         torch.cuda.synchronize()
-        if name == "mainloop":
-            reset_counts()
-            self.starts.append(time.perf_counter())
-        with super().clock(name):
-            yield
-            torch.cuda.synchronize()
-        if name == "mainloop":
-            self.launches.append(read_counts())
+        if name != "mainloop":
+            with super().clock(name):
+                yield
+                torch.cuda.synchronize()
+            return
+        i = len(self.starts)
+        self.eager.append(SyncTimer.ab and i % 2 == 1)
+        reset_counts()
+        self.starts.append(time.perf_counter())
+        with contextlib.ExitStack() as stack:
+            if self.eager[-1]:
+                stack.enter_context(graphs.eager())
+            prof = (stack.enter_context(device_profile())
+                    if i in SyncTimer.traced else None)
+            with super().clock(name):
+                yield
+                torch.cuda.synchronize()
+        if prof is not None:
+            self.busy[i] = device_busy_ms(prof)
+        self.launches.append(read_counts())
+
+
+@contextlib.contextmanager
+def alternating(traced=()):
+    """SyncTimers alternate replayed and eager steps within the block,
+    and trace the steps `traced`."""
+    SyncTimer.ab, SyncTimer.traced = True, tuple(traced)
+    try:
+        yield
+    finally:
+        SyncTimer.ab, SyncTimer.traced = False, ()
+
+
+def device_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def device_busy_ms(prof):
+    """The summed device time (kernels, copies) of a profiler trace."""
+    cuda_t = torch.autograd.DeviceType.CUDA
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == cuda_t) / 1e3
+
+
+def ab_report(tag, timers, clocks=("mainloop",)):
+    """Eager beside replayed: each clock's median ms over the untraced
+    steps of each side (the first step of each TimeLoop, which captures,
+    left out), and each traced step's device busy ms and idle share
+    (against its own ms, and against the untraced median of its side).
+    Returns {side: mainloop median}."""
+    def samples(clock, eager):
+        return [1e3 * tm.times[clock][i] for tm in timers
+                for i, e in enumerate(tm.eager)
+                if i > 0 and e == eager and i not in tm.busy]
+
+    med = {}
+    for clock in clocks:
+        row = []
+        for side, eager in (("eager", True), ("replayed", False)):
+            got = samples(clock, eager)
+            m = statistics.median(got) if got else float("nan")
+            if clock == "mainloop":
+                med[side] = m
+            row.append(f"{side} {m:.3f} (of {len(got)}: "
+                       f"{[round(t, 3) for t in got]})")
+        say(f"{tag} {clock:11s} ms A/B: {'; '.join(row)}")
+    for tm in timers:
+        for i, busy in sorted(tm.busy.items()):
+            side = "eager" if tm.eager[i] else "replayed"
+            own = 1e3 * tm.times["mainloop"][i]
+            say(f"{tag} traced step {i} ({side}): device busy {busy:.3f} "
+                f"ms, mainloop {own:.3f} ms (traced), idle share "
+                f"{1.0 - busy / own:.3f} against it, "
+                f"{1.0 - busy / med[side]:.3f} against the untraced "
+                f"median of its side ({med[side]:.3f} ms)")
+    return med
 
 
 class SyncScalarSink(timing.ScalarSink):
@@ -2001,6 +2320,7 @@ def phase_prognostic_run():
     originals = [getattr(mod, name) for mod, name, _ in patches]
     SyncTimer.instances.clear()
     SyncScalarSink.ends.clear()
+    stack = contextlib.ExitStack()
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path = os.path.join(tmp, "fv3config.yml")
         with open(cfg_path, "w") as f:
@@ -2009,6 +2329,7 @@ def phase_prognostic_run():
         try:
             for mod, name, fn in patches:
                 setattr(mod, name, fn)
+            stack.enter_context(alternating(traced=PROGNOSTIC_TRACED))
             t0 = time.perf_counter()
             if cli.main(["run-native", cfg_path, rundir]) != 0:
                 raise AssertionError("run-native failed")
@@ -2022,6 +2343,7 @@ def phase_prognostic_run():
             say(f"C48x63 prognostic append ({PROGNOSTIC_STEPS} steps): "
                 f"{time.perf_counter() - t0:.1f} s")
         finally:
+            stack.close()
             for (mod, name, _), fn in zip(patches, originals):
                 setattr(mod, name, fn)
         check_prognostic_files(rundir)
@@ -2032,6 +2354,8 @@ def phase_prognostic_run():
     for i, c in enumerate(launches):
         check_counts(f"C48x63 prognostic step {i}", c, LAUNCHES_PROGNOSTIC)
     report_prognostic_times(timers)
+    ab_report("C48x63 prognostic", timers, ("mainloop", "dynamics",
+                                            "physics"))
     mdl = wrapper.get_model()
     for k, x in mdl.state._asdict().items():
         if x is not None and not bool(torch.isfinite(x).all()):
@@ -2143,7 +2467,10 @@ def gfdl_branches():
 
     gfdl_mp.saturation_adjustment = recording
     try:
-        yield masks
+        # the recorder reads the host: the units run their eager bodies
+        # (each replay equals its eager call, phase 10b)
+        with graphs.eager():
+            yield masks
     finally:
         gfdl_mp.saturation_adjustment = real
 
@@ -2295,7 +2622,7 @@ def phase_nudged_run():
     rows = {v: [] for v in [names.TEMP, names.SPHUM] + tend}
     drows = {}
     precip_cols = []
-    with budgets(mdl) as rec:
+    with budgets(mdl) as rec, alternating(traced=NUDGED_TRACED):
         for time_, diags in tl:
             for v in (names.TEMP, names.SPHUM):
                 rows[v].append(tl.state[v].values)
@@ -2307,6 +2634,8 @@ def phase_nudged_run():
     check_run("C48x63 nudged", wm, tl, rec, LAUNCHES_NUDGED,
               ("mainloop", "dynamics", "physics", "postphysics", "tracers",
                "prephysics"))
+    ab_report("C48x63 nudged", [tl.timer], ("mainloop", "dynamics",
+                                            "physics", "postphysics"))
     check_hydrometeors(rec["hydro"])
     say(f"C48x63 nudged GFDL precipitation > 0 in {precip_cols} of "
         f"{6 * n * n} columns (each step)")
@@ -2844,7 +3173,7 @@ def phase_ml_run(root, model_dir):
     drows = {}
     logs = os.path.join(root, *DIAG_LOGS)
     sink = timing.ScalarSink(logs)
-    with budgets(mdl) as rec:
+    with budgets(mdl) as rec, alternating():
         for step, (time_, _) in enumerate(tl):
             diag_rows(drows, tl.state)
             sink.write(step, time_, {
@@ -2852,6 +3181,9 @@ def phase_ml_run(root, model_dir):
                 if v[-1].ndim == 3})
     sink.close()
     check_run("C48x63 ML-corrected", wm, tl, rec, LAUNCHES_ML)
+    ab_report("C48x63 ML-corrected", [tl.timer], ("mainloop", "physics",
+                                                  "postphysics"))
+    report_units("C48x63 ML-corrected")
     write_store(os.path.join(root, *DIAG_STORES["ML-corrected"]), drows)
     timing.write_timing_json(tl.timer, logs)
     # the humidity limiter: no humidity below 0 where the tendency dries
@@ -2906,10 +3238,12 @@ def phase_emulated_run(root):
         tl = loop_mod.TimeLoop(wm, derived_state.DerivedModelState(wm),
                                mdl.config.dt_atmos, n_steps=n_steps)
         tl.timer = SyncTimer()
-        with budgets(mdl) as rec:
+        with budgets(mdl) as rec, alternating():
             for _ in tl:
                 pass
         check_run(tag, wm, tl, rec, LAUNCHES_EMULATED)
+        ab_report(tag, [tl.timer], ("mainloop", "physics"))
+        report_units(tag)
         # the cloud water's minimum after each apply_physics
         return tl, [float(after[0]) for _, after, _, _ in rec["hydro"]]
 
@@ -2995,6 +3329,7 @@ def phase_emulated_run(root):
 
 
 SERIES_STEPS = 64  # TimeLoop steps of phase 17: 16 simulated hours
+SERIES_TRACED = (60, 61)  # steps of phase 17 traced (replayed, eager)
 SERIES = [names.TEMP, names.SPHUM]  # the series' state (T and q)
 # the FMR's forcings: the cosine of the solar zenith angle and the
 # physics' precipitation rate, which the FMR's state (T and q) does not
@@ -3052,7 +3387,7 @@ def phase_series_run(root):
     stored = SERIES + [names.TSFC, names.PHYSICS_PRECIP_RATE]
     rows = {v: [] for v in stored + FORCINGS[:1]}
     t0 = time.perf_counter()
-    with budgets(mdl) as rec:
+    with budgets(mdl) as rec, alternating(traced=SERIES_TRACED):
         for time_, _ in tl:
             for v in stored:
                 rows[v].append(np.asarray(tl.state[v].values))
@@ -3060,6 +3395,8 @@ def phase_series_run(root):
                 time_, np.rad2deg(mdl.lon), np.rad2deg(mdl.lat)))
     wall = time.perf_counter() - t0
     check_run("C48x63 series", wm, tl, rec, LAUNCHES_SERIES)
+    ab_report("C48x63 series", [tl.timer], ("mainloop", "dynamics",
+                                            "physics"))
     path = os.path.join(root, "series.zarr")
     write_store(path, rows)
     moved = {v: float(np.abs(rows[v][-1] - rows[v][0]).max()) for v in rows}
@@ -3474,6 +3811,9 @@ def offline_numbers(report):
     return out
 
 
+OFFLINE_AB = 3  # predict_over_mapper calls of each side (phase 19)
+
+
 def phase_offline(root, dense_dir, graph_dir):
     """The offline evaluation (module docstring, 19)."""
     from fv3net_tpu_torch import data, fit
@@ -3499,6 +3839,16 @@ def phase_offline(root, dense_dir, graph_dir):
         if model_devices(pred.calls[0][0][0]) != {"cuda"}:
             raise AssertionError(f"offline {tag}: the model is not on the "
                                  f"card")
+        # the predictions again, eager beside replayed (the CLI's call
+        # captured the model's apply)
+        args = pred.calls[0][0]
+        ab_calls(f"C48 offline {tag} predict_over_mapper",
+                 eagerly(lambda: offline.predict_over_mapper(*args)),
+                 lambda: offline.predict_over_mapper(*args), OFFLINE_AB)
+        apply = args[0]._apply
+        say(f"C48 offline {tag}: {apply.captures()} capture(s) of the "
+            f"model's {apply.name} (one a batch shape), "
+            f"{apply.memory() / 2**20:.2f} MiB held")
         files = sorted(os.listdir(report))
         want = {"index.html", "offline_diagnostics.npz",
                 "scalar_metrics.json"} | (
@@ -3536,6 +3886,7 @@ def phase_offline(root, dense_dir, graph_dir):
                      offline.column_jacobian(F64Dense(cpu), sample), "f64")
         elif jac.calls and jac.calls[0][1]:
             raise AssertionError("offline graph: a column Jacobian")
+    report_units("C48 offline (and the earlier phases' models)")
 
 
 # --- phase 20 ---------------------------------------------------------------
@@ -4471,7 +4822,9 @@ def phase_radiation():
     drv = MultibandRadiationDriver()
     drv.radupdate(RAD_TIME)
     card_call = radiation_call(drv, inp, "cuda", torch.float32)
-    got = card_call()
+    got = card_call()  # the first call captures drv._jit
+    eager_call = eagerly(card_call)
+    hold_replay("radiation C48x63", got, eager_call(), eager_call())
     torch.cuda.synchronize()
     runs = {}
     for dtype in (torch.float32, torch.float64):
@@ -4487,29 +4840,27 @@ def phase_radiation():
     radiation_closure("radiation C48x63 card", got, delp32)
     radiation_closure("radiation C48x63 f64", runs[torch.float64],
                       torch.as_tensor(inp["delp"]))
-    ms = cuda_ms(card_call, reps=RAD_REPS, warmup=2)
-    walls = []
-    for _ in range(RAD_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        card_call()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        card_call()
-        torch.cuda.synchronize()
+    ms = ab_calls("radiation C48x63", eager_call, card_call, RAD_REPS)
+    walls = {"eager": [], "replay": []}
+    for i in range(RAD_REPS):
+        for k in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (eager_call if k == "eager" else card_call)()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
     cuda_t = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events() if e.device_type == cuda_t]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    say(f"radiation C48x63: {ms:.3f} ms a call (CUDA events, median of "
-        f"{RAD_REPS}), wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({len(kernels)} device ops), host share "
-        f"{1.0 - busy / wall:.3f} of the wall time")
-    return dict(ms=ms, wall_ms=wall, busy_ms=busy)
+    for k, fn in (("eager", eager_call), ("replay", card_call)):
+        wall = statistics.median(walls[k])
+        with device_profile() as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == cuda_t]
+        busy = device_busy_ms(prof)
+        say(f"radiation C48x63 {k}: {ms[k]:.3f} ms a call (CUDA events, "
+            f"median of {RAD_REPS}), wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms ({len(kernels)} device ops), host share "
+            f"{1.0 - busy / wall:.3f} of the wall time")
 
 
 def _spmd_stepper(mode, mesh, n, device, dtype):
@@ -4798,6 +5149,7 @@ def main():
     timed("coupled parity", phase_coupled_parity)
     coupled_launches = timed("coupled C48", phase_coupled_path)
     timed("hydrostatic parity", phase_hydrostatic_parity)
+    timed("units", phase_units)
     prognostic_launches = timed("prognostic run", phase_prognostic_run)
     timed("nudged parity", phase_nudged_parity)
     nudged_launches, case = timed("nudged run", phase_nudged_run)

@@ -10,6 +10,10 @@ kind it is given, and a tensor stays on its device.
 ``fit.load`` puts a model's parameters on the CUDA device unless the
 caller names another, and raises without one.  A numpy state is predicted
 on the model's device and comes back as numpy, as the JAX package's is.
+Each family's apply is jitted where the JAX package jits it
+(``graphs.jit`` of ``no_grad(module)``): on the card one replayed graph
+for each input shape (at most ``graphs.MAX_CAPTURES`` a model), eager on
+the CPU.
 
 Training runs in float32 with Adam (``adam``: b1 0.9, b2 0.999, eps 1e-8
 outside the square root, as ``optax.adam``); ``init_params`` draws the
@@ -22,7 +26,9 @@ module, so a test or a measuring script can replace any of them.
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 from typing import Callable, Dict, Iterable, Mapping, Sequence
@@ -353,13 +359,26 @@ class StandardScaler:
         return s
 
 
-def run_on_device(module: nn.Module, x: np.ndarray):
-    """`module` applied to the host array `x` (cast to float32) on the
-    module's device, without gradients; returns the output(s) as host
-    numpy arrays."""
+def no_grad(fn: Callable, context: Callable = contextlib.nullcontext):
+    """fn without gradients and within `context()`: the body of a
+    predictor's jitted apply (the context's switches hold while a graph
+    is captured, and so for its replays)."""
+    @functools.wraps(fn)
+    def call(*args):
+        with torch.no_grad(), context():
+            return fn(*args)
+
+    if isinstance(fn, nn.Module):  # named after its class
+        call.__qualname__ = type(fn).__qualname__
+    return call
+
+
+def run_on_device(module: nn.Module, x: np.ndarray, apply: Callable):
+    """`apply` (the jitted ``no_grad(module)``) on the host array `x`
+    (cast to float32) on the module's device; returns the output(s) as
+    host numpy arrays."""
     device = next(module.parameters()).device
-    with torch.no_grad():
-        y = module(torch.as_tensor(np.asarray(x, np.float32), device=device))
+    y = apply(torch.as_tensor(np.asarray(x, np.float32), device=device))
     if isinstance(y, (list, tuple)):
         return [t.cpu().numpy() for t in y]
     return y.cpu().numpy()

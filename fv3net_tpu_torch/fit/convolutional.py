@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..convert import module_from_flat, module_to_flat
+from ..graphs import jit
 from . import _shared
 from ._shared import (
     Predictor,
@@ -169,17 +170,17 @@ class ConvolutionalModel(Predictor):
         self.scaler_out = scaler_out
         self.module = module.float().eval()
         self.n_halo = n_halo
+        # the JAX package's jitted apply (halos appended inside)
+        self._apply = jit(_shared.no_grad(self._forward_with_halos,
+                                          _float32_convolutions))
+
+    def _forward_with_halos(self, x):
+        return _forward(self.module, x, self.n_halo)
 
     def predict(self, X):
         x, _ = _stack_channels(X, self.input_variables)
         xn = (x - self.scaler_in.mean) / self.scaler_in.std
-        device = next(self.module.parameters()).device
-        with torch.no_grad(), _float32_convolutions():
-            yn = _forward(
-                self.module,
-                torch.as_tensor(np.asarray(xn, np.float32), device=device),
-                self.n_halo,
-            ).cpu().numpy()
+        yn = _shared.run_on_device(self.module, xn, self._apply)
         y = yn * self.scaler_out.std + self.scaler_out.mean
         return _unstack_channels(
             y, self.output_variables, self.widths_out

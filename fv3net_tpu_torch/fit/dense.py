@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..convert import module_from_flat, module_to_flat
+from ..graphs import jit
 from ..util.quantity import Quantity
 from . import _shared
 from ._shared import (
@@ -77,6 +78,9 @@ class DenseModel(Predictor):
         self.module = module.float().eval()
         self.params = dict(self.module.state_dict())
         self._scaler_cache = {}
+        # the JAX package's jitted apply and pure_fn (its _apply, _dev_fn)
+        self._apply = jit(_shared.no_grad(self.module))
+        self._dev_fn = jit(self.pure_fn)
 
     def params_on(self, device) -> Dict[str, torch.Tensor]:
         """The float32 parameters on `device` (for ``pure_fn``)."""
@@ -139,7 +143,7 @@ class DenseModel(Predictor):
         the MLP on the model's device, and comes back as numpy."""
         ref = X[self.input_variables[0]]
         if isinstance(ref.data, torch.Tensor):
-            outs = self.pure_fn(
+            outs = self._dev_fn(
                 self.params_on(ref.data.device),
                 {k: X[k].data for k in self.input_variables},
             )
@@ -147,7 +151,7 @@ class DenseModel(Predictor):
             return {k: templates[k].with_data(v) for k, v in outs.items()}
         x = self.packer_in.to_array(X)
         xn = self.scaler_in.normalize(x)
-        yn = _shared.run_on_device(self.module, xn)
+        yn = _shared.run_on_device(self.module, xn, self._apply)
         y = self.scaler_out.denormalize(yn)
         return self.packer_out.to_state(y, self._templates(X))
 

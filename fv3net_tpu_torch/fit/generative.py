@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..convert import module_from_flat, module_to_flat, nested_flax_layers
+from ..graphs import jit
 from . import _shared
 from ._shared import (
     Predictor,
@@ -200,14 +201,18 @@ def _unstack(y, names, widths):
     return out
 
 
-def _run(module, xn, method=None):
-    """`module` (or its `method`) on host xn, in IEEE float32 on the
-    module's device, without gradients; numpy out."""
+def _jit(fn):
+    """fn (a module or its method) jitted: without gradients, in IEEE
+    float32 convolutions."""
+    return jit(_shared.no_grad(fn, _float32_convolutions))
+
+
+def _run(module, xn, apply):
+    """`apply` (a jitted forward of `module`) on host xn on the module's
+    device; numpy out."""
     device = next(module.parameters()).device
-    fn = method or module
-    with torch.no_grad(), _float32_convolutions():
-        return fn(torch.as_tensor(np.asarray(xn, np.float32),
-                                  device=device)).cpu().numpy()
+    return apply(torch.as_tensor(np.asarray(xn, np.float32),
+                                 device=device)).cpu().numpy()
 
 
 @register("autoencoder")
@@ -217,16 +222,20 @@ class AutoencoderModel(Predictor):
         self.widths = widths
         self.scaler = scaler
         self.module = module.float().eval()
+        # the JAX package's jitted apply and encoder
+        self._apply = _jit(self.module)
+        self._encode = _jit(self.module.encode)
 
     def encode(self, X):
         x, _ = _stack_channels(X, self.input_variables)
         xn = (x - self.scaler.mean) / self.scaler.std
-        return _run(self.module, xn, self.module.encode)
+        return _run(self.module, xn, self._encode)
 
     def predict(self, X):
         x, _ = _stack_channels(X, self.input_variables)
         xn = (x - self.scaler.mean) / self.scaler.std
-        y = _run(self.module, xn) * self.scaler.std + self.scaler.mean
+        y = _run(self.module, xn, self._apply) * self.scaler.std + \
+            self.scaler.mean
         return _unstack(y, self.output_variables, self.widths)
 
     def dump(self, path: str):
@@ -394,11 +403,15 @@ class CycleGANModel(Predictor):
         self.scaler_b = scaler_b
         self.gen_ab = gen_ab.float().eval()
         self.gen_ba = gen_ba.float().eval()
+        # the JAX package's jitted translations A->B and B->A
+        self._fwd = _jit(self.gen_ab)
+        self._bwd = _jit(self.gen_ba)
 
     def predict(self, X):
         x, _ = _stack_channels(X, self.input_variables)
         xn = (x - self.scaler_a.mean) / self.scaler_a.std
-        y = _run(self.gen_ab, xn) * self.scaler_b.std + self.scaler_b.mean
+        y = _run(self.gen_ab, xn, self._fwd) * self.scaler_b.std + \
+            self.scaler_b.mean
         return _unstack(y, self.output_variables, self.widths)
 
     def dump(self, path: str):

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..convert import module_from_flat, module_to_flat, nested_flax_layers
+from ..graphs import jit
 from . import _shared
 from ._shared import (
     Predictor,
@@ -187,12 +188,13 @@ class GraphModel(Predictor):
         self.scaler_out = scaler_out
         self.hp = hp
         self.module = module.float().eval()
+        self._apply = jit(_shared.no_grad(self.module))
 
     def predict(self, X):
         """One cube (6 tiles) on the model's device; returns numpy."""
         x, _ = _stack_channels(X, self.input_variables)
         xn = (x - self.scaler_in.mean) / self.scaler_in.std
-        yn = _shared.run_on_device(self.module, xn)
+        yn = _shared.run_on_device(self.module, xn, self._apply)
         y = yn * self.scaler_out.std + self.scaler_out.mean
         return _unstack_channels(
             y, self.output_variables, self.widths_out

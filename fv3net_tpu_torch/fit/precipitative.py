@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..convert import module_from_flat, module_to_flat
+from ..graphs import constant, jit
 from . import _shared
 from ._shared import (
     ArrayPacker,
@@ -99,22 +100,29 @@ class PrecipitativeModel(Predictor):
         self.scaler_q2 = scaler_q2
         self.module = module.float().eval()
         self.nz = nz
+        # the JAX package's jitted forward
+        self._jit_fwd = jit(_shared.no_grad(self._forward))
+
+    def _forward(self, x, delp):
+        """The network in float32, denormalised with the scalers in their
+        own dtype, and the physical precipitation (the JAX package's
+        jitted forward with its numpy constants)."""
+        dev = x.device
+        q1n, q2n, res = self.module(x)
+        q1 = (q1n * constant(self.scaler_q1.std, None, dev)
+              + constant(self.scaler_q1.mean, None, dev))
+        q2 = (q2n * constant(self.scaler_q2.std, None, dev)
+              + constant(self.scaler_q2.mean, None, dev))
+        return q1, q2, _physical_precip(q2, delp, res)
 
     def _fwd(self, xn, delp):
-        """The network on the model's device in float32, denormalised with
-        the scalers in their own dtype, and the physical precipitation (as
-        the JAX package's jitted forward with its numpy constants)."""
+        """``_forward`` on the host arrays, on the model's device; numpy
+        out."""
         device = next(self.module.parameters()).device
-
-        def dev(a, dtype=None):
-            return torch.as_tensor(np.asarray(a, dtype), device=device)
-
-        with torch.no_grad():
-            q1n, q2n, res = self.module(dev(xn, np.float32))
-            q1 = q1n * dev(self.scaler_q1.std) + dev(self.scaler_q1.mean)
-            q2 = q2n * dev(self.scaler_q2.std) + dev(self.scaler_q2.mean)
-            precip = _physical_precip(q2, dev(delp, np.float32), res)
-        return q1.cpu().numpy(), q2.cpu().numpy(), precip.cpu().numpy()
+        out = self._jit_fwd(*(
+            torch.as_tensor(np.asarray(a, np.float32), device=device)
+            for a in (xn, delp)))
+        return tuple(t.cpu().numpy() for t in out)
 
     def predict(self, X):
         from ..util.quantity import Quantity

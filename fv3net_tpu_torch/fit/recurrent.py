@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..convert import module_from_flat, module_to_flat, nested_flax_layers
+from ..graphs import jit
 from . import _shared
 from ._shared import (
     Predictor,
@@ -122,6 +123,8 @@ class FMRModel(Predictor):
         self.scaler_out = scaler_out
         self.hp = hp
         self.module = module.float().eval()
+        # the JAX package's jitted rollout
+        self._jit_rollout = jit(_shared.no_grad(self.module.rollout))
 
     def _norm_in(self, x):
         return (x - self.scaler_in.mean) / self.scaler_in.std
@@ -131,11 +134,10 @@ class FMRModel(Predictor):
 
     def _rollout(self, sn, fn):
         device = next(self.module.parameters()).device
-        with torch.no_grad():
-            traj = self.module.rollout(
-                torch.as_tensor(np.asarray(sn, np.float32), device=device),
-                torch.as_tensor(np.asarray(fn, np.float32), device=device),
-            )
+        traj = self._jit_rollout(
+            torch.as_tensor(np.asarray(sn, np.float32), device=device),
+            torch.as_tensor(np.asarray(fn, np.float32), device=device),
+        )
         return traj.cpu().numpy()
 
     def predict(self, X):

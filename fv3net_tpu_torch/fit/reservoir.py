@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import default_device
+from ..graphs import jit
 from . import _shared
 from ._shared import Predictor, register, register_training_function
 
@@ -212,6 +213,8 @@ class ReservoirComputingModel(Predictor):
         self.norm_in = norm_in  # (mean, std) over features
         self.norm_out = norm_out
         self.reset()
+        # one echo-state step a dispatch (the JAX package's jitted _step)
+        self._step = jit(self.reservoir.increment_state)
 
     @property
     def device(self) -> torch.device:
@@ -230,7 +233,7 @@ class ReservoirComputingModel(Predictor):
     def increment(self, X):
         u = torch.as_tensor(np.asarray(self._pack_inputs(X), np.float32),
                             device=self.device)
-        self._x = self.reservoir.increment_state(u, self._x)
+        self._x = self._step(u, self._x)
 
     def synchronize(self, series):
         self.reset()

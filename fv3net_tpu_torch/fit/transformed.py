@@ -44,6 +44,7 @@ from ..emulation.transforms import (
     compose_from_config,
 )
 from ..convert import module_from_flat, module_to_flat
+from ..graphs import jit
 from . import _shared
 from ._shared import Predictor, register, register_training_function
 
@@ -191,6 +192,7 @@ class TransformedPredictor(Predictor):
         self.config = config
         self.transform = transform
         self.module = module.float().eval()
+        self._apply = jit(_shared.no_grad(self.module))
         self.norms = norms  # per-variable (mean, std) in model space
         model = config.model
         # the hook feeds physics names; advertise what must be present
@@ -250,7 +252,7 @@ class TransformedPredictor(Predictor):
             std = self.norms[name + "_std"]
             cols.append((x[name] - mean) / std)
         xin = np.concatenate(cols, axis=-1).astype(np.float32)
-        heads = _shared.run_on_device(self.module, xin)
+        heads = _shared.run_on_device(self.module, xin, self._apply)
         y = dict(x)
         for name, h in zip(model.output_variables, heads):
             mean = self.norms[name + "_mean"]

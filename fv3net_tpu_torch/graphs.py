@@ -39,19 +39,82 @@ replays it with one launch:
 
 Only CUDA tensors are captured; a capture that fails raises, and
 nothing falls back to eager.  The CPU path of the callers stays eager.
+
+``jit(fn)`` is the port's ``jax.jit(fn)`` for the smaller units the JAX
+package jits one by one (the wrapper's physics, the radiation drivers,
+the ML predictors' apply): the eager ``fn`` on CPU tensors, a
+``Graphed`` replay on CUDA tensors, and ``fn`` inlined where it is
+called inside another capture (or its warm-up), as a jit inside a jit.
+Keyword arguments, hashable frozen dataclasses (a static configuration,
+``static_argnames``) and Python constants join the key.  A unit keeps at
+most ``MAX_CAPTURES`` graphs: a call with a new key beyond that drops the
+least recently used one, and says so in a warning (``_LOG``), so a caller
+that cycles through more shapes recaptures rather than holding pool
+memory without bound.  ``captures()`` and ``memory()`` tell how many
+graphs a unit holds and the device bytes they keep; ``units()`` lists
+the live units.
+
+``eager()`` is the other side of an A/B measurement: within it every
+``jit`` unit and every ``Graphed`` function runs its eager body on CUDA
+tensors too.  Nothing enters it by itself.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
+import functools
+import logging
+import weakref
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from .ops._build import COUNTED
 
+_LOG = logging.getLogger(__name__)
+
 # eager calls before a capture: the first builds the cached tables, the
 # second runs as the capture will, with every table in place
 WARMUP = 2
+# the graphs a jit unit keeps (least recently used dropped beyond it):
+# a predictor sees a batch shape or two (the offline evaluation: its
+# dataset's and the column Jacobian's), the physics one key per config
+MAX_CAPTURES = 8
+
+# the device type whose tensors are captured
+CAPTURED_DEVICE = "cuda"
+# > 0 while a Graphed function's body runs its warm-up or its capture
+_inside = 0
+# set within eager(): every body runs eagerly
+_eager = False
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block every ``jit`` unit and every ``Graphed`` function
+    runs its eager body, on CUDA tensors too (the eager side of an A/B
+    measurement)."""
+    global _eager
+    before, _eager = _eager, True
+    try:
+        yield
+    finally:
+        _eager = before
+
+
+def _static(x):
+    """x is a constant of the key: a hashable frozen dataclass."""
+    if not (dataclasses.is_dataclass(x) and not isinstance(x, type)
+            and type(x).__dataclass_params__.frozen):
+        return False
+    try:
+        hash(x)
+    except TypeError:
+        return False
+    return True
 
 
 def _spec(x, leaves):
@@ -66,7 +129,7 @@ def _spec(x, leaves):
         return ("S", type(x), tuple(_spec(v, leaves) for v in x))
     if isinstance(x, dict):
         return ("D", tuple((k, _spec(v, leaves)) for k, v in x.items()))
-    if isinstance(x, (bool, int, float, str)):
+    if isinstance(x, (bool, int, float, str)) or _static(x):
         return ("C", type(x), x)
     raise TypeError(f"cannot capture an argument of type {type(x)}")
 
@@ -132,10 +195,15 @@ class _Capture:
         self.carry = carry
         self.donate = donate
         s_args = _build(spec, iter(self.static))
+        self.static_bytes = sum(
+            t.numel() * t.element_size() for i, t in enumerate(self.static)
+            if not (adopt and i < n_first))
         # a wrapper registered during the warm-up (its module imported
         # there) starts from 0
         before = {w: w.launches for w in COUNTED.values()}
         side = torch.cuda.Stream(dev)
+        global _inside
+        _inside += 1
         try:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -147,12 +215,17 @@ class _Capture:
                 w.launches = b
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph, stream=side):
+                # read after the context has emptied the allocator's
+                # cache: the graph's private pool takes new segments
+                reserved = torch.cuda.memory_reserved(dev)
                 out = fn(*s_args)
                 if carry is not None:
                     self._write_back(out)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             self.counts = {w: w.launches - b for w, b in before.items()
                            if w.launches != b}
         finally:
+            _inside -= 1
             for w in COUNTED.values():
                 w.launches = before.get(w, 0)
         # the outputs' pool tensors, read after every replay
@@ -203,29 +276,50 @@ class _Capture:
 
 
 class Graphed:
-    """``fn(*args)`` on CUDA tensors, captured once per key and replayed.
+    """``fn(*args, **kwargs)`` on CUDA tensors, captured once per key and
+    replayed.
 
     carry: None, "all" (the whole output is the next first argument) or
     the index of that part in a tuple output.  donate: the first
     argument is consumed and the carried output returned in its buffers
     (needs carry).  key: a function of no arguments whose value joins
-    the cache key.
+    the cache key.  max_captures: the graphs kept (None: no bound); a
+    new key beyond it drops the least recently used, with a warning.
     """
 
     def __init__(self, fn: Callable, *, carry: Optional[Union[str, int]] =
                  None, donate: bool = False,
-                 key: Callable[[], tuple] = tuple):
+                 key: Callable[[], tuple] = tuple,
+                 max_captures: Optional[int] = None):
         if donate and carry is None:
             raise ValueError("donate needs carry: the output it aliases")
         self.fn = fn
         self.carry = carry
         self.donate = donate
         self.key = key
-        self.captures = {}
+        self.max_captures = max_captures
+        self.captures = collections.OrderedDict()
 
-    def __call__(self, *args, steps: int = 1):
+    def _with_kwargs(self, *args):
+        return self.fn(*args[:-1], **args[-1])
+
+    def __call__(self, *args, steps: int = 1, **kwargs):
+        if steps != 1 and self.carry != "all":
+            raise ValueError("steps != 1 needs carry=\"all\"")
+        if _eager:
+            if steps == 1:
+                return self.fn(*args, **kwargs)
+            out = args[0]
+            for _ in range(steps):
+                out = self.fn(out, *args[1:], **kwargs)
+            return out
+        fn = self.fn
+        if kwargs:  # a trailing dict of the keyword arguments, in order
+            args = args + (dict(sorted(kwargs.items())),)
+            fn = self._with_kwargs
         leaves, spec = _flatten(args)
-        if not leaves or any(t.device.type != "cuda" for t in leaves):
+        if not leaves or any(t.device.type != CAPTURED_DEVICE
+                             for t in leaves):
             raise ValueError("Graphed steps take CUDA tensors only")
         if len({t.device for t in leaves}) != 1:
             raise ValueError("Graphed steps take tensors on one device")
@@ -234,14 +328,92 @@ class Graphed:
                 "a replayed graph is not differentiable: differentiate "
                 "the eager step instead"
             )
-        if steps != 1 and self.carry != "all":
-            raise ValueError("steps != 1 needs carry=\"all\"")
         if steps == 0:
             return args[0]
-        key = (spec, self.key())
+        key = (spec, bool(kwargs), self.key())
         cap = self.captures.get(key)
         if cap is None:
+            if (self.max_captures is not None
+                    and len(self.captures) >= self.max_captures):
+                self.captures.popitem(last=False)
+                _LOG.warning(
+                    "%s holds %d graphs, its bound: the least recently "
+                    "used is dropped to capture a new key",
+                    getattr(self.fn, "__qualname__", self.fn),
+                    self.max_captures)
             cap = self.captures[key] = _Capture(
-                self.fn, args, leaves, spec, self.carry, self.donate,
+                fn, args, leaves, spec, self.carry, self.donate,
             )
+        else:
+            self.captures.move_to_end(key)
         return cap(leaves, steps)
+
+    def memory(self) -> int:
+        """Device bytes the captures keep: their static inputs and their
+        graphs' private pools."""
+        return sum(c.static_bytes + c.pool_bytes
+                   for c in self.captures.values())
+
+
+def _tensors(x):
+    """The tensors of a tree (anything else ignored)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+
+
+class jit:  # noqa: N801 -- named after jax.jit, whose call sites it takes
+    """``fn`` as the JAX package's ``jax.jit(fn)``: the eager ``fn`` on
+    CPU tensors, within ``eager()`` and inside another capture or its
+    warm-up (inlined, as a jit inside a jit); on CUDA tensors a
+    ``Graphed`` capture per key (at most ``MAX_CAPTURES``), replayed.
+    ``.eager`` is fn, ``.graphed`` the Graphed."""
+
+    def __init__(self, fn: Callable):
+        self.eager = fn
+        self.graphed = Graphed(fn, max_captures=MAX_CAPTURES)
+        functools.update_wrapper(self, fn)
+        self.name = getattr(fn, "__qualname__", type(fn).__qualname__)
+        _UNITS.add(self)
+
+    def __call__(self, *args, **kwargs):
+        if _eager or _inside or not any(
+                t.device.type == CAPTURED_DEVICE
+                for t in _tensors((args, kwargs))):
+            return self.eager(*args, **kwargs)
+        return self.graphed(*args, **kwargs)
+
+    def captures(self) -> int:
+        return len(self.graphed.captures)
+
+    def memory(self) -> int:
+        return self.graphed.memory()
+
+
+_UNITS = weakref.WeakSet()
+
+
+def units():
+    """The live ``jit`` units."""
+    return list(_UNITS)
+
+
+def constant(a, dtype, device) -> torch.Tensor:
+    """The host array `a` as a tensor of `dtype` on `device`, made once
+    and kept: a capture refuses a copy from pageable memory, so a
+    captured body reads its tables through this.  Callers do not write
+    into it."""
+    a = np.asarray(a)
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return t
+
+
+_CONSTANTS = {}

@@ -129,7 +129,10 @@ def gfdl_cloud_microphysics(
     Returns (state, diags): state holds the 7 updated fields; diags
     carry rain/snow/graupel surface precipitation [kg/m^2 over dt]."""
     # dt in the fields' dtype, as the JAX package casts it
-    dt = torch.as_tensor(dt, dtype=t.dtype, device=t.device)
+    # (a fill, where a tensor made from a host number would be a copy,
+    # which a capture refuses)
+    dt = (dt.to(t.dtype) if isinstance(dt, torch.Tensor)
+          else torch.full((), dt, dtype=t.dtype, device=t.device))
 
     # 1. saturation adjustment (mixed phase)
     t, qv, ql, qi = saturation_adjustment(

@@ -37,6 +37,7 @@ from ..constants import (
     RDGAS,
     RVGAS,
 )
+from ..graphs import jit
 
 ZVIR = RVGAS / RDGAS - 1.0
 KARMAN = 0.4
@@ -380,6 +381,7 @@ def _tendency_to_dgrid(du_a, dv_a):
     return pad_u, pad_v
 
 
+@jit
 def gfs_physics_step(
     t, qv, qc, u_d, v_d, delp, tsfc, ptop, dt,
     cfg: GFSPhysicsConfig = GFSPhysicsConfig(),
@@ -391,7 +393,9 @@ def gfs_physics_step(
     [6, n, n] that turns on the gravity-wave drag.  mp_tracers: optional
     (qi, qr, qs, qg) prognostic hydrometeors for the GFDL scheme, which
     then takes qc as the cloud liquid and returns all six species.
-    Returns (new_state, diagnostics)."""
+    Returns (new_state, diagnostics).  Jitted as the JAX package's (cfg a
+    constant of the key): on CUDA tensors one replayed graph a key.
+    """
     shape2d = t.shape[:1] + t.shape[2:]
     zeros2d = dict(dtype=t.dtype, device=t.device)
 

@@ -12,11 +12,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import math
-
 import torch
 
 from ..constants import GRAV
+from ..graphs import constant
+from .radgases import annual_cos
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +110,9 @@ class AerosolClimatology:
         belt = self.aod_belt * torch.exp(
             -0.5 * ((lat - self.belt_lat) / self.belt_width) ** 2
         )
-        season = 1.0 + self.belt_season_amp * math.cos(
-            2.0 * math.pi * (doy - 182.0) / 365.25
-        )
+        season = (
+            1.0 + self.belt_season_amp * annual_cos(doy, 182.0, lat.device)
+        ).to(lat.dtype)
         return self.aod_background + belt * season
 
     def sw_optics(self, p_lay, delp, aod550=None):
@@ -129,9 +129,9 @@ class AerosolClimatology:
         nb = len(self.band_scale)
         bshape = (nb,) + (1,) * tau550.ndim
         opt = dict(dtype=delp.dtype, device=delp.device)
-        tau = torch.tensor(self.band_scale, **opt).reshape(bshape) * tau550[
+        tau = constant(self.band_scale, **opt).reshape(bshape) * tau550[
             None
         ]
-        ssa = torch.tensor(self.band_ssa, **opt).reshape(bshape)
-        asy = torch.tensor(self.band_asy, **opt).reshape(bshape)
+        ssa = constant(self.band_ssa, **opt).reshape(bshape)
+        asy = constant(self.band_asy, **opt).reshape(bshape)
         return tau, ssa, asy

@@ -166,7 +166,8 @@ def ozone_climatology(p_lay, lat_deg, doy):
 
     p_lay [.., nz, ..] Pa (a tensor); lat_deg broadcastable to the
     horizontal dims (a tensor on p_lay's device); doy day-of-year (a
-    Python number).  Returns the mass mixing ratio with p_lay's shape.
+    number or a 0-d tensor, ``annual_cos``).  Returns the mass mixing
+    ratio with p_lay's shape.
     """
     lat = torch.deg2rad(lat_deg)
     if lat.ndim == p_lay.ndim - 1:
@@ -180,16 +181,24 @@ def ozone_climatology(p_lay, lat_deg, doy):
         -0.5 * ((logp - torch.log(p_peak)) / width) ** 2
     )
     # column amount: latitude + spring-maximum seasonal cycle
-    phase_n = math.cos(2.0 * math.pi * (doy - 105.0) / 365.25)
-    phase_s = math.cos(2.0 * math.pi * (doy - 288.0) / 365.25)
-    seasonal = torch.where(
-        lat >= 0.0, torch.full_like(lat, phase_n),
-        torch.full_like(lat, phase_s),
-    )
+    phase_n = annual_cos(doy, 105.0, lat.device).to(lat.dtype)
+    phase_s = annual_cos(doy, 288.0, lat.device).to(lat.dtype)
+    seasonal = torch.where(lat >= 0.0, phase_n, phase_s)
     column = (1.0 + 0.45 * sin2) * (
         1.0 + 0.12 * seasonal * torch.abs(torch.sin(lat))
     )
     return 1.0e-5 * column * shape + 3.0e-8
+
+
+def annual_cos(doy, day: float, device) -> torch.Tensor:
+    """cos(2 pi (doy - day) / 365.25) as a float64 0-d tensor: host
+    arithmetic for a number (on `device`), device arithmetic for a 0-d
+    tensor (as the JAX package's jnp.cos of its traced day of year, so
+    that a replayed graph reads each call's day)."""
+    if isinstance(doy, torch.Tensor):
+        return torch.cos(2.0 * math.pi * (doy.double() - day) / 365.25)
+    return torch.full((), math.cos(2.0 * math.pi * (doy - day) / 365.25),
+                      dtype=torch.float64, device=device)
 
 
 def co2_for_year(year: float) -> float:

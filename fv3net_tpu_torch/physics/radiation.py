@@ -5,7 +5,9 @@ One shortwave band with zenith-angle geometry and one longwave band with
 a water-vapour-weighted emissivity: physically shaped heating rates and
 surface fluxes for the coupled step.  The astronomy (solar constant,
 cos zenith) is host numpy; ``_core`` is tensor code on the state's
-device.
+device, jitted as the JAX package's ``_jit_core`` (``graphs.jit``: one
+replayed graph on the card, cos zenith and the solar constant entering
+as tensors).
 
 Also the JAX file's ``MultibandRadiationDriver`` (lines 133-257: the
 delta-Eddington SW and band-absorption LW of radsw.py/radlw.py with the
@@ -13,7 +15,9 @@ gas, cloud, aerosol and surface schemes) and the ``Radiation`` and
 ``RadiationStepper`` facades (lines 259-329), which nothing calls in
 either package: the coupled step and the wrapper run the gray driver.
 Unlike the JAX multiband driver, which returns host numpy, every driver
-here returns tensors on the state's device.
+here returns tensors on the state's device.  Its ``_compute`` is jitted
+too (the JAX package's ``_jit``), the day of year and the solar constant
+entering as float64 0-d tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from ..constants import CP_AIR, GRAV
 from ..device import device_for
+from ..graphs import jit
 from ..utils.zenith import cos_zenith_angle
 from .gfs import _rev_cumsum
 
@@ -55,6 +60,8 @@ class RadiationDriver:
         self.lw_tau0 = lw_tau0
         self.albedo = albedo
         self._solcon = SOLAR_CONSTANT
+        # one dispatch a call (the JAX package's self._jit_core)
+        self._jit_core = jit(self._core)
 
     def radupdate(self, time: datetime.datetime):
         """(radiation_driver.py:209): annual cycle of the earth-sun
@@ -71,11 +78,13 @@ class RadiationDriver:
         surface/TOA fluxes.  Fields [6, nz, n, n] except lon/lat (numpy,
         degrees) and tsfc [6, n, n]."""
         cosz = np.maximum(cos_zenith_angle(time, lon_deg, lat_deg), 0.0)
+        opt = dict(dtype=temp.dtype, device=temp.device)
         # the solar constant is rounded to float32 here whatever the
-        # state's dtype, as the JAX package's driver does
-        return self._core(
-            torch.as_tensor(cosz, dtype=temp.dtype, device=temp.device),
-            p_lay, delp, temp, sphum, tsfc, float(np.float32(self._solcon)),
+        # state's dtype, as the JAX package's driver does; it and cos
+        # zenith change between calls, so both enter as tensors
+        return self._jit_core(
+            torch.as_tensor(cosz, **opt), p_lay, delp, temp, sphum, tsfc,
+            torch.full((), float(np.float32(self._solcon)), **opt),
         )
 
     def _core(self, cosz, p_lay, delp, temp, sphum, tsfc, solcon):
@@ -142,6 +151,8 @@ class MultibandRadiationDriver:
         self._o3 = ozone_climatology
         self._solcon = SOLAR_CONSTANT
         self._doy = 1.0
+        # one dispatch a call (the JAX package's self._jit)
+        self._jit = jit(self._compute)
 
     def radupdate(self, time: datetime.datetime):
         """(radiation_driver.py:209): annual solar-constant cycle and
@@ -236,10 +247,14 @@ class MultibandRadiationDriver:
         lat = np.asarray(torch.as_tensor(lat_deg).cpu())
         cosz = np.maximum(cos_zenith_angle(time, lon, lat), 0.0)
         opt = dict(dtype=temp.dtype, device=dev)
-        return self._compute(
+        # the solar constant and the day of year change between calls:
+        # float64 0-d tensors, the host's float64 arithmetic on the device
+        f64 = dict(dtype=torch.float64, device=dev)
+        return self._jit(
             torch.as_tensor(cosz, **opt), p_lay, delp, temp, sphum, ql,
-            qi, tsfc, self._solcon, torch.as_tensor(lat, **opt),
-            self._doy, land_mask, snow,
+            qi, tsfc, torch.full((), self._solcon, **f64),
+            torch.as_tensor(lat, **opt), torch.full((), self._doy, **f64),
+            land_mask, snow,
         )
 
 

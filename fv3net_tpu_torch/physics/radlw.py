@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..constants import CP_AIR, GRAV
+from ..graphs import constant
 from . import radclouds, radgases
 
 STEFAN_BOLTZMANN = 5.670374419e-8
@@ -70,8 +71,8 @@ def interp(x, xp, fp):
 def planck_band_flux(temp):
     """pi*B integrated over each band: [band, ...temp.shape] W/m^2."""
     opt = dict(dtype=temp.dtype, device=temp.device)
-    t_grid = torch.as_tensor(_PLANCK_T_GRID, **opt)
-    table = torch.as_tensor(_LW_BAND_FRAC, **opt)
+    t_grid = constant(_PLANCK_T_GRID, **opt)
+    table = constant(_LW_BAND_FRAC, **opt)
     sig_t4 = STEFAN_BOLTZMANN * temp ** 4
     flat = temp.reshape(-1)
     fracs = torch.stack(
@@ -100,9 +101,7 @@ class RadLWClass:
         bshape = (nb,) + (1,) * delp.ndim
 
         def bc(x):
-            return torch.as_tensor(
-                x, dtype=delp.dtype, device=delp.device
-            ).reshape(bshape)
+            return constant(x, delp.dtype, delp.device).reshape(bshape)
 
         # self-continuum scaling ~ vapor partial pressure
         e_vap = sphum * p_lay / 0.622
@@ -159,8 +158,8 @@ class RadLWClass:
             fu_g.append(flux_up)
         fd_g = torch.stack(fd_g)
         fu_g = torch.stack(fu_g)
-        w_gpt = torch.as_tensor(
-            radgases.LW_GPT_W, dtype=delp.dtype, device=delp.device
+        w_gpt = constant(
+            radgases.LW_GPT_W, delp.dtype, delp.device
         ).reshape((-1,) + (1,) * (fd_g.ndim - 1))
         flux_dn_tot = (w_gpt * fd_g).sum(dim=(0, 2))
         flux_up_tot = (w_gpt * fu_g).sum(dim=(0, 2))

@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from ..constants import CP_AIR, GRAV
+from ..graphs import constant
 from . import radclouds, radgases
 
 SOLAR_CONSTANT = 1361.0
@@ -127,9 +128,7 @@ def adding_method(rdif, tdif, rdir, tdir_dif, tdir_dir, alb_dir,
 
 
 def _table(a, like, shape):
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device).reshape(
-        shape
-    )
+    return constant(a, like.dtype, like.device).reshape(shape)
 
 
 @dataclasses.dataclass
@@ -192,8 +191,8 @@ class RadSWClass:
         # spectral surface albedo: a dict selects the UV-VIS vs NIR
         # component per band (setalb contract); a tensor is the legacy
         # broadband form
-        uvvis = torch.as_tensor(
-            radgases.SW_BAND_UVVIS, device=delp.device
+        uvvis = constant(
+            radgases.SW_BAND_UVVIS, None, delp.device
         ).reshape(cshape)
         if isinstance(sfc_albedo, dict):
             alb_dir = torch.where(

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..constants import GRAV
-from ..graphs import Graphed
+from ..graphs import Graphed, eager as all_eager
 from ..util.quantity import Quantity
 from ..utils.zenith import cos_zenith_angle
 from . import names
@@ -279,11 +279,21 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         }
         stages["physics"] = _solcon_tensor(stages["physics"], dtype,
                                            mdl.device)
-    full_step.eager = eager
-    full_step.eager_stages = eager_stages
+    # eager all through: gfs_physics_step, a jit unit, would replay
+    full_step.eager = _eagerly(eager)
+    full_step.eager_stages = {k: _eagerly(f) for k, f in eager_stages.items()}
     if not split:
         return full_step
     return full_step, stages
+
+
+def _eagerly(fn):
+    """fn with every jit unit inside it eager (graphs.eager)."""
+    def call(*args):
+        with all_eager():
+            return fn(*args)
+
+    return call
 
 
 def _solcon_tensor(fn, dtype, device):

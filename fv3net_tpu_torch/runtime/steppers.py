@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..constants import CP_AIR, LATENT_HEAT_VAPORIZATION as LV
+from ..graphs import jit
 from ..util.quantity import Quantity
 from . import names
 
@@ -43,6 +44,12 @@ def non_negative_sphum(sphum, dQ1, dQ2, dt: float):
     dQ2_limited = dQ2 * reduction_ratio
     dQ1_limited = dQ1 + (LV / CP_AIR) * (dQ2 - dQ2_limited)
     return dQ1_limited, dQ2_limited
+
+
+# the ML steppers' limiter, jitted with a static dt as the JAX package's
+# (fv3net_tpu/runtime/steppers.py:140); the coupled step inlines the
+# plain function in its own capture
+_non_negative_sphum = jit(non_negative_sphum)
 
 
 class RenamingAdapter:
@@ -139,7 +146,7 @@ class PureMLStepper:
             # on the humidity's device; a prediction given as a host
             # array is moved there and keeps its dtype
             sphum = state[SPHUM].data
-            dq1, dq2 = non_negative_sphum(
+            dq1, dq2 = _non_negative_sphum(
                 sphum,
                 *(torch.as_tensor(tendencies[k].data, device=sphum.device)
                   for k in ("dQ1", "dQ2")),

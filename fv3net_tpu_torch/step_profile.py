@@ -1,6 +1,6 @@
 """Where the time of one C48 (or C192) x 63 dycore dt, of one coupled
-C48 step, or of one step of the eager prognostic run or of the nudged run
-at C48, goes on the GPU.
+C48 step, or of one step of the prognostic run or of the nudged run at
+C48, goes on the GPU.
 
 Run on the GPU machine from the repository root:
 
@@ -28,12 +28,17 @@ step of the shallow-water model (``dycore.make_sw_stepper`` at C<n>, dt
 winds; its operators labelled).  The dycore dt and the coupled step are
 what a user runs on the card: replays of their CUDA graphs
 (``make_dycore_stepper``'s ``run``, ``CompiledTimeLoop.step``; the
-warm-up dt captures them), as is the dycore inside the prognostic and
-nudged steps.  With --eager the dycore dt is ``run.one_dt`` and the
-coupled step ``build_compiled_step``'s eager stages, its three stages
-and the dycore's functions labelled.  Warms up one dt, then:
-  * times 5 dts with the host clock (synchronized), the step time a user
-    sees;
+warm-up dt captures them), as are the dycore and the units the JAX
+package jits inside the prognostic and nudged steps (the physics, the
+radiation, the ML predictors' apply: ``graphs.jit``).  With --eager the
+dycore dt is ``run.one_dt`` and the coupled step
+``build_compiled_step``'s eager stages, its three stages and the
+dycore's functions labelled; the prognostic and nudged steps run every
+unit and the dycore eagerly (``graphs.eager()``).  Warms up one dt,
+then:
+  * times 5 dts (30 steps of the prognostic and nudged runs, whose
+    eager steps spread widely) with the host clock (synchronized), the
+    step time a user sees;
   * traces 2 dts with torch.profiler (CPU + CUDA activities) and reports
     the device-busy time per dt (sum of kernel times), hence the device
     idle share, the number of kernel launches per dt, the copies per dt
@@ -60,7 +65,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import wrapper
+from . import graphs, wrapper
 from .dycore import hydro, sw
 from .grid import CubedSphereGrid
 from .ops import advection
@@ -84,6 +89,10 @@ SW_STAGES = (
     "average_dgrid_boundary", "padded_cgrid_winds",
 )
 SW_SIZES = (48, 192, 384)
+# steps timed with the host clock: the loop steps take more, their eager
+# form spreading 15-75% between steps
+TIMED = 5
+TIMED_LOOP = 30
 
 
 def _labelled(name, fn):
@@ -173,18 +182,20 @@ def _sw_steps(N):
     return step, step
 
 
-def _prognostic_steps(N, nudged_root=None):
-    """(step, traced step) of the eager prognostic run: one TimeLoop step
-    of the default model (hydrostatic, simple suite, f32) at C<N> x 63,
-    or with `nudged_root` of the nudged run written there, its substeps
-    labelled."""
+def _prognostic_steps(N, nudged_root=None, eager=False):
+    """(step, traced step) of the prognostic run: one TimeLoop step of
+    the default model (hydrostatic, simple suite, f32) at C<N> x 63, or
+    with `nudged_root` of the nudged run written there, its substeps
+    labelled; its dycore and units replayed, or with `eager` all
+    eager."""
     nudger = None
     if nudged_root is None:
         wrapper.initialize(wrapper.ModelConfig(npx=N + 1, npz=NZ),
                            device="cuda")
-    else:  # warm-up, 5 timed and 2 traced steps: 2 h at 900 s
-        _, nudger = nudged_case.initialize(N, "cuda", nudged_root,
-                                           window_hours=3.0)
+    else:  # the warm-up, timed and traced steps inside the snapshots
+        steps = 1 + TIMED_LOOP + 2
+        _, nudger = nudged_case.initialize(
+            N, "cuda", nudged_root, window_hours=steps * 900.0 / 3600 + 1)
     tl = loop.TimeLoop(
         wrapper, derived_state.DerivedModelState(wrapper),
         wrapper.get_model().config.dt_atmos, postphysics_stepper=nudger,
@@ -197,7 +208,11 @@ def _prognostic_steps(N, nudged_root=None):
     steps = iter(tl)
 
     def step():
-        next(steps)
+        if eager:
+            with graphs.eager():
+                next(steps)
+        else:
+            next(steps)
 
     return step, step
 
@@ -217,7 +232,8 @@ def main(argv=None):
                     help="one step of the shallow-water model")
     ap.add_argument("--eager", action="store_true",
                     help="the dycore dt or the coupled step eager, its "
-                         "stages labelled")
+                         "stages labelled; the prognostic or nudged step "
+                         "with every unit eager")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     N = args.n
@@ -234,9 +250,9 @@ def main(argv=None):
     if args.sw and (args.fused or args.coupled or args.prognostic
                     or args.nudged):
         raise ValueError("--sw runs the shallow-water model alone")
-    if args.eager and (args.sw or args.prognostic or args.nudged):
-        raise ValueError("--eager profiles the dycore dt or the coupled "
-                         "step")
+    if args.eager and args.sw:
+        raise ValueError("--eager profiles the dycore dt, the coupled, "
+                         "prognostic or nudged step")
     if not args.sw and N not in DT_ATMOS:
         raise ValueError(f"the dycore step runs at C{sorted(DT_ATMOS)}")
     card = subprocess.run(
@@ -251,22 +267,24 @@ def main(argv=None):
     step, traced_step = (
         _sw_steps(N) if args.sw
         else _coupled_steps(N, args.out, args.eager) if args.coupled
-        else _prognostic_steps(N) if args.prognostic
-        else _prognostic_steps(N, case.name) if args.nudged
+        else _prognostic_steps(N, eager=args.eager) if args.prognostic
+        else _prognostic_steps(N, case.name, args.eager) if args.nudged
         else _dycore_steps(N, args.fused, args.eager)
     )
     step()  # warm-up
     torch.cuda.synchronize()
 
     host_ms = []
-    for _ in range(5):
+    for _ in range(TIMED_LOOP if args.prognostic or args.nudged else TIMED):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
     module, names = ((sw, SW_STAGES) if args.sw
-                     else (hydro, STAGES) if args.eager else (None, ()))
+                     else (hydro, STAGES)
+                     if args.eager and not (args.prognostic or args.nudged)
+                     else (None, ()))
     originals = {name: getattr(module, name) for name in names}
     traced_dts = 2
     try:
@@ -320,10 +338,10 @@ def main(argv=None):
                    f"C{N}x{NZ} dt_atmos={DT_ATMOS[N]} k_split=1 n_split=6 "
                    f"hord=5 kord=9 f32 fused_transport={args.fused}")
                   + (" coupled (bench.py rung 3)" if args.coupled else "")
-                  + (" prognostic (eager TimeLoop, hydrostatic, simple "
-                     "suite)" if args.prognostic else "")
-                  + (" nudged (eager TimeLoop from restarts, "
-                     "nonhydrostatic, GFS suite, GFDL microphysics, six "
+                  + (" prognostic (TimeLoop, hydrostatic, simple suite)"
+                     if args.prognostic else "")
+                  + (" nudged (TimeLoop from restarts, nonhydrostatic, "
+                     "GFS suite, gray radiation, GFDL microphysics, six "
                      "tracers, nudger)" if args.nudged else "")
                   + (" eager" if args.eager else ""),
         "card": card,

@@ -42,7 +42,9 @@ from .dycore.hydro import (
     hybrid_coefficients,
     make_dycore_stepper,
 )
+from .graphs import jit
 from .grid.geometry import CubedSphereGrid
+from .physics.gfs import gscond, precpd
 from .physics.simple import held_suarez_tendencies, saturation_adjustment
 from .util.quantity import Quantity, State
 
@@ -69,6 +71,17 @@ TIME = "time"
 
 DIMS_3D = ("tile", "z", "y", "x")
 DIMS_2D = ("tile", "y", "x")
+
+# the JAX wrapper's jax.jit call sites (fv3net_tpu/wrapper.py:458, 484,
+# 561, 581): on the card each is one replayed graph; the eager code
+# around them (the conversions to and from potential temperature, the
+# hooks' host dict) stays eager, as it does there.  precpd is captured
+# once per key, where the JAX wrapper jits a new lambda at each call
+# (ROADMAP quirk (u)).  gfs_physics_step is jitted where it is defined.
+_held_suarez_tendencies = jit(held_suarez_tendencies)
+_saturation_adjustment = jit(saturation_adjustment)
+_gscond = jit(gscond)
+_precpd = jit(precpd)
 
 CLOUD_ICE = "cloud_ice_mixing_ratio"
 RAIN = "rain_mixing_ratio"
@@ -461,7 +474,7 @@ class _Model:
             temp = self._temperature()
             u, v = self.state.u, self.state.v
             pe, _ = self._pressure_layers(delp)
-            dT, du, dv = held_suarez_tendencies(
+            dT, du, dv = _held_suarez_tendencies(
                 temp, u, v, pe, self._lat_t, self.config.dt_atmos,
             )
             self._set_temperature(temp + dT)
@@ -482,7 +495,7 @@ class _Model:
             q = self.state.q
             pe, _ = self._pressure_layers(delp)
             p_lay = 0.5 * (pe[:, 1:] + pe[:, :-1])
-            temp2, qv2, qc2, precip = saturation_adjustment(
+            temp2, qv2, qc2, precip = _saturation_adjustment(
                 temp, q[0], q[1], p_lay, delp, self.config.dt_atmos
             )
             # the JAX package converts with the humidity before the
@@ -503,12 +516,7 @@ class _Model:
         result is pushed into a host state dict under the Zhao-Carr
         names, hooks may write ``*_output`` keys that substitute it, and
         the store hook captures everything for training data."""
-        from .physics.gfs import (
-            MP_TRACER_NAMES,
-            gfs_physics_step,
-            gscond,
-            precpd,
-        )
+        from .physics.gfs import MP_TRACER_NAMES, gfs_physics_step
 
         cfg = self.gfs_config
         dt = self.config.dt_atmos
@@ -557,7 +565,7 @@ class _Model:
                 "time": self.time,
             }
             # gscond: compute physics, let the hook substitute
-            tg, qvg, qcg = gscond(t2, qv2, qc2, p, dt)
+            tg, qvg, qcg = _gscond(t2, qv2, qc2, p, dt)
             sd["air_temperature_after_gscond"] = _host(tg)
             sd["specific_humidity_after_gscond"] = _host(qvg)
             sd["cloud_water_mixing_ratio_after_gscond"] = _host(qcg)
@@ -567,7 +575,7 @@ class _Model:
                 for k in (TEMP, SPHUM, CLOUD)
             )
             # precpd
-            tp, qvp, qcp, pr = precpd(tg, qvg, qcg, p, delp, dt, cfg)
+            tp, qvp, qcp, pr = _precpd(tg, qvg, qcg, p, delp, dt, cfg)
             sd["air_temperature_after_precpd"] = _host(tp)
             sd["specific_humidity_after_precpd"] = _host(qvp)
             sd["cloud_water_mixing_ratio_after_precpd"] = _host(qcp)

@@ -25,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from fv3net_tpu import wrapper as jwrapper
 from fv3net_tpu.dycore import hydro as jhydro
@@ -37,7 +36,7 @@ from fv3net_tpu_torch.convert import state_from_numpy, state_to_numpy
 from fv3net_tpu_torch.dycore import hydro as thydro
 from fv3net_tpu_torch.grid import CubedSphereGrid as TGrid
 from fv3net_tpu_torch.runtime import compiled_loop as tcl
-from torch_parity import assert_close_scaled, benchmark_like_state
+from torch_parity import NoHostRead, assert_close_scaled, benchmark_like_state
 
 torch.set_num_threads(1)
 
@@ -273,50 +272,6 @@ def test_compiled_step_solcon_tensor_matches_jax(coupled, solcon):
 
 
 # --- no host read inside a step ---------------------------------------------
-
-FORBIDDEN = {
-    torch.ops.aten._local_scalar_dense.default,
-    torch.ops.aten.is_nonzero.default,
-    torch.ops.aten.nonzero.default,
-    torch.ops.aten.equal.default,
-}
-
-
-# indexing ops that, given a boolean mask, size their result from the
-# mask's count on the host (a nonzero inside on the card)
-INDEXING = {
-    torch.ops.aten.index.Tensor,
-    torch.ops.aten.index_put.default,
-    torch.ops.aten.index_put_.default,
-    torch.ops.aten._index_put_impl_.default,
-}
-
-
-def _masked(args):
-    """A boolean index that sizes the result: every masked read, and a
-    masked write of more than one value (a scalar's is a masked_fill_)."""
-    if not any(i is not None and i.dtype in (torch.bool, torch.uint8)
-               for i in args[1]):
-        return False
-    return len(args) < 3 or args[2].ndim > 0
-
-
-class NoHostRead(TorchDispatchMode):
-    """Raises on every op that reads a device value on the host (boolean
-    mask indexing among them), and on a host array (a tensor of >= 1
-    dimension) made into a tensor: inside a CUDA-graph capture the first
-    waits for the device, the second copies from pageable memory, and
-    the capture refuses both.  (A Python scalar written into a tensor
-    shows here as a 0-d tensor made from host data; on the card it is a
-    fill, which a capture records.)"""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in FORBIDDEN or (
-            func is torch.ops.aten.lift_fresh.default and args[0].ndim > 0
-        ) or (func in INDEXING and _masked(args)):
-            raise RuntimeError(f"host read inside the step: {func}")
-        return func(*args, **(kwargs or {}))
-
 
 def test_no_host_read_mode_catches_each_kind():
     x = torch.arange(4.0)

@@ -5,6 +5,8 @@ made from a seed, and step in float64 on the CPU."""
 import dataclasses
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def jax_metrics_arrays(m):
@@ -114,3 +116,57 @@ def assert_params_close(jparams, tmodule, rtol, name=""):
                 f"{name} {layer}.{k}: max abs err {err:.3e} > {rtol} * "
                 f"{np.abs(w).max():.3e}"
             )
+
+
+# --- no host read inside a captured step (tests/test_torch_graphs*.py) -----
+
+FORBIDDEN = {
+    torch.ops.aten._local_scalar_dense.default,
+    torch.ops.aten.is_nonzero.default,
+    torch.ops.aten.nonzero.default,
+    torch.ops.aten.equal.default,
+}
+
+
+# indexing ops that, given a boolean mask, size their result from the
+# mask's count on the host (a nonzero inside on the card)
+INDEXING = {
+    torch.ops.aten.index.Tensor,
+    torch.ops.aten.index_put.default,
+    torch.ops.aten.index_put_.default,
+    torch.ops.aten._index_put_impl_.default,
+}
+
+
+def _masked(args):
+    """A boolean index that sizes the result: every masked read, and a
+    masked write of more than one value (a scalar's is a masked_fill_)."""
+    if not any(i is not None and i.dtype in (torch.bool, torch.uint8)
+               for i in args[1]):
+        return False
+    return len(args) < 3 or args[2].ndim > 0
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on every op that reads a device value on the host (boolean
+    mask indexing among them), and on a host array (a tensor of >= 1
+    dimension) made into a tensor: inside a CUDA-graph capture the first
+    waits for the device, the second copies from pageable memory, and
+    the capture refuses both.  (A Python scalar written into a tensor
+    shows here as a 0-d tensor made from host data; on the card it is a
+    fill, which a capture records.)  ``scalars=True`` refuses a 0-d
+    tensor made from a host number too (``torch.tensor(x, device=...)``,
+    ``torch.as_tensor(x, device=...)``), whose fill the units of the
+    serving paths leave to ``torch.full``."""
+
+    def __init__(self, scalars: bool = False):
+        super().__init__()
+        self.scalars = scalars
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in FORBIDDEN or (
+            func is torch.ops.aten.lift_fresh.default
+            and (args[0].ndim > 0 or self.scalars)
+        ) or (func in INDEXING and _masked(args)):
+            raise RuntimeError(f"host read inside the step: {func}")
+        return func(*args, **(kwargs or {}))
