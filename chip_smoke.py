@@ -183,7 +183,14 @@ Phases (any failure raises and the script exits non-zero):
      timed between one pair of synchronisations, ms per step and samples
      per second over it (TrainClock), the mean loss of each epoch (the
      last below the first); one epoch with each step between
-     synchronisations (its median, a per-layer statistic, StepClock); one
+     synchronisations (its median, a per-layer statistic, StepClock,
+     eager and replayed); AB_EPOCHS of the CLI's loop again eager
+     (graphs.eager()) and replayed (fit._shared.training_step: each step
+     one replayed CUDA graph, forward, backward and the Adam update) in
+     turns (ab_training, AB_TRAINING): ms per step and samples/s of each
+     side, the replayed run's parameters and every step's loss held
+     against the eager runs' (hold_replay), the replayed steps' captures
+     and the memory they hold; one
      Adam step and the first ten on the card against the CPU from the
      same init and batches, held by the f32 spread of the CPU's own run
      against runs from 1-ulp perturbations of the inputs
@@ -192,7 +199,7 @@ Phases (any failure raises and the script exits non-zero):
      hold for the transformed family on phase 16's stored data (run in
      phase 16); the convolutional family on the same batches (one cube a
      step): ms per step, the loss, and the halo append's forward and
-     backward alone.
+     backward alone, and its loop eager and replayed in turns.
  15. ML-corrected run: fit.load (no device: the card) of phase 14's
      model, the wrapper from the case's INPUT/ (nonhydrostatic, GFS with
      GFDL, six species), ML_STEPS TimeLoop steps with PureMLStepper:
@@ -210,7 +217,8 @@ Phases (any failure raises and the script exits non-zero):
      STORED_STEPS steps; train_transformed (EMULATOR: the spec of
      tests/test_transformed_training.py at the family's default
      architecture, the cloud input without its log) on
-     the card on the first three, held against the CPU as in 14; the
+     the card on the first three, held against the CPU as in 14, and
+     AB_EPOCHS epochs of it eager and replayed in turns; the
      emulator (a DerivedModel giving its predictions the state's names,
      the cloud from the humidity change: emulation.gscond) dumped and, on
      the held-out step, its mean error against the no-change baseline;
@@ -233,11 +241,16 @@ Phases (any failure raises and the script exits non-zero):
      the ridge objective in float64 (OBJECTIVE_RATIO), the prediction
      after synchronize on the held-out step against the training steps'
      mean (RESERVOIR_SKILL), its error against persistence's printed;
-     scan and ridge ms), the recurrent FMR on the series (cos zenith and the
+     scan and ridge ms; the scan, one replayed graph a call, against
+     two eager scans and timed both ways), the recurrent FMR on the
+     series (cos zenith and the
      precipitation rate its forcings, FORCINGS), graph mpg and unet and the
      autoencoder on phase 13's stores, CycleGAN from the series' first
      steps (A) to the nudged run's (B): ms per training step and samples
-     per second over the loops (TrainClock), the loss; one Adam step and
+     per second over the loops (TrainClock), the loss; each family's
+     loop (its training function on the CLI's batches) eager and
+     replayed in turns as in 14 (CycleGAN's generator and discriminator
+     steps two graphs, replayed in eager's order); one Adam step and
      the first ten on the card against the CPU as phase 14 holds them
      (CycleGAN's generator and discriminator steps in pairs); each
      family's dump loaded with no device (the card) predicting what the
@@ -360,6 +373,7 @@ JSON summary and {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import datetime
 import functools
 import json
@@ -2734,18 +2748,29 @@ GSCOND_KEYS = tuple(f"{v}_{s}" for v in gscond.EMULATED
                     for s in ("input", "after_gscond"))
 CLOUD_BOUND = -1e-10  # cloud water after apply_physics (phase 16)
 HOLD_ROWS = 4096  # the fixed batch the held models predict (phase 14)
+# the sides of a training A/B in turns (phases 14, 16, 18)
+AB_TRAINING = ("eager", "replay", "eager")
+# the epochs of the dense, transformed, FMR and CycleGAN trainings of an
+# A/B (the others' defaults take under a second)
+AB_EPOCHS = 5
 
 
 class TrainClock:
     """Replaces fit._shared.run_steps and run_rounds, the loops of
     training steps: each call timed between one pair of synchronisations,
     its steps' losses read after it (nothing in the loop waits for the
-    card).  `seconds`, `steps` and `loss` (host floats) over every call."""
+    card).  `seconds`, `steps` and `loss` (host floats) over every call;
+    `captures` and `memory`, the graphs the loops' training steps
+    (fit._shared.training_step) captured and the device bytes they held, read as
+    each loop ends; `capture_seconds`, the part of `seconds` the
+    captures took (each timed after a synchronisation)."""
 
     LOOPS = ("run_steps", "run_rounds")
 
     def __init__(self):
         self.seconds, self.loss = 0.0, []
+        self.captures = self.memory = 0
+        self.capture_seconds = 0.0
 
     @property
     def steps(self):
@@ -2755,6 +2780,21 @@ class TrainClock:
         from fv3net_tpu_torch.fit import _shared
 
         self.real = {k: getattr(_shared, k) for k in self.LOOPS}
+        self.real_step = real_step = _shared.training_step
+        self.real_capture = graphs._Capture
+        made = []
+        clock = self
+
+        def recorded(*args):
+            made.append(real_step(*args))
+            return made[-1]
+
+        class Timed(graphs._Capture):
+            def __init__(self, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+                clock.capture_seconds += time.perf_counter() - t0
 
         def timed(real):
             def loop(*args):
@@ -2765,9 +2805,14 @@ class TrainClock:
                 self.seconds += time.perf_counter() - t0
                 self.loss += (torch.stack(losses).cpu().tolist() if losses
                               else [])
+                self.captures += sum(u.captures() for u in made)
+                self.memory += sum(u.memory() for u in made)
+                made.clear()
                 return losses
             return loop
 
+        _shared.training_step = recorded
+        graphs._Capture = Timed
         for k, real in self.real.items():
             setattr(_shared, k, timed(real))
         return self
@@ -2775,6 +2820,8 @@ class TrainClock:
     def __exit__(self, *exc):
         from fv3net_tpu_torch.fit import _shared
 
+        _shared.training_step = self.real_step
+        graphs._Capture = self.real_capture
         for k, real in self.real.items():
             setattr(_shared, k, real)
 
@@ -2787,9 +2834,10 @@ class TrainClock:
 
 
 class StepClock:
-    """Replaces fit._shared.train_step: each step between two
-    synchronisations and its ms recorded, a per-layer statistic (the
-    loop's own time is TrainClock's)."""
+    """Wraps each training step fit._shared.training_step makes, eager or
+    replayed: each step between two synchronisations and its ms
+    recorded, a per-layer statistic (the loop's own time is
+    TrainClock's)."""
 
     def __init__(self):
         self.ms = []
@@ -2797,23 +2845,83 @@ class StepClock:
     def __enter__(self):
         from fv3net_tpu_torch.fit import _shared
 
-        self.real = _shared.train_step
+        self.real = real = _shared.training_step
 
-        def step(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss = self.real(*args)
-            torch.cuda.synchronize()
-            self.ms.append((time.perf_counter() - t0) * 1e3)
-            return loss
+        def made(*args):
+            unit = real(*args)
 
-        _shared.train_step = step
+            def step(batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = unit(batch)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return loss
+            return step
+
+        _shared.training_step = made
         return self
 
     def __exit__(self, *exc):
         from fv3net_tpu_torch.fit import _shared
 
-        _shared.train_step = self.real
+        _shared.training_step = self.real
+
+
+def side_of(side):
+    """The context of one side of an A/B: graphs.eager() for "eager"."""
+    return graphs.eager() if side == "eager" else contextlib.nullcontext()
+
+
+def ab_training(tag, train, samples, unit):
+    """`train()` (a family's training on the card; returns the model)
+    eager (within graphs.eager()) and replayed, in turns (AB_TRAINING:
+    eager, replayed, eager): each side's ms per step and samples/s over
+    its loops (TrainClock; `samples` those of one training, in `unit`),
+    the replayed run's parameters and every step's loss held against the
+    eager runs' (hold_replay: bit for bit where the two eager runs agree,
+    else within their spread), the replayed loop's captures and the
+    memory they held, and the A/B's own seconds.  Returns the medians of
+    ms per step, eager and replayed."""
+    t0 = time.perf_counter()
+    runs = {"eager": [], "replay": []}
+    for side in AB_TRAINING:
+        with TrainClock() as clock, side_of(side):
+            model = train()
+        runs[side].append((clock, dict(model_params(model), loss=torch.tensor(
+            clock.loss, dtype=torch.float64))))
+    (_, eager), (_, again) = runs["eager"]
+    for i, (_, got) in enumerate(runs["replay"]):
+        hold_replay(f"{tag} replayed run {i + 1}", got, eager, again)
+    clocks = {k: [c for c, _ in v] for k, v in runs.items()}
+    if any(c.captures for c in clocks["eager"]) or not all(
+            c.captures for c in clocks["replay"]):
+        raise AssertionError(f"{tag}: captures eager "
+                             f"{[c.captures for c in clocks['eager']]}, "
+                             f"replayed "
+                             f"{[c.captures for c in clocks['replay']]}")
+    ms = {k: [1e3 * c.seconds / c.steps for c in v]
+          for k, v in clocks.items()}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    rate = {k: samples / statistics.median(c.seconds for c in v)
+            for k, v in clocks.items()}
+    # the replayed loop without its captures' seconds: what each later
+    # training of the same shapes would pay if the graphs were kept
+    bare = [1e3 * (c.seconds - c.capture_seconds) / c.steps
+            for c in clocks["replay"]]
+    rep = clocks["replay"][0]
+    say(f"{tag} A/B ({', '.join(AB_TRAINING)}; {rep.steps} steps a run): "
+        f"ms per step eager {med['eager']:.4f} "
+        f"{[round(t, 4) for t in ms['eager']]}, replayed "
+        f"{med['replay']:.4f} {[round(t, 4) for t in ms['replay']]} "
+        f"(without the captures' "
+        f"{[round(c.capture_seconds, 3) for c in clocks['replay']]} s: "
+        f"{[round(t, 4) for t in bare]}); samples/s eager "
+        f"{rate['eager']:.1f}, replayed {rate['replay']:.1f} (samples: "
+        f"{unit}); the replayed loop's captures {rep.captures}, "
+        f"{rep.memory / 2**20:.2f} MiB held; the A/B "
+        f"{time.perf_counter() - t0:.1f} s")
+    return med
 
 
 def model_params(model):
@@ -2953,12 +3061,21 @@ def phase_training(root):
         rows, hp.batch_size,
         lambda m: {k: q.data for k, q in m.predict(fixed).items()},
         hp.learning_rate)
-    with StepClock() as steps:
-        train_dense_held({k: Quantity(v, dims) for k, v in rows.items()},
-                         "cuda")
-    say(f"C48 dense training step alone (one epoch, each step between "
-        f"synchronisations): ms {statistics.median(steps.ms):.4f} (median "
-        f"of {len(steps.ms)}, {min(steps.ms):.4f}-{max(steps.ms):.4f})")
+    # the CLI's loop again (AB_EPOCHS of it), eager and replayed in turns
+    ab_training(
+        "C48 dense training", lambda: fit.train_dense_model(
+            dataclasses.replace(hp, epochs=AB_EPOCHS), batches,
+            input_variables=TRAIN_VARIABLES[0],
+            output_variables=TRAIN_VARIABLES[1], device="cuda"),
+        AB_EPOCHS * nsamp, f"columns, {AB_EPOCHS} epochs")
+    for side in ("eager", "replay"):
+        with StepClock() as steps, side_of(side):
+            train_dense_held({k: Quantity(v, dims) for k, v in rows.items()},
+                             "cuda")
+        say(f"C48 dense training step alone, {side} (one epoch, each step "
+            f"between synchronisations): ms "
+            f"{statistics.median(steps.ms):.4f} (median of {len(steps.ms)}, "
+            f"{min(steps.ms):.4f}-{max(steps.ms):.4f})")
     train_convolutional(batches)
     return model_dir
 
@@ -3000,6 +3117,11 @@ def train_convolutional(batches):
     if not (last < first and all(bool(torch.isfinite(p).all())
                                   for p in model.module.parameters())):
         raise AssertionError(f"convolutional training: {first} {last}")
+    ab_training(
+        "C48 convolutional training", lambda: fit.train_convolutional_model(
+            hp, batches, input_variables=TRAIN_VARIABLES[0],
+            output_variables=TRAIN_VARIABLES[1], device="cuda"),
+        hp.epochs * n * 6 * 48 * 48, "columns")
 
 
 @contextlib.contextmanager
@@ -3296,6 +3418,9 @@ def phase_emulated_run(root):
         f"its set-up; mean loss first epoch "
         f"{np.mean(clock.loss[:per_epoch]):.6e}, last "
         f"{np.mean(clock.loss[-per_epoch:]):.6e}")
+    ab_training("C48 transformed training", lambda: train_emulator(
+        train, "cuda", epochs=AB_EPOCHS),
+        AB_EPOCHS * nsamp, f"columns, {AB_EPOCHS} epochs")
     path = os.path.join(root, "gscond_emulator")
     fit.dump(fit.DerivedModel(emulator, list(gscond.EMULATED)), path)
     # the held-out step: the emulator's error against no change; then the
@@ -3561,6 +3686,10 @@ def train_reservoir(root, series_path):
     if not S.shape[0] > S.shape[1]:
         raise AssertionError(f"reservoir: {S.shape[0]} rows for "
                              f"{S.shape[1]} features")
+    # the scan as the card runs it (one replayed graph a call, the JAX
+    # package's lax.scan) against two eager scans, each way's ms
+    hold_unit("C48 reservoir scan", rsv._scan, Un, res.W_in, res.W_res,
+              float(hp.leakage))
     # the scan's states by the f32 rule, from the same matrices and inputs:
     # as close to the float64 scan as the CPU's f32 scans of the inputs
     # and of their 1-ulp perturbations are (each step sums 85,176
@@ -3691,6 +3820,22 @@ def train_cyclegan_held(arrays, device, steps):
         output_variables=cycle_names(CYCLE_DOMAINS[1]), device=device)
 
 
+def family_ab(tag, model_type, data_cfg, inputs, outputs, samples, unit,
+              hyperparameters=None):
+    """The train CLI's training of a family (its training function on the
+    CLI's batches, read once) eager and replayed in turns (ab_training)."""
+    from fv3net_tpu_torch import data
+    from fv3net_tpu_torch.fit import _shared
+
+    batches = list(data.open_batches_from_config(data_cfg))
+    train = _shared.get_training_function(model_type)
+    hp = _shared.get_hyperparameter_class(model_type)(
+        **(hyperparameters or {}))
+    return ab_training(tag, lambda: train(
+        hp, batches, input_variables=inputs, output_variables=outputs,
+        device="cuda"), samples, unit)
+
+
 def report_family(tag, model_hp, clock, wall, samples, unit, falls=True):
     losses = clock.loss
     say(f"{tag} (train CLI, defaults {model_hp}): {clock.report(samples)} "
@@ -3704,8 +3849,6 @@ def phase_families(root, series_path):
     """The rest of fv3fit's families trained through the train CLI on the
     card at C48x63, each held against the CPU (module docstring, 18).
     Returns the graph (mpg) model's directory."""
-    import dataclasses
-
     from fv3net_tpu_torch import data
 
     train_reservoir(root, series_path)
@@ -3729,6 +3872,10 @@ def phase_families(root, series_path):
     held = stack(series, keys[:FMR_HOLD_STEPS], SERIES + FORCINGS)
     fixed = fmr_state(stack(series, [keys[FMR_HOLD_STEPS]],
                             SERIES + FORCINGS), 0)
+    family_ab("C48 fmr training", "fmr", mapper_cfg(
+        "open_zarr", {"path": series_path}, SERIES + FORCINGS), FORCINGS,
+        SERIES, AB_EPOCHS * (len(keys) - 1) * cols,
+        f"column steps, {AB_EPOCHS} epochs", {"epochs": AB_EPOCHS})
     hold_training("C48 fmr training", train_fmr_held, held, None,
                   lambda m: outputs_of(m, fixed), hp.learning_rate)
     check_dump("C48 fmr", model, path, outputs_of, fixed, parity.perturb_ulp)
@@ -3750,6 +3897,10 @@ def phase_families(root, series_path):
         report_family(f"C48 graph {arch}", dataclasses.asdict(hp), clock,
                       wall, hp.epochs * len(nkeys) * cols,
                       "columns, one cube a step")
+        family_ab(f"C48 graph {arch} training", "graph", mapper_cfg(
+            "open_nudge_to_fine", {"url": out}, sum(TRAIN_VARIABLES, [])),
+            *TRAIN_VARIABLES, hp.epochs * len(nkeys) * cols, "columns",
+            {"architecture": arch})
         hold_training(f"C48 graph {arch} training", train_graph_held(arch),
                       cubes, None, lambda m: outputs_of(m, fixed),
                       hp.learning_rate)
@@ -3765,6 +3916,9 @@ def phase_families(root, series_path):
         k: getattr(model.module, k) for k in ("filters", "depth", "latent")},
         clock, wall, clock.steps * len(nkeys) * cols,
         "columns, every cube each step")
+    family_ab("C48 autoencoder training", "autoencoder", mapper_cfg(
+        "open_nudge_to_fine", {"url": out}, SERIES), SERIES, SERIES,
+        clock.steps * len(nkeys) * cols, "columns")
     fixed = {k: q for k, q in fixed.items() if k in SERIES}
     hold_training("C48 autoencoder training", train_autoencoder_held,
                   stack(nudged, nkeys[:1], SERIES), None,
@@ -3792,6 +3946,11 @@ def phase_families(root, series_path):
         "columns of both domains, a generator and a discriminator step a "
         f"round: ms per round {2e3 * clock.seconds / clock.steps:.4f}",
         falls=False)
+    family_ab("C48 cyclegan training", "cyclegan", mapper_cfg(
+        "open_zarr", {"path": cycle_path}, a_names + b_names), a_names,
+        b_names, AB_EPOCHS * 2 * len(nkeys) * cols,
+        f"columns of both domains, {AB_EPOCHS} epochs",
+        {"epochs": AB_EPOCHS})
     arrays = {k: np.stack(v) for k, v in pairs.items()}
     fixed = cube_states({k: arrays[k] for k in a_names}, [len(nkeys) - 1])[0]
     hold_training("C48 cyclegan training", train_cyclegan_held, arrays, None,

@@ -17,10 +17,15 @@ the CPU.
 
 Training runs in float32 with Adam (``adam``: b1 0.9, b2 0.999, eps 1e-8
 outside the square root, as ``optax.adam``); ``init_params`` draws the
-initial weights as flax's defaults do, ``train_step`` takes one step,
-``run_steps`` the loop of steps and ``run_rounds`` alternating steps of
-several optimisers (CycleGAN's).  The families call them through this
-module, so a test or a measuring script can replace any of them.
+initial weights as flax's defaults do, ``train_step`` takes one eager
+step, ``run_steps`` the loop of steps and ``run_rounds`` alternating
+steps of several optimisers (CycleGAN's).  The loops go through
+``training_step``: on the card each step is one replayed CUDA graph
+(forward, backward and the Adam update), as each family's step is one
+``jax.jit`` program in the JAX package; on the CPU and within
+``graphs.eager()`` every step is ``train_step``.  The families call them
+through this module, so a test or a measuring script can replace any of
+them.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import graphs
 from ..device import default_device
 from ..util.quantity import Quantity
 
@@ -183,17 +189,38 @@ def adam(module: nn.Module, learning_rate: float,
     """``optax.adam(learning_rate, b1)``: b2 0.999, eps 1e-8 added
     outside the square root, no eps inside it.  torch computes the same
     update with its bias corrections folded into the step size and the
-    denominator; it uses its multi-tensor (``foreach``) implementation on
-    the CUDA device and its per-tensor loop on the CPU."""
-    device = next(module.parameters()).device
-    return torch.optim.Adam(
-        module.parameters(), lr=learning_rate, betas=(b1, 0.999), eps=1e-8,
-        foreach=device.type == "cuda",
+    denominator.  On the CUDA device it uses its multi-tensor
+    (``foreach``) implementation, ``capturable``: the step count and the
+    bias corrections live on the device, so a CUDA graph can hold the
+    update (``training_step``); on the CPU its per-tensor loop with
+    the step count on the host.
+
+    The device's step count is float64 (its state is made here, as torch
+    would make it at the first step, but for that dtype), so the bias
+    corrections round as the CPU's host floats do: in float32, 1 -
+    0.999**t loses ~1e-5 of its size at t = 1 (0.999 is not a float32),
+    and the first update ~6e-6 of its own, far beyond the float32
+    rounding of the rest of the step."""
+    params = list(module.parameters())
+    cuda = params[0].device.type == "cuda"
+    optimizer = torch.optim.Adam(
+        params, lr=learning_rate, betas=(b1, 0.999), eps=1e-8,
+        foreach=cuda, capturable=cuda,
     )
+    if cuda:
+        for p in params:
+            optimizer.state[p] = {
+                "step": torch.zeros((), dtype=torch.float64, device=p.device),
+                "exp_avg": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+            }
+    return optimizer
 
 
 def train_step(module: nn.Module, optimizer, loss_fn, batch) -> torch.Tensor:
-    """One optimiser step on `batch` (a tuple of tensors):
+    """One optimiser step on `batch` (a tuple of tensors), eagerly:
     ``loss_fn(module, *batch)``, its gradient, the Adam update.  Returns
     the loss (a tensor on the module's device; reading it synchronises)."""
     optimizer.zero_grad(set_to_none=True)
@@ -203,41 +230,64 @@ def train_step(module: nn.Module, optimizer, loss_fn, batch) -> torch.Tensor:
     return loss.detach()
 
 
+def training_step(module: nn.Module, optimizer, loss_fn) -> graphs.jit:
+    """``train_step`` of `module`, `optimizer` and `loss_fn` as the JAX
+    package's jitted step: called on a batch, one replayed CUDA graph a
+    step on the card (a graph for each batch shape, after ``graphs.WARMUP``
+    eager steps of it; ``graphs.jit`` with ``updates``), eager on the CPU
+    and within ``graphs.eager()``.  ``train_step`` sets the gradients to
+    None first, so the captured backward makes them in the graph's
+    pool."""
+    return graphs.jit(functools.partial(train_step, module, optimizer,
+                                        loss_fn), updates=True)
+
+
 def run_steps(module: nn.Module, optimizer, loss_fn,
               batches: Iterable) -> list:
-    """One ``train_step`` for each batch of `batches` (tuples of tensors),
-    in order.  Returns each step's loss, tensors on the module's device
-    that nothing has read (so the loop never waits for the device)."""
-    return [train_step(module, optimizer, loss_fn, batch)
-            for batch in batches]
+    """One step for each batch of `batches` (tuples of tensors), in
+    order, through one ``training_step``: on the card a replayed graph a
+    step, eager on the CPU.  Returns each step's loss, tensors on the
+    module's device that nothing has read (so the loop never waits for
+    the device)."""
+    step = training_step(module, optimizer, loss_fn)
+    return [step(batch) for batch in batches]
 
 
 def run_rounds(steps: Sequence, rounds: int) -> list:
     """`rounds` rounds of `steps`, each a (module, optimizer, loss_fn,
-    batch) ``train_step`` taken in turn (CycleGAN's generator and
-    discriminator steps).  Returns every step's loss, in order, unread."""
-    return [train_step(*step) for _ in range(rounds) for step in steps]
+    batch) step taken in turn (CycleGAN's generator and discriminator
+    steps), each through its own ``training_step``: on the card two
+    graphs replayed in eager's order, each reading the parameters the
+    other updates in place.  Returns every step's loss, in order,
+    unread."""
+    stepped = [(training_step(module, optimizer, loss_fn), batch)
+               for module, optimizer, loss_fn, batch in steps]
+    return [step(batch) for _ in range(rounds) for step, batch in stepped]
 
 
 def fit_epochs(module: nn.Module, optimizer, loss_fn, tensors: Sequence,
                batch_size: int, epochs: int, seed: int) -> list:
     """Train on the rows of `tensors` (on the module's device) as the JAX
     package does: each epoch a ``np.random.RandomState(seed)``
-    permutation of the samples, cut into batches of `batch_size` (the last
-    one short), one ``train_step`` a batch (``run_steps``).  Returns the
-    steps' losses."""
+    permutation of the samples, copied to the device, cut into batches
+    of `batch_size` (the last one short: a second key on the card, as it
+    is a second trace in JAX), one step a batch (``run_steps``).  A
+    step's argument is its batch's indices; it gathers the rows from
+    `tensors` itself.  Returns the steps' losses."""
     device = next(module.parameters()).device
     nsamp = tensors[0].shape[0]
     rng = np.random.RandomState(seed)
+
+    def gathered(module, sel):
+        return loss_fn(module, *(t[sel] for t in tensors))
 
     def batches():
         for _ in range(epochs):
             perm = torch.as_tensor(rng.permutation(nsamp), device=device)
             for i in range(0, nsamp, batch_size):
-                sel = perm[i : i + batch_size]
-                yield tuple(t[sel] for t in tensors)
+                yield (perm[i : i + batch_size],)
 
-    return run_steps(module, optimizer, loss_fn, batches())
+    return run_steps(module, optimizer, gathered, batches())
 
 
 def _columns(arr):

@@ -147,16 +147,20 @@ def _forward(module, x, n_halo):
 
 
 @contextlib.contextmanager
-def _float32_convolutions():
+def _float32_convolutions(deterministic: bool = False):
     """cuDNN's convolutions in IEEE float32 instead of torch's default
-    TF32 on the card, as the JAX package's float32 training computes
-    them; restored on exit."""
-    allow = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    TF32 on the card, as the JAX package's float32 computes them; with
+    `deterministic` (the training loops) by deterministic algorithms too:
+    the same inputs give the same bits run to run, so a replayed training
+    step equals the eager one (the default weight gradient's algorithm
+    sums in a varying order).  Restored on exit."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, deterministic
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = allow
+        cudnn.allow_tf32, cudnn.deterministic = before
 
 
 @register("convolutional")
@@ -282,7 +286,7 @@ def train_convolutional_model(
     xb_all = torch.as_tensor(Xn, device=device)
     yb_all = torch.as_tensor(Yn, device=device)
     n_cubes = X.shape[0] // 6
-    with _float32_convolutions():
+    with _float32_convolutions(deterministic=True):
         _shared.run_steps(module, optimizer, loss_fn, (
             (xb_all[6 * c : 6 * (c + 1)], yb_all[6 * c : 6 * (c + 1)])
             for _ in range(hp.epochs) for c in range(n_cubes)))

@@ -301,7 +301,7 @@ def train_autoencoder(
     module.to(device)
     optimizer = _shared.adam(module, hp.learning_rate)
     xb_all = torch.as_tensor(Xn, device=device)
-    with _float32_convolutions():
+    with _float32_convolutions(deterministic=True):
         _shared.run_steps(module, optimizer, _reconstruction,
                           ((xb_all,) for _ in range(hp.epochs)))
     return AutoencoderModel(names, widths, scaler, module)
@@ -533,7 +533,7 @@ def train_cyclegan(
     g_loss, d_loss = _cyclegan_losses(hp, *discs)
     xa = torch.as_tensor(An, device=device)
     xb = torch.as_tensor(Bn, device=device)
-    with _float32_convolutions():
+    with _float32_convolutions(deterministic=True):
         _shared.run_rounds(
             [(gens, opt_g, g_loss, (xa, xb)),
              (discs, opt_d, lambda d, *x: d_loss(d, gens, *x), (xa, xb))],

@@ -152,23 +152,36 @@ class Reservoir:
 
     def increment_state(self, u, x):
         """u [..., n_input], x [..., state] -> new x."""
-        a = self.hp.leakage
-        pre = u @ self.W_in.T + x @ self.W_res.T
-        return (1.0 - a) * x + a * torch.tanh(pre)
+        return _increment(u, x, self.W_in, self.W_res, self.hp.leakage)
+
+
+def _increment(u, x, W_in, W_res, a):
+    pre = u @ W_in.T + x @ W_res.T
+    return (1.0 - a) * x + a * torch.tanh(pre)
+
+
+@jit
+def _scan(Un, W_in, W_res, leakage: float):
+    """The echo states [T, B, state] of Un [T, B, n_input] from a zero
+    state: the JAX package's ``lax.scan``, one replayed graph a call on
+    the card (T, the shapes and the leakage in its key)."""
+    x = torch.zeros((Un.shape[1], W_res.shape[0]), dtype=Un.dtype,
+                    device=Un.device)
+    states = torch.empty((Un.shape[0],) + tuple(x.shape), dtype=Un.dtype,
+                         device=Un.device)
+    for t in range(Un.shape[0]):
+        x = _increment(Un[t], x, W_in, W_res, leakage)
+        states[t] = x
+    return states
 
 
 def reservoir_states(reservoir: Reservoir, Un: torch.Tensor) -> torch.Tensor:
     """The echo states [T, B, state] of the normalised inputs Un [T, B,
     n_input] from a zero state, one ``increment_state`` a time step (the
-    JAX package's ``lax.scan``), on Un's device."""
-    x = torch.zeros((Un.shape[1], reservoir.hp.state_size),
-                    dtype=Un.dtype, device=Un.device)
-    states = torch.empty((Un.shape[0],) + tuple(x.shape), dtype=Un.dtype,
-                         device=Un.device)
-    for t in range(Un.shape[0]):
-        x = reservoir.increment_state(Un[t], x)
-        states[t] = x
-    return states
+    JAX package's ``lax.scan``), on Un's device: eager on the CPU, one
+    replayed graph of the T steps on the card."""
+    return _scan(Un, reservoir.W_in, reservoir.W_res,
+                 float(reservoir.hp.leakage))
 
 
 def _readout_features(x, quadratic: bool):

@@ -11,7 +11,8 @@ replays it with one launch:
 
 * the arguments are a tree of tuples (NamedTuples too), lists, dicts,
   None, tensors and Python constants.  Every tensor is copied into a
-  static buffer the graph reads; a constant is baked into the graph;
+  static buffer the graph reads (in the first call's layout); a constant
+  is baked into the graph;
 * before the capture the step runs ``WARMUP`` times eagerly on a side
   stream, so that every table cached on a first call (the exchanges'
   gather tables, the kernels' shared-memory attributes, the ML scalers)
@@ -53,6 +54,14 @@ that cycles through more shapes recaptures rather than holding pool
 memory without bound.  ``captures()`` and ``memory()`` tell how many
 graphs a unit holds and the device bytes they keep; ``units()`` lists
 the live units.
+
+``jit(fn, updates=True)`` is the port's jitted training step (each fit
+family's ``@jax.jit`` step with its optax update): ``fn`` updates in
+place state that is none of its arguments (the parameters, their
+gradients, the optimizer's state), so a key's first ``WARMUP`` calls
+are the caller's own calls, run eagerly on the side stream, in place of
+the warm-up on the buffers; the next call captures without a warm-up
+and replays, and the sequence of updates is eager's, call for call.
 
 ``eager()`` is the other side of an A/B measurement: within it every
 ``jit`` unit and every ``Graphed`` function runs its eager body on CUDA
@@ -173,10 +182,54 @@ def _dense(t):
     return True
 
 
+def _buffer(t):
+    """A static buffer holding a copy of `t`, in `t`'s layout (its strides
+    where it is dense): the captured kernels are those an eager call on
+    `t` runs (a convolution on a channels-last view runs other cuDNN
+    plans than on a contiguous one, and rounds otherwise)."""
+    return torch.empty_like(t, memory_format=torch.preserve_format).copy_(t)
+
+
+_SIDE = {}  # device -> the stream of its warm-ups and captures
+
+
+def _side(dev):
+    """The side stream of `dev`'s warm-ups and captures (one, so that a
+    real call taken before a capture runs on the capture's stream)."""
+    if dev not in _SIDE:
+        _SIDE[dev] = torch.cuda.Stream(dev)
+    return _SIDE[dev]
+
+
+def _real_call(fn, args, dev):
+    """``fn(*args)`` eagerly, as a capture's body runs: on the side stream
+    of `dev` (a CUDA device; another device type, a stand-in capture's,
+    has no streams), the jit units inside it inlined.  Its output is read
+    on the current stream; what else it frees the side stream reuses
+    only after the current stream's work queued by then, since every use
+    of the side stream starts by waiting for it."""
+    global _inside
+    _inside += 1
+    try:
+        if dev.type != "cuda":
+            return fn(*args)
+        side, current = _side(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = fn(*args)
+        current.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(current)
+        return out
+    finally:
+        _inside -= 1
+
+
 class _Capture:
     """One graph: its static buffers, its outputs and its counts."""
 
-    def __init__(self, fn, args, leaves, spec, carry, donate):
+    def __init__(self, fn, args, leaves, spec, carry, donate,
+                 warmup=WARMUP):
         dev = leaves[0].device
         n_first = len(_flatten(args[0])[0]) if carry is not None else 0
         first = leaves[:n_first]
@@ -186,8 +239,7 @@ class _Capture:
             and not set(_storages(first)) & set(_storages(leaves[n_first:]))
         )
         self.static = [
-            t if adopt and i < n_first
-            else torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t)
+            t if adopt and i < n_first else _buffer(t)
             for i, t in enumerate(leaves)
         ]
         self.n_first = n_first
@@ -201,13 +253,13 @@ class _Capture:
         # a wrapper registered during the warm-up (its module imported
         # there) starts from 0
         before = {w: w.launches for w in COUNTED.values()}
-        side = torch.cuda.Stream(dev)
+        side = _side(dev)
         global _inside
         _inside += 1
         try:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                for _ in range(WARMUP):
+                for _ in range(warmup):
                     fn(*s_args)
             torch.cuda.current_stream(dev).wait_stream(side)
             before = {w: before.get(w, 0) for w in COUNTED.values()}
@@ -283,21 +335,30 @@ class Graphed:
     the index of that part in a tuple output.  donate: the first
     argument is consumed and the carried output returned in its buffers
     (needs carry).  key: a function of no arguments whose value joins
-    the cache key.  max_captures: the graphs kept (None: no bound); a
-    new key beyond it drops the least recently used, with a warning.
+    the cache key.  max_captures: the keys kept (None: no bound); a new
+    key beyond it drops the least recently used, with a warning.
+    updates: fn updates in place state that is none of its arguments (a
+    training step; no carry): a key's first WARMUP calls are real calls
+    (``_real_call``) and its capture warms up nothing, so the state sees
+    every call once, in order.  ``captures`` maps each key to its
+    capture, or, before it, to the real calls taken.
     """
 
     def __init__(self, fn: Callable, *, carry: Optional[Union[str, int]] =
                  None, donate: bool = False,
                  key: Callable[[], tuple] = tuple,
-                 max_captures: Optional[int] = None):
+                 max_captures: Optional[int] = None, updates: bool = False):
         if donate and carry is None:
             raise ValueError("donate needs carry: the output it aliases")
+        if updates and carry is not None:
+            raise ValueError("updates takes no carry: its state is none of "
+                             "its arguments")
         self.fn = fn
         self.carry = carry
         self.donate = donate
         self.key = key
         self.max_captures = max_captures
+        self.updates = updates
         self.captures = collections.OrderedDict()
 
     def _with_kwargs(self, *args):
@@ -337,22 +398,31 @@ class Graphed:
                     and len(self.captures) >= self.max_captures):
                 self.captures.popitem(last=False)
                 _LOG.warning(
-                    "%s holds %d graphs, its bound: the least recently "
-                    "used is dropped to capture a new key",
+                    "%s holds %d keys, its bound: the least recently "
+                    "used is dropped for a new key",
                     getattr(self.fn, "__qualname__", self.fn),
                     self.max_captures)
-            cap = self.captures[key] = _Capture(
-                fn, args, leaves, spec, self.carry, self.donate,
-            )
+            cap = 0
         else:
             self.captures.move_to_end(key)
+        if isinstance(cap, int):  # not captured yet: the real calls taken
+            if self.updates and cap < WARMUP:
+                self.captures[key] = cap + 1
+                return _real_call(fn, args, leaves[0].device)
+            cap = self.captures[key] = _Capture(
+                fn, args, leaves, spec, self.carry, self.donate,
+                **({"warmup": 0} if self.updates else {}),
+            )
         return cap(leaves, steps)
+
+    def graphs(self) -> list:
+        """The captures held."""
+        return [c for c in self.captures.values() if not isinstance(c, int)]
 
     def memory(self) -> int:
         """Device bytes the captures keep: their static inputs and their
         graphs' private pools."""
-        return sum(c.static_bytes + c.pool_bytes
-                   for c in self.captures.values())
+        return sum(c.static_bytes + c.pool_bytes for c in self.graphs())
 
 
 def _tensors(x):
@@ -372,13 +442,16 @@ class jit:  # noqa: N801 -- named after jax.jit, whose call sites it takes
     CPU tensors, within ``eager()`` and inside another capture or its
     warm-up (inlined, as a jit inside a jit); on CUDA tensors a
     ``Graphed`` capture per key (at most ``MAX_CAPTURES``), replayed.
+    ``updates``: fn is a training step (``Graphed``'s updates).
     ``.eager`` is fn, ``.graphed`` the Graphed."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, *, updates: bool = False):
         self.eager = fn
-        self.graphed = Graphed(fn, max_captures=MAX_CAPTURES)
+        self.graphed = Graphed(fn, max_captures=MAX_CAPTURES,
+                               updates=updates)
         functools.update_wrapper(self, fn)
-        self.name = getattr(fn, "__qualname__", type(fn).__qualname__)
+        named = getattr(fn, "func", fn)  # a functools.partial's function
+        self.name = getattr(named, "__qualname__", type(fn).__qualname__)
         _UNITS.add(self)
 
     def __call__(self, *args, **kwargs):
@@ -389,7 +462,7 @@ class jit:  # noqa: N801 -- named after jax.jit, whose call sites it takes
         return self.graphed(*args, **kwargs)
 
     def captures(self) -> int:
-        return len(self.graphed.captures)
+        return len(self.graphed.graphs())
 
     def memory(self) -> int:
         return self.graphed.memory()

@@ -49,14 +49,30 @@ Writes ``step_profile_c<n>[_fused|_coupled|_prognostic|_nudged|_sw]``
 ``[_eager].json`` and
 ``.txt`` under
 --out and prints the JSON summary.
+
+    python -m fv3net_tpu_torch.step_profile --train [--eager] [--out DIR]
+
+profiles the dense training loop of ``chip_smoke.py`` phase 14 at the
+train CLI's defaults (``DenseHyperparameters``: depth 3, width 64, 20
+epochs of batches of 512) on seeded data of that phase's shape (4
+batches of C48 x 63 columns, T and q in, dQ1 and dQ2 out): whole
+trainings eager (``graphs.eager()``) and replayed (each step one
+replayed CUDA graph, ``fit._shared.training_step``) in turns, the loop timed
+between one pair of synchronisations (ms a step, samples/s); then one
+epoch of the replayed loop (with --eager the eager one) traced after its
+warm-up steps and capture: device busy ms a step and the idle share
+against the untraced loop.  Writes ``step_profile_c48_train[_eager]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import json
 import os
+import statistics
 import subprocess
 import tempfile
 import time
@@ -217,6 +233,158 @@ def _prognostic_steps(N, nudged_root=None, eager=False):
     return step, step
 
 
+# the training path: the dense loop of chip_smoke phase 14 at the train
+# CLI's defaults, on seeded data of that phase's shape (4 batches of
+# C48 x 63 columns, T and q in, dQ1 and dQ2 out)
+TRAIN_BATCHES = 4
+TRAIN_AB = ("eager", "replay", "replay", "eager")  # whole trainings, in turns
+# steps before the trace: the eager warm-up steps and the capture
+TRAIN_WARM = graphs.WARMUP + 1
+
+
+def _train_batches(N, seed=0):
+    from .util.quantity import Quantity
+
+    rng = np.random.RandomState(seed)
+    dims = ("tile", "z", "y", "x")
+    return [{k: Quantity(rng.standard_normal((6, NZ, N, N)).astype(
+        np.float32), dims)
+        for k in ("air_temperature", "specific_humidity", "dQ1", "dQ2")}
+        for _ in range(TRAIN_BATCHES)]
+
+
+def _train_profile(N, eager, traced_epochs=1):
+    """The dense training loop at DenseHyperparameters' defaults (depth 3,
+    width 64, 20 epochs of batches of 512) on seeded data of phase 14's
+    shape: whole trainings eager and replayed in turns (TRAIN_AB; the
+    loop, ``fit._shared.run_steps``, timed between one pair of
+    synchronisations: ms a step), then `traced_epochs` epochs of the
+    replayed loop, or with `eager` the eager one, traced after its first
+    TRAIN_WARM steps.  Returns (the runs' ms a step by side, the steps of
+    a training, samples of a training, the profiler, the traced steps and
+    their ms a step)."""
+    from . import fit
+    from .fit import _shared
+
+    batches = _train_batches(N)
+    hp = fit.DenseHyperparameters()
+    real = _shared.run_steps
+    loops = []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = real(*args)
+        torch.cuda.synchronize()
+        loops.append(((time.perf_counter() - t0) * 1e3, len(losses)))
+        return losses
+
+    def train(epochs):
+        return fit.train_dense_model(
+            dataclasses.replace(hp, epochs=epochs), batches,
+            input_variables=["air_temperature", "specific_humidity"],
+            output_variables=["dQ1", "dQ2"], device="cuda")
+
+    ms = {"eager": [], "replay": []}
+    _shared.run_steps = timed
+    try:
+        for side in TRAIN_AB:
+            with (graphs.eager() if side == "eager"
+                  else contextlib.nullcontext()):
+                train(hp.epochs)
+            total, steps = loops.pop()
+            ms[side].append(total / steps)
+    finally:
+        _shared.run_steps = real
+    traced = {}
+
+    def traced_loop(module, optimizer, loss_fn, batches):
+        step = _shared.training_step(module, optimizer, loss_fn)
+        batches = iter(batches)
+        losses = [step(b) for _, b in zip(range(TRAIN_WARM), batches)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rest = [step(b) for b in batches]
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        traced.update(prof=prof, steps=len(rest), ms=traced_ms / len(rest))
+        return losses + rest
+
+    _shared.run_steps = traced_loop
+    try:
+        with graphs.eager() if eager else contextlib.nullcontext():
+            train(traced_epochs)
+    finally:
+        _shared.run_steps = real
+    nsamp = TRAIN_BATCHES * 6 * N * N
+    return (ms, hp.epochs * -(-nsamp // hp.batch_size), hp.epochs * nsamp,
+            traced["prof"], traced["steps"], traced["ms"])
+
+
+def _write(stem, summary, prof):
+    with open(stem + ".json", "w") as f:
+        json.dump(summary, f, indent=1)
+    with open(stem + ".txt", "w") as f:
+        f.write(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=60
+        ))
+    print(json.dumps(summary))
+
+
+def _kernels(prof, steps):
+    """(device busy ms, device ops, {kernel: [calls, ms]}) a step of the
+    traced steps: kernels and copies, not the device spans of labels (the
+    stage labels, the optimizer's ``Optimizer.step#...``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events()
+               if e.device_type == cuda and not e.name.startswith("stage::")
+               and not getattr(e, "is_user_annotation", False)]
+    by_kernel = {}
+    for e in kernels:
+        k = by_kernel.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += _us(e) / 1e3 / steps
+    return (sum(_us(e) for e in kernels) / 1e3 / steps,
+            len(kernels) / steps, by_kernel)
+
+
+def main_train(N, eager, out, card):
+    """--train: the summary of _train_profile, written to
+    step_profile_c<N>_train[_eager].{json,txt} under `out`."""
+    ms, steps, samples, prof, n_traced, traced_ms = _train_profile(N, eager)
+    busy, ops, by_kernel = _kernels(prof, n_traced)
+    side = "eager" if eager else "replay"
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    summary = {
+        "config": (f"dense training loop (DenseHyperparameters: depth 3, "
+                   f"width 64, {steps} steps of 512 a training), "
+                   f"{TRAIN_BATCHES} batches of C{N}x{NZ} columns, 126 "
+                   f"features each way; traced: the "
+                   f"{'eager' if eager else 'replayed'} loop"),
+        "card": card,
+        "ms_per_step": ms,
+        "ms_per_step_median": med,
+        "samples_per_s": {k: samples / (v * steps / 1e3)
+                          for k, v in med.items()},
+        "traced_steps": n_traced,
+        "traced_ms_per_step": traced_ms,
+        "device_busy_ms_per_step": busy,
+        # against the untraced loop of the traced side, and the traced one
+        "device_idle_share": 1.0 - busy / med[side],
+        "device_idle_share_traced": 1.0 - busy / traced_ms,
+        "device_ops_per_step": ops,
+        "top_kernels_ms_per_step": sorted(
+            ([k[:120], c / n_traced, t] for k, (c, t) in by_kernel.items()),
+            key=lambda r: -r[2],
+        )[:25],
+    }
+    os.makedirs(out, exist_ok=True)
+    _write(os.path.join(out, f"step_profile_c{N}_train"
+                        + ("_eager" if eager else "")), summary, prof)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=48, choices=SW_SIZES)
@@ -230,6 +398,9 @@ def main(argv=None):
                     help="one step of the nudged run (C48)")
     ap.add_argument("--sw", action="store_true",
                     help="one step of the shallow-water model")
+    ap.add_argument("--train", action="store_true",
+                    help="the dense training loop of chip_smoke phase 14 "
+                         "at the train CLI's defaults (C48)")
     ap.add_argument("--eager", action="store_true",
                     help="the dycore dt or the coupled step eager, its "
                          "stages labelled; the prognostic or nudged step "
@@ -250,6 +421,9 @@ def main(argv=None):
     if args.sw and (args.fused or args.coupled or args.prognostic
                     or args.nudged):
         raise ValueError("--sw runs the shallow-water model alone")
+    if args.train and (N != 48 or args.fused or args.coupled
+                       or args.prognostic or args.nudged or args.sw):
+        raise ValueError("--train runs the dense training loop alone (C48)")
     if args.eager and args.sw:
         raise ValueError("--eager profiles the dycore dt, the coupled, "
                          "prognostic or nudged step")
@@ -260,6 +434,8 @@ def main(argv=None):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    if args.train:
+        return main_train(N, args.eager, args.out, card)
 
     # the nudged case's restart files (~0.1 GB at C48) go to a temporary
     # directory, not to --out
@@ -305,16 +481,7 @@ def main(argv=None):
     cuda = torch.autograd.DeviceType.CUDA
     # device activity: kernels and copies, not the GPU-side spans of the
     # stage labels (those are reported separately as stage spans)
-    kernels = [
-        e for e in events
-        if e.device_type == cuda and not e.name.startswith("stage::")
-    ]
-    busy_ms = sum(_us(e) for e in kernels) / 1e3 / traced_dts
-    by_kernel = {}
-    for e in kernels:
-        k = by_kernel.setdefault(e.name, [0, 0.0])
-        k[0] += 1
-        k[1] += _us(e) / 1e3 / traced_dts
+    busy_ms, ops_per_dt, by_kernel = _kernels(prof, traced_dts)
     stages = {}  # name -> [calls, host ms, device span ms] per dt
     for e in events:
         if e.name.startswith("stage::"):
@@ -354,7 +521,7 @@ def main(argv=None):
         "device_idle_share": 1.0 - busy_ms / host_med,
         "device_idle_share_traced": 1.0 - busy_ms / traced_ms,
         # kernels plus memcpy/memset activities
-        "device_ops_per_dt": len(kernels) / traced_dts,
+        "device_ops_per_dt": ops_per_dt,
         "indexing_backward_calls_per_dt":
             sum(c for c, _ in scatter) / traced_dts,
         "indexing_backward_ms_per_dt": sum(ms for _, ms in scatter),
@@ -382,13 +549,7 @@ def main(argv=None):
            else "_nudged" if args.nudged else "")
         + ("_eager" if args.eager else "")
     )
-    with open(stem + ".json", "w") as f:
-        json.dump(summary, f, indent=1)
-    with open(stem + ".txt", "w") as f:
-        f.write(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=60
-        ))
-    print(json.dumps(summary))
+    _write(stem, summary, prof)
 
 
 if __name__ == "__main__":

@@ -803,6 +803,56 @@ def test_training_step_on_card_matches_cpu(dev, family):
             assert err <= 1e-5 * scale, (layer, k, err, scale)
 
 
+@pytest.mark.parametrize("family", ["dense", "convolutional"])
+def test_captured_training_loop_equals_eager(dev, family, monkeypatch):
+    """A family's training loop on the card replays its captured step
+    (fit._shared.training_step: one graph a batch shape, after
+    graphs.WARMUP eager steps of it) and ends with the eager loop's parameters bit for bit,
+    with the capturable Adam on both sides (the convolutions in IEEE
+    float32 by cuDNN's deterministic algorithms on both, as the family
+    trains)."""
+    from fv3net_tpu_torch import fit, graphs
+    from fv3net_tpu_torch.convert import module_flax_params
+
+    made = []
+
+    class Counted(graphs._Capture):
+        def __init__(self, *args, **kwargs):
+            made.append(1)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(graphs, "_Capture", Counted)
+    rng = np.random.RandomState(14)
+    dims = ("tile", "z", "y", "x")
+    batches = []
+    for _ in range(2):
+        a = rng.randn(6, 8, n, n).astype(np.float32)
+        batches.append({"a": Quantity(a, dims), "b": Quantity(
+            2.0 * a + 0.1 * rng.randn(*a.shape).astype(np.float32), dims)})
+    if family == "dense":
+        # 1728 samples in batches of 500: three full and a short one an
+        # epoch, two graphs
+        def train():
+            return fit.train_dense_model(
+                fit.DenseHyperparameters(epochs=3, batch_size=500), batches,
+                input_variables=["a"], output_variables=["b"], device=dev)
+        captures = 2
+    else:  # one cube a step, 8 steps
+        def train():
+            return fit.train_convolutional_model(
+                fit.ConvolutionalHyperparameters(epochs=4), batches,
+                input_variables=["a"], output_variables=["b"], device=dev)
+        captures = 1
+    with graphs.eager():
+        want = module_flax_params(train().module)
+    assert not made
+    got = module_flax_params(train().module)
+    assert len(made) == captures
+    for layer, p in want.items():
+        for k, w in p.items():
+            np.testing.assert_array_equal(got[layer][k], w, f"{layer} {k}")
+
+
 def _series_batches(T, nz=2):
     """A seeded time series of [6, nz, n, n] states, each step a
     smooth function of the last, with a [6, n, n] forcing."""
