@@ -104,11 +104,11 @@ Phases (any failure raises and the script exits non-zero):
      phase 4's rule, with its launch counts; and one eager wrapper step
      (step_dynamics ... apply_physics, fv3net_tpu_torch.parity) with the
      simple suite and with do_held_suarez=True and the "none" suite, on
-     the card in f32 against the CPU in f32 and float64, from two seeded
-     moist states: smooth winds and uncapped humidity by phase 4's rule;
-     white-noise winds and humidity clipped flat at 20 g/kg by the f32
-     spread (the CPU's f32 steps from 5 1-ulp perturbations of the
-     inputs as well, see F32_FACTOR).
+     the card in f32 against the CPU in f32 and float64, from a seeded
+     moist state of smooth winds and uncapped humidity by phase 4's rule;
+     the simple suite also from white-noise winds and humidity clipped
+     flat at 20 g/kg by the f32 spread (the CPU's f32 steps from 5 1-ulp
+     perturbations of the inputs as well, see F32_FACTOR).
  10b. units: each unit the JAX package jits one by one on the serving
      paths, a ``graphs.jit`` on the card, at C48 x 63 f32 from a seeded
      moist state (parity.moist_inputs) with the GFS suite: the wrapper's
@@ -251,8 +251,9 @@ Phases (any failure raises and the script exits non-zero):
      loop (its training function on the CLI's batches) eager and
      replayed in turns as in 14 (CycleGAN's generator and discriminator
      steps two graphs, replayed in eager's order); one Adam step and
-     the first ten on the card against the CPU as phase 14 holds them
-     (CycleGAN's generator and discriminator steps in pairs); each
+     the first two (FAMILY_HELD_STEPS) on the card against the CPU as
+     phase 14 holds them (CycleGAN's generator and discriminator steps
+     in pairs); each
      family's dump loaded with no device (the card) predicting what the
      trained model predicted (ROUND_TRIP_RTOL), and loaded in the CPU
      port predicting the same by the f32 spread.  The scikit-learn
@@ -296,15 +297,21 @@ Phases (any failure raises and the script exits non-zero):
      K5 against the plain remap (both boundary forms) on tile 0's first
      96 x 96 columns (phase 3's K5 tolerance), with target bottoms above
      and below the source's; column mass across K5 in the flat blocks
-     (COARSE_MASS_BOUND); every output on 2 tiles x 6 x 6 coarse cells
+     (COARSE_MASS_BOUND); the ppm_remap unit (the JAX package jits
+     ppm_remap, which the pressure method calls: a replayed graph with
+     K5 in it) held against two eager calls, its ms both ways (UNIT_REPS
+     each, in turns), equal to remap_levels_mappm's K5 bit for bit;
+     every output on 2 tiles x 6 x 6 coarse cells
      against the port's float64 run of the same fine columns on the CPU
      by the f32 spread (the CPU's float32 runs from the inputs and from
      5 1-ulp perturbations of them), the categorical surface fields
      equal.
  22. shallow water and the dycore's options: (a) Williamson 2 at C48
      (w2_fields, tests/test_sw.py's recipe) through make_sw_stepper on
-     the card (c_sw scheme, hord 5, d2 0.12, f32) for SW_STEPS steps of
-     300 s: K1 twice and K3 once a step, counted exactly, the state held
+     the card (c_sw scheme, hord 5, d2 0.12, f32; ``run`` replays a CUDA
+     graph of one step, as the JAX package jits its scan) for SW_STEPS
+     steps of 300 s: K1 twice and K3 once a step, counted exactly, the
+     state held
      against the CPU's float64 run by the f32 spread (the CPU's f32 runs
      from the state and from 1-ulp perturbations of it); the same with
      metric_cwinds=False and metric_ke=False; (b) Williamson 2 at C192
@@ -312,8 +319,10 @@ Phases (any failure raises and the script exits non-zero):
      days with phase_sw_c192(days=5)): launches of every step,
      the area-weighted L2 height drift below 0.08 and max|u| below 150
      m/s (tests/test_sw.py's gates), total mass (float64 on the host) to
-     MASS_BOUND, finite state; (c) ms per SW step at C192 and C384 (CUDA
-     events, median of SW_TIMED after SW_WARMUP), and K1 and K3 on the
+     MASS_BOUND, finite state; (c) at C192 and C384 the replayed SW
+     step against two eager ones (hold_replay), ms per step eager and
+     replayed (CUDA events, SW_TIMED of each in turns), one replay traced
+     (its launches, device busy, idle share), and K1 and K3 on the
      arguments the step gives them, against their plain versions, timed
      beside the plain versions and the bound, with launches x (ms -
      bound) a step; (d) one C12 x 63 nonhydrostatic dt with c_half=False
@@ -337,20 +346,39 @@ Phases (any failure raises and the script exits non-zero):
      card: 6 processes of one gloo group (multihost.spawn, each running
      ``chip_smoke.py --rank face DIR``; the kernel library built once
      here first), each holding one face on the card, exchanges staged
-     through the host; 2 dts gathered and held against two single-process
-     card dts (SPMD_SPREAD_FACTOR: bit for bit where those agree bit for
-     bit) and the first against phase 5's CPU dts by phase 4's rule, dry
+     through the host; SPMD_GATE_DTS dt gathered and held against two
+     single-process card dts (SPMD_SPREAD_FACTOR: bit for bit where those
+     agree bit for bit) and against phase 5's CPU dts by phase 4's rule, dry
      mass; K1-K5's launches in every dt of every rank (K3 by its
      exchanged-pair entry); ms per dt (the slowest rank's CUDA events,
      median of SPMD_TIMED_DTS further dts) with the exchanges' host time,
-     calls and bytes apart; then the same mesh in float64 on the CPU at
-     C12 x 63 against the single-process float64 dt (SPMD_CPU_TOL).
+     calls and bytes apart.  The single-process references (spmd_
+     references) are made once, for phases 24-27.  (The float64 CPU runs
+     of the process-rank and local meshes are tests/test_torch_spmd_*.py
+     cases.)
  25. spmd tiled: the same on the (F, Y, X) = (2, 2, 2) mesh of 8 ranks
-     (three faces' tiles each), 1 dt held: the tiled step takes the
-     filter's and the vorticity damper's transpose forms (the JAX
-     package's tiled path), so it is held by phase 4's rule against
-     phase 5's CPU dts (its distance to the single-process card dt
-     printed); K3 does not run there.
+     (three faces' tiles each): the tiled step takes the filter's and the
+     vorticity damper's transpose forms (the JAX package's tiled path),
+     so its dt is held by phase 4's rule against phase 5's CPU dts (its
+     distance to the single-process card dt printed); K3 does not run
+     there.
+ 26. local face: the face mesh as the six shards of this process
+     (parallel.mesh.make_local_mesh, the JAX package's form: one process,
+     one dispatch over a mesh), each on a thread and a stream of its own,
+     the exchanges device tensors handed between the shards; two eager
+     dts of every shard from the benchmark state, each shard's launches
+     (LAUNCHES_SPMD_FACE) and all of them counted, the first held as
+     phase 24 holds its dt (bit for bit with the single-process card dt
+     where two of those agree); ``run``'s first call (two eager warm-up
+     dts, the capture of one CUDA graph of every shard's dt, a replay)
+     and its launches (six shards' worth); eager and replayed dts from
+     the same state, LOCAL_AB_DTS of each in turns (CUDA events), the
+     replayed dt against two eager ones (hold_replay); a later replay's
+     launches; one replay traced (each kernel's launches, the device
+     time the kernels cover, the idle share); finite state and dry
+     mass.
+ 27. local tiled: the same on the (2, 2, 2) mesh of 8 shards, held as
+     phase 25 holds its dt.
 Each phase's wall seconds are printed ("phase NAME: S s").  On the card
 every dycore ``run``, the coupled step and each unit of 10b replay CUDA
 graphs: the wrappers' launch counters move by the launches each replay
@@ -360,10 +388,11 @@ C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
 emulated and series paths, K6 on the C192 and C384 paths, K1, K3, K4 and K5 on the
 prognostic path, K5 on the C384 -> C48 coarsening path, K1 and K3 on the
 shallow-water path (a step at C48 and at C192, "sw"), K1-K5 in every rank
-of the multi-rank paths ("spmd face C48", "spmd tiled C48": a rank's
-launches a dt; K3's exchanged-pair entry, "del4_filter_pair", on the face
-mesh).  Each kernel's JSON entry holds its launches (from the coupled C48
-path for K1-K5, the C192 path for K6, the probe path for K7/K8, the spmd
+or shard of the multi-rank paths ("spmd face C48", "spmd tiled C48",
+"local face C48", "local tiled C48": a rank's or a shard's launches a
+dt; K3's exchanged-pair entry, "del4_filter_pair", on the face meshes).
+Each kernel's JSON entry holds its launches (from the coupled C48 path
+for K1-K5, the C192 path for K6, the probe path for K7/K8, the spmd
 face path for K3's pair entry; each path's in ``launches_by_path``) and
 its phase-3 numbers at the shapes of the path its launches come from
 (K1-K5 C48, K6 C192, K7/K8 [256, 256], the pair entry one face
@@ -1289,9 +1318,8 @@ def cpu_references(g, n):
     """One dt of the plain path on the CPU, in f32 and in float64, from
     the same f32 initial state (kept for the later phases that hold a dt
     of the same state: the multi-rank ones)."""
-    if n in _CPU_REFS:
-        return _CPU_REFS[n]
-    _CPU_REFS[n] = _cpu_references(g, n)
+    if n not in _CPU_REFS:
+        _CPU_REFS[n] = cpu_result(f"C{n} dt")
     return _CPU_REFS[n]
 
 
@@ -1306,6 +1334,130 @@ def _cpu_references(g, n):
         say(f"C{n}x{NZ} CPU plain dt {dtype}: "
             f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --- CPU references in worker processes ---------------------------------------
+# The float32 and float64 CPU runs that phases 4, 5, 10, 22 and 23 hold the
+# card against depend on nothing the card computes: they start in worker
+# processes when the script starts and are collected where a phase needs
+# them (each phase computes its own inline when called alone, as from a
+# build/ script).  Each worker takes CPU_THREADS of the host's cores, the
+# script's own process keeps the rest: with 3 workers of 2 threads the
+# host-paced phases 2-3 that ran beside them took 45 s more; the longest
+# job (C48's dts) goes first.
+CPU_WORKERS = 2
+CPU_THREADS = 1
+_CPU_JOBS = {}  # name -> the Future of a job started by start_cpu_jobs
+
+
+def _radiation_refs():
+    from fv3net_tpu_torch.physics.radiation import MultibandRadiationDriver
+
+    inp = radiation_inputs(48)
+    drv = MultibandRadiationDriver()
+    drv.radupdate(RAD_TIME)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        runs[dtype] = radiation_call(drv, inp, "cpu", dtype)()
+        say(f"radiation C48x63 CPU {dtype}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def _hydrostatic_refs():
+    """The hydrostatic C12 dt on the CPU in float64 and float32."""
+    n = 12
+    g = CubedSphereGrid.make(n, halo=H)
+    st, phis = hydrostatic_inputs(n)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        run, _, _ = stepper(g, "cpu", dtype)
+        out.append(run(type(st)(*(None if x is None else x.to(dtype)
+                                  for x in st)), phis.to(dtype), 1))
+    return out
+
+
+def _eager_refs(config, noisy):
+    """phase 10's eager wrapper step on the CPU: float64, float32 and the
+    float32 steps from 1-ulp perturbations of the inputs (noisy ones)."""
+    inputs = parity.moist_inputs(12, NZ, noisy=noisy)
+    ref64, plain32 = (parity.wrapper_step(12, NZ, "cpu", dtype, config,
+                                          inputs)
+                      for dtype in ("float64", "float32"))
+    perturbed = [
+        parity.wrapper_step(12, NZ, "cpu", "float32", config,
+                            parity.perturb_ulp(inputs, seed))
+        for seed in range(parity.SPREAD_RUNS if noisy else 0)
+    ]
+    return ref64, plain32, perturbed
+
+
+def _scheme_refs(tag):
+    """phase 22's C12 dt of a legacy substep scheme on the CPU, in f32 and
+    in float64."""
+    n = 12
+    g = CubedSphereGrid.make(n, halo=H)
+    scheme, patch = SCHEMES[tag]
+    refs = []
+    with patch():
+        for dtype in (torch.float32, torch.float64):
+            run, _, _ = make_dycore_stepper(
+                g, NZ, DT_ATMOS, k_split=1, n_split=6, hord=5, kord=9,
+                ptop=PTOP, dtype=dtype, device="cpu", **scheme)
+            st = benchmark_state(n, NZ, PTOP, "cpu")
+            refs.append(run(type(st)(*(x.to(dtype) for x in st)),
+                            torch.zeros((6, n, n), dtype=dtype), 1))
+    return refs
+
+
+HELD_SUAREZ = {"do_held_suarez": True, "physics_suite": "none"}
+# phase 10's eager steps: (configuration, noisy inputs)
+EAGER_CASES = (({}, False), ({}, True), (HELD_SUAREZ, False))
+CPU_JOBS = {
+    "C48 dt": lambda: _cpu_references(CubedSphereGrid.make(48, halo=H), 48),
+    "C12 dt": lambda: _cpu_references(CubedSphereGrid.make(12, halo=H), 12),
+    "C12 hydrostatic dt": _hydrostatic_refs,
+    **{f"C12 eager {bool(config)} {noisy}":
+       functools.partial(_eager_refs, config, noisy)
+       for config, noisy in EAGER_CASES},
+    "C48 SW": lambda: sw_cpu_runs(CubedSphereGrid.make(48, halo=H),
+                                  SW_STEPS),
+    "C48 SW options": lambda: sw_cpu_runs(CubedSphereGrid.make(48, halo=H),
+                                          SW_STEPS, **SW_OPTIONS),
+    "C12 c_half=False": functools.partial(_scheme_refs, "c_half=False"),
+    "C12 midpoint=False": functools.partial(_scheme_refs, "midpoint=False"),
+    "C48 radiation": _radiation_refs,
+}
+
+
+def run_cpu_job(name):
+    """A worker process's job: CPU_JOBS[name]() on CPU_THREADS threads."""
+    torch.set_num_threads(CPU_THREADS)
+    t0 = time.perf_counter()
+    out = CPU_JOBS[name]()
+    say(f"CPU reference {name!r}: {time.perf_counter() - t0:.1f} s in a "
+        f"worker process")
+    return out
+
+
+def start_cpu_jobs():
+    """Every CPU_JOBS job started in CPU_WORKERS spawned processes (which
+    import this module, not the card); returns the executor."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    for name in CPU_JOBS:
+        _CPU_JOBS[name] = pool.submit(run_cpu_job, name)
+    return pool
+
+
+def cpu_result(name):
+    """The CPU reference `name`: the worker's result if the job was
+    started, else computed here."""
+    job = _CPU_JOBS.pop(name, None)
+    return CPU_JOBS[name]() if job is None else job.result()
 
 
 def phase_slice_parity():
@@ -1450,11 +1602,13 @@ def ab_ms(tag, eager, replay, s0, n):
     return med
 
 
-def trace_replay(tag, step, expected):
+def trace_replay(tag, step, expected, union=False):
     """One replayed step under torch.profiler: each kernel's device
     launches, found by its device function's name (TRACE_NAMES), must be
     the wrappers' counts `expected`; returns (device busy ms, {kernel:
-    (launches, device ms)})."""
+    (launches, device ms)}).  Busy is the sum of the device ops' times,
+    or with `union` the time covered by at least one of them (ops of
+    concurrent streams, a local mesh's shards, counted once)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1465,6 +1619,15 @@ def trace_replay(tag, step, expected):
     cuda_t = torch.autograd.DeviceType.CUDA
     ops = [e for e in prof.events() if e.device_type == cuda_t]
     busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    if union:
+        covered, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in ops):
+            covered += max(0.0, b - max(a, end))
+            end = max(end, b)
+        say(f"{tag} device ops' times sum to {busy:.3f} ms, cover "
+            f"{covered / 1e3:.3f} ms")
+        busy = covered / 1e3
     seen = {}
     for k, pat in TRACE_NAMES.items():
         hits = [e for e in ops if pat in e.name]
@@ -1914,29 +2077,29 @@ def phase_hydrostatic_parity():
     (module docstring, 10)."""
     n = 12
     g = CubedSphereGrid.make(n, halo=H)
-    st = benchmark_state(n, NZ, PTOP, "cpu")._replace(w=None, delz=None)
-    phis = 2000.0 * torch.as_tensor(
-        np.abs(np.random.RandomState(4).randn(6, n, n)))
-    out = []
-    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
-                          ("cuda", torch.float32)):
-        run, _, _ = stepper(g, device, dtype)
-        reset_counts()
-        out.append(run(type(st)(*(None if x is None else
-                                  x.to(device=device, dtype=dtype)
-                                  for x in st)),
-                       phis.to(device=device, dtype=dtype), 1))
+    st, phis = hydrostatic_inputs(n)
+    run, _, _ = stepper(g, "cuda")
+    reset_counts()
+    got = run(type(st)(*(None if x is None else x.cuda() for x in st)),
+              phis.to("cuda", torch.float32), 1)
     torch.cuda.synchronize()
     check_counts("C12x63 hydrostatic one dt", read_counts(),
                  LAUNCHES_HYDRO_1TR)
-    ref64, plain32, got = out
+    ref64, plain32 = cpu_result("C12 hydrostatic dt")
     if got.w is not None or got.delz is not None:
         raise AssertionError("hydrostatic dt returned w or delz")
     compare_states("C12x63 hydrostatic", got, plain32, ref64,
                    fields=("delp", "pt", "u", "v", "q"))
-    for kw in ({}, {"do_held_suarez": True, "physics_suite": "none"}):
-        for noisy in (False, True):
-            eager_parity(n, kw, noisy)
+    for kw, noisy in EAGER_CASES:
+        eager_parity(n, kw, noisy)
+
+
+def hydrostatic_inputs(n):
+    """The hydrostatic dt's f32 state (no w, delz) and seeded phis."""
+    st = benchmark_state(n, NZ, PTOP, "cpu")._replace(w=None, delz=None)
+    phis = 2000.0 * torch.as_tensor(
+        np.abs(np.random.RandomState(4).randn(6, n, n)))
+    return st, phis
 
 
 def eager_parity(n, config, noisy):
@@ -1946,16 +2109,9 @@ def eager_parity(n, config, noisy):
     by the f32 spread of parity.SPREAD_RUNS 1-ulp perturbations
     (F32_FACTOR)."""
     inputs = parity.moist_inputs(n, NZ, noisy=noisy)
-    ref64, plain32, got = (
-        parity.wrapper_step(n, NZ, device, dtype, config, inputs)
-        for device, dtype in (("cpu", "float64"), ("cpu", "float32"),
-                              ("cuda", "float32"))
-    )
-    perturbed = [
-        parity.wrapper_step(n, NZ, "cpu", "float32", config,
-                            parity.perturb_ulp(inputs, seed))
-        for seed in range(parity.SPREAD_RUNS if noisy else 0)
-    ]
+    got = parity.wrapper_step(n, NZ, "cuda", "float32", config, inputs)
+    ref64, plain32, perturbed = cpu_result(
+        f"C12 eager {bool(config)} {noisy}")
     tag = (f"C12x63 eager {'held_suarez' if config else 'simple'} "
            f"{'noisy' if noisy else 'smooth'}")
     if not config and not float(ref64["total_precip"].max()) > 0.0:
@@ -2714,7 +2870,10 @@ def check_hydrometeors(hydro):
 
 
 TRAIN_VARIABLES = ([names.TEMP, names.SPHUM], ["dQ1", "dQ2"])
-HELD_STEPS = (1, 10)  # Adam steps held against the CPU (phase 14)
+HELD_STEPS = (1, 10)  # Adam steps held against the CPU (phases 14, 16)
+# ... of the families of phase 18, whose CPU trainings (convolutions at
+# C48, the FMR's unrolled steps) take most of that phase's time
+FAMILY_HELD_STEPS = (1, 2)
 ML_STEPS = 4  # TimeLoop steps of the ML-corrected run (phase 15)
 STORED_STEPS, EMULATED_STEPS = 4, 3  # phase 16: storage steps, emulated
 # ... the emulated run's launches: the nudged case's dycore (six species)
@@ -2938,8 +3097,9 @@ def model_params(model):
 
 
 def hold_training(tag, train, batch, steps_batch, predict, lr,
-                  perturb=parity.perturb_ulp, per_step=1):
-    """One Adam step and the first 10 (HELD_STEPS) of `train(batch,
+                  perturb=parity.perturb_ulp, per_step=1,
+                  held_steps=HELD_STEPS):
+    """One Adam step and the first 10 (held_steps) of `train(batch,
     device, steps)` on the card against the CPU from the same init and
     data, by the f32 spread of the CPU's f32 run against runs from
     parity.SPREAD_RUNS 1-ulp perturbations of the inputs
@@ -2959,7 +3119,8 @@ def hold_training(tag, train, batch, steps_batch, predict, lr,
         return model_params(model), {k: torch.as_tensor(np.asarray(v))
                                      for k, v in predict(model).items()}
 
-    for steps in HELD_STEPS:
+    t0 = time.perf_counter()
+    for steps in held_steps:
         sub = batch if steps_batch is None else {
             k: v[: steps * steps_batch] for k, v in batch.items()}
         with TrainClock() as clock:
@@ -2987,6 +3148,8 @@ def hold_training(tag, train, batch, steps_batch, predict, lr,
         say(f"{tag}: {steps} Adam step(s): a 1-ulp input change moved "
             f"{moved} of {size} parameters by more than a tenth of one "
             f"step (lr {lr:g})")
+    say(f"{tag}: the holds of {held_steps} steps took "
+        f"{time.perf_counter() - t0:.1f} s (the CPU's runs included)")
 
 
 def train_dense_held(batch_q, device):
@@ -3877,7 +4040,8 @@ def phase_families(root, series_path):
         SERIES, AB_EPOCHS * (len(keys) - 1) * cols,
         f"column steps, {AB_EPOCHS} epochs", {"epochs": AB_EPOCHS})
     hold_training("C48 fmr training", train_fmr_held, held, None,
-                  lambda m: outputs_of(m, fixed), hp.learning_rate)
+                  lambda m: outputs_of(m, fixed), hp.learning_rate,
+                  held_steps=FAMILY_HELD_STEPS)
     check_dump("C48 fmr", model, path, outputs_of, fixed, parity.perturb_ulp)
 
     # graph (mpg and unet) on the nudged run's stores, as phase 14
@@ -3903,7 +4067,7 @@ def phase_families(root, series_path):
             {"architecture": arch})
         hold_training(f"C48 graph {arch} training", train_graph_held(arch),
                       cubes, None, lambda m: outputs_of(m, fixed),
-                      hp.learning_rate)
+                      hp.learning_rate, held_steps=FAMILY_HELD_STEPS)
         check_dump(f"C48 graph {arch}", model, path, outputs_of, fixed,
                    parity.perturb_ulp)
         graph_dir = graph_dir or path
@@ -3922,7 +4086,8 @@ def phase_families(root, series_path):
     fixed = {k: q for k, q in fixed.items() if k in SERIES}
     hold_training("C48 autoencoder training", train_autoencoder_held,
                   stack(nudged, nkeys[:1], SERIES), None,
-                  lambda m: outputs_of(m, fixed), 1e-3)
+                  lambda m: outputs_of(m, fixed), 1e-3,
+                  held_steps=FAMILY_HELD_STEPS)
     check_dump("C48 autoencoder", model, path, outputs_of, fixed,
                parity.perturb_ulp)
 
@@ -3954,7 +4119,8 @@ def phase_families(root, series_path):
     arrays = {k: np.stack(v) for k, v in pairs.items()}
     fixed = cube_states({k: arrays[k] for k in a_names}, [len(nkeys) - 1])[0]
     hold_training("C48 cyclegan training", train_cyclegan_held, arrays, None,
-                  lambda m: outputs_of(m, fixed), 2e-4, per_step=2)
+                  lambda m: outputs_of(m, fixed), 2e-4, per_step=2,
+                  held_steps=FAMILY_HELD_STEPS)
     check_dump("C48 cyclegan", model, path, outputs_of, fixed,
                parity.perturb_ulp)
     return graph_dir
@@ -4431,10 +4597,20 @@ def phase_coarsening():
                     remap.remap_levels_plain(qw, p1w, p2w, 1, 9),
                     2e-5, 2e-5),
         check_close(f"C{n} remap window (mappm)", mappm[win],
-                    remap.ppm_remap(qw.movedim(1, 0), p1w.movedim(1, 0),
-                                    p2w.movedim(1, 0), iv=1, kord=9)
-                    .movedim(0, 1), 2e-5, 2e-5),
+                    remap.ppm_remap_plain(
+                        qw.movedim(1, 0), p1w.movedim(1, 0),
+                        p2w.movedim(1, 0), iv=1, kord=9).movedim(0, 1),
+                    2e-5, 2e-5),
     ]
+    # the ppm_remap unit as the pressure method calls it (captured by the
+    # coarsening's first run): its replays against two eager calls, ms a
+    # call both ways; and its replay is K5's remap_levels_mappm
+    cols = [t.movedim(1, 0) for t in (q, pe1, pe2)]
+    hold_unit(f"C{n} ppm_remap unit", remap.ppm_remap, *cols, iv=1, kord=9)
+    if not torch.equal(remap.ppm_remap(*cols, iv=1, kord=9).movedim(0, 1),
+                       mappm):
+        raise AssertionError("ppm_remap unit: not remap_levels_mappm's K5")
+    del cols
     ms = cuda_ms(lambda: ppm_remap_cuda(q, pe1, pe2, 1, 9))
     plain_ms = cuda_ms(lambda: remap.remap_levels_plain(qw, p1w, p2w, 1, 9))
     b_ms, b_by = bound([q, pe1, pe2], [k5], OPS_REMAP_LEVEL * q.numel()
@@ -4553,15 +4729,17 @@ def w2_fields(g, u0=None, gh0=2.94e4):
 
 
 SW_DT, SW_HORD, SW_D2 = 300.0, 5, 0.12  # (a): make_sw_stepper's defaults
-SW_STEPS = 48  # (a): C48 steps held against the CPU (4 hours)
+SW_STEPS = 24  # (a): C48 steps held against the CPU (2 hours)
 # (b): simulated days at C192, dt 600*24/n = 75 s.  The JAX test runs 5
-# (tests/test_sw.py, at C24); at ~60 ms a step on the H100 5 days take
-# ~350 s of the script's time limit, so the script runs one day, and
+# (tests/test_sw.py, at C24); the step is device bound at ~41 ms on the
+# H100 (the canonicalisation's scatter-add), replayed or not, so the script
+# runs half a day (26 s; a day took 53 s of the script's 1200), and
 # phase_sw_c192(days=5) the five
-SW_C192_DAYS = 1
+SW_C192_DAYS = 0.5
 SW_DRIFT_BOUND = 0.08  # tests/test_sw.py: area-weighted L2 height drift
 SW_WIND_BOUND = 150.0  # tests/test_sw.py: max |u| (m/s)
-SW_TIMED = 30  # (c): timed steps a width, after SW_WARMUP
+SW_OPTIONS = dict(metric_cwinds=False, metric_ke=False)  # (d)
+SW_TIMED = 16  # (c): timed steps a width, each way, after SW_WARMUP
 SW_WARMUP = 3
 # launches a SW step: the mass and vorticity transports (K1) and the mass
 # filter (K3)
@@ -4572,6 +4750,12 @@ LAUNCHES_SW = dict({k: 0 for k in WRAPPERS}, fv_tp_2d=2, del4_filter=1)
 # column chains; midpoint=False one D stage and no C half-stage
 LAUNCHES_C_HALF_FALSE = dict(LAUNCHES_PER_DT, fv_tp_2d=61, sim1_solver=12)
 LAUNCHES_FORWARD_BACKWARD = dict(LAUNCHES_PER_DT, column_pressures=6)
+# (d)'s substep schemes: make_dycore_stepper's flags, and a patch of
+# dyn_substep for the one it does not expose (substep_scheme)
+SCHEMES = {
+    "c_half=False": (dict(c_half=False), contextlib.nullcontext),
+    "midpoint=False": ({}, lambda: substep_scheme(midpoint=False)),
+}
 DAMPING_RTOL = 1e-5  # combined damping vs the three dampers, f32 sums
 REGRID_CONST_RTOL = 1e-6  # a constant field regridded, f32
 
@@ -4641,16 +4825,15 @@ def phase_sw_parity():
     launches = read_counts()
     check_counts(f"C48 SW {SW_STEPS} steps", launches,
                  {k: SW_STEPS * c for k, c in LAUNCHES_SW.items()})
-    hold_sw(f"C48 SW {SW_STEPS} steps", got, *sw_cpu_runs(g, SW_STEPS))
+    hold_sw(f"C48 SW {SW_STEPS} steps", got, *cpu_result("C48 SW"))
 
     # (d) the legacy metric options through the same entry point
-    options = dict(metric_cwinds=False, metric_ke=False)
-    run, m = make_sw_stepper(g, SW_DT, SW_HORD, SW_D2, **options)
+    run, m = make_sw_stepper(g, SW_DT, SW_HORD, SW_D2, **SW_OPTIONS)
     if m.metric_ke or bool(m.cosa_u.any()):
         raise AssertionError("SW metric options not applied")
     got = run(sw_state(g, "cuda"), SW_STEPS)
     hold_sw(f"C48 SW metric options {SW_STEPS} steps", got,
-            *sw_cpu_runs(g, SW_STEPS, **options))
+            *cpu_result("C48 SW options"))
     return {k: c // SW_STEPS for k, c in launches.items()}
 
 
@@ -4698,11 +4881,13 @@ def phase_sw_c192(days=SW_C192_DAYS):
 
 
 def phase_sw_times():
-    """(c) ms per SW step at C192 and C384 (CUDA events, median of
-    SW_TIMED steps after SW_WARMUP), and K1 and K3 on the arguments the
-    step gives them: against their plain versions, CUDA-event ms beside
-    the plain versions' and the bound (phase 3's bound()), and
-    launches x (ms - bound) a step."""
+    """(c) the SW step at C192 and C384: its replay against two eager
+    steps (hold_replay), ms per step eager and replayed (CUDA events,
+    SW_TIMED of each in turns after the capture and SW_WARMUP replays),
+    one replay traced (device busy, idle share), and K1 and K3 on the
+    arguments the step gives them: against their plain versions,
+    CUDA-event ms beside the plain versions' and the bound (phase 3's
+    bound()), and launches x (ms - bound) a step."""
     from fv3net_tpu_torch.dycore import make_sw_stepper
 
     for n in (192, 384):
@@ -4710,20 +4895,22 @@ def phase_sw_times():
         N = n + 2 * H
         run, _ = make_sw_stepper(g, 600.0 * 24 / n, SW_HORD, SW_D2)
         state = sw_state(g, "cuda")
+        # an eager step records the kernels' arguments (Capture
+        # synchronises, which a graph capture refuses); then the capture
+        # (its two eager warm-ups) and SW_WARMUP replays
         with Capture(sw, "fv_tp_2d") as tp, \
                 Capture(sw, "scalar_filter") as filt:
-            state = run(state, SW_WARMUP)
-        times = []
-        for _ in range(SW_TIMED):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            state = run(state, 1)
-            t1.record()
-            torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1))
-        say(f"C{n} SW ms/step {statistics.median(times):.4f} (median of "
-            f"{SW_TIMED}, min {min(times):.4f}, max {max(times):.4f})")
+            state = run.one_step(state)
+        state = run(state, SW_WARMUP)
+        hold_replay(f"C{n} SW step", run(state, 1), run.one_step(state),
+                    run.one_step(state))
+        med = ab_ms(f"C{n} SW ms/step", run.one_step,
+                    lambda s: run(s, 1), state, SW_TIMED)
+        busy, _ = trace_replay(f"C{n} SW step", lambda: run(state, 1),
+                               LAUNCHES_SW)
+        say(f"C{n} SW device busy {busy:.3f} ms a step: idle share of the "
+            f"replayed step {1.0 - busy / med['replay']:.3f}, of the eager "
+            f"step {1.0 - busy / med['eager']:.3f}")
         args, _ = tp.calls[0]  # the mass transport of the last warm-up
         got = fv_tp_2d_cuda(*args)
         want = advection.fv_tp_2d_plain(*args)
@@ -4779,20 +4966,11 @@ def phase_dycore_options():
     n = 12
     g = CubedSphereGrid.make(n, halo=H)
     phis = torch.zeros((6, n, n))
-    for tag, scheme, expected in (
-            ("c_half=False", dict(c_half=False), LAUNCHES_C_HALF_FALSE),
-            ("midpoint=False", {}, LAUNCHES_FORWARD_BACKWARD)):
-        patch = (substep_scheme(midpoint=False) if tag == "midpoint=False"
-                 else contextlib.nullcontext())
-        with patch:
-            refs = []
-            for dtype in (torch.float32, torch.float64):
-                run, _, _ = make_dycore_stepper(
-                    g, NZ, DT_ATMOS, k_split=1, n_split=6, hord=5, kord=9,
-                    ptop=PTOP, dtype=dtype, device="cpu", **scheme)
-                st = benchmark_state(n, NZ, PTOP, "cpu")
-                refs.append(run(type(st)(*(x.to(dtype) for x in st)),
-                                phis.to(dtype), 1))
+    for tag, expected in (("c_half=False", LAUNCHES_C_HALF_FALSE),
+                          ("midpoint=False", LAUNCHES_FORWARD_BACKWARD)):
+        scheme, patch = SCHEMES[tag]
+        refs = cpu_result(f"C12 {tag}")
+        with patch():
             run, _, _ = make_dycore_stepper(
                 g, NZ, DT_ATMOS, k_split=1, n_split=6, hord=5, kord=9,
                 ptop=PTOP, **scheme)
@@ -4878,8 +5056,8 @@ LW_CLOSURE = (1e-4, 1e-3)
 # card, only the exchange payloads through the host
 SPMD_MESHES = {"face": 6, "tiled": 8}  # ranks
 SPMD_LAYOUT = (2, 2, 2)  # the tiled mesh: (F, Y, X), three faces a rank
-SPMD_GATE_DTS = {"face": 2, "tiled": 1}  # dts held against the references
-SPMD_TIMED_DTS = 3  # further dts timed, after the held ones
+SPMD_GATE_DTS = 1  # dts held against the references
+SPMD_TIMED_DTS = 1  # a further dt timed, after the held one
 SPMD_TIMEOUT_S = 600  # the ranks' wall-time limit
 SPMD_DIST_TIMEOUT_S = 300  # every exchange and collective
 # the sharded card dt against the single-process card dt: bit for bit
@@ -4887,13 +5065,17 @@ SPMD_DIST_TIMEOUT_S = 300  # every exchange and collective
 # factor of their difference (autograd's atomic scatter-add in div_damp's
 # transpose makes the single-process card dt irreproducible in f32)
 SPMD_SPREAD_FACTOR = 4.0
-SPMD_CPU_N = 12  # the float64 CPU run of the same meshes: C12 x 63
-SPMD_CPU_TOL = 1e-12  # against the single-process float64 dt (rtol, atol)
 LAUNCHES_SPMD_FACE = dict(LAUNCHES_PER_DT, del4_filter=0,
                           del4_filter_pair=24)
 # on tiles the filter takes its plain transpose form (sw.scalar_filter)
 LAUNCHES_SPMD_TILED = dict(LAUNCHES_PER_DT, del4_filter=0)
+# the same meshes as the shards of this process (parallel.mesh.LocalMesh):
+# the JAX package's form, one process driving a mesh, whose run is one
+# replayed CUDA graph a dt here
+LOCAL_LAYOUTS = {"face": (6, 1, 1), "tiled": SPMD_LAYOUT}
+LOCAL_AB_DTS = 10  # eager and replayed dts timed, each, in turns
 _CPU_REFS = {}  # n -> phase 5's CPU f32 and float64 dts
+_SPMD_REFS = {}  # the single-process card references of phases 24-27
 
 
 def radiation_inputs(n, nz=NZ, seed=0):
@@ -4985,11 +5167,7 @@ def phase_radiation():
     eager_call = eagerly(card_call)
     hold_replay("radiation C48x63", got, eager_call(), eager_call())
     torch.cuda.synchronize()
-    runs = {}
-    for dtype in (torch.float32, torch.float64):
-        t0 = time.perf_counter()
-        runs[dtype] = radiation_call(drv, inp, "cpu", dtype)()
-        say(f"radiation C48x63 CPU {dtype}: {time.perf_counter() - t0:.1f} s")
+    runs = cpu_result("C48 radiation")
     compare_states("radiation C48x63", got, runs[torch.float32],
                    runs[torch.float64])
     day = got["total_sky_downward_shortwave_flux_at_top_of_atmosphere"]
@@ -5039,7 +5217,7 @@ def spmd_rank(mode, outdir):
     """One rank of phase 24 (face) or 25 (tiled): `python3 chip_smoke.py
     --rank MODE DIR`, started by multihost.spawn.  The card run of C48 x
     63: the held dts (their gathered states to DIR from rank 0), then the
-    timed ones; then the float64 CPU run of C12 x 63 (rank 0 saves it)."""
+    timed ones."""
     import torch.distributed as dist
 
     from fv3net_tpu_torch.parallel import multihost
@@ -5060,7 +5238,7 @@ def spmd_rank(mode, outdir):
                      torch.zeros((6, 48, 48)))
     comm = run.comm
     held, dts = [], []
-    for i in range(SPMD_GATE_DTS[mode] + SPMD_TIMED_DTS):
+    for i in range(SPMD_GATE_DTS + SPMD_TIMED_DTS):
         dist.barrier()
         reset_counts()
         comm.reset_counts()
@@ -5077,22 +5255,11 @@ def spmd_rank(mode, outdir):
             wait_ms=comm.wait_seconds * 1e3, exchanges=comm.calls,
             exchange_mb=comm.bytes / 1e6, launches=read_counts(),
         ))
-        if i < SPMD_GATE_DTS[mode]:
+        if i < SPMD_GATE_DTS:
             held.append({k: v.cpu() for k, v in gather(st)._asdict().items()
                          if v is not None})
-    run64, shard64, gather64 = _spmd_stepper(mode, mesh, SPMD_CPU_N, "cpu",
-                                             torch.float64)
-    st0 = benchmark_state(SPMD_CPU_N, NZ, PTOP, "cpu")
-    st64, ph64 = shard64(
-        type(st0)(*(None if x is None else x.double() for x in st0)),
-        torch.zeros((6, SPMD_CPU_N, SPMD_CPU_N), dtype=torch.float64),
-    )
-    cpu64 = gather64(run64(st64, ph64, 1))
     if rank == 0:
-        torch.save({"held": held,
-                    "cpu64": {k: v for k, v in cpu64._asdict().items()
-                              if v is not None}},
-                   os.path.join(outdir, "states.pt"))
+        torch.save({"held": held}, os.path.join(outdir, "states.pt"))
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump({"dts": dts, "setup_s": setup_s}, f)
     dist.destroy_process_group()
@@ -5116,34 +5283,69 @@ def spread_gate(tag, got, run_a, run_b):
                 f"{tag} {k}: {err:.3e} > {SPMD_SPREAD_FACTOR} x {spread:.3e}")
 
 
+def spmd_references():
+    """The single-process card references of the multi-rank phases
+    (24-27), made once: two runs of SPMD_GATE_DTS replayed dts of the C48
+    main path from the benchmark state (their difference is the sharded
+    dts' bound), the grid, the metrics and the initial dry mass."""
+    if not _SPMD_REFS:
+        n = 48
+        g = CubedSphereGrid.make(n, halo=H)
+        run1, m, _ = stepper(g, "cuda")
+        phis = torch.zeros((6, n, n), device="cuda")
+        singles = []
+        for _ in range(2):
+            s, out = benchmark_state(n, NZ, PTOP, "cuda"), []
+            for _ in range(SPMD_GATE_DTS):
+                s = run1(s, phis, 1)
+                out.append(fields_of(s))
+            singles.append(out)
+        torch.cuda.synchronize()
+        _SPMD_REFS.update(
+            g=g, m=m, singles=singles,
+            mass0=dry_mass(benchmark_state(n, NZ, PTOP, "cuda"), m))
+    return _SPMD_REFS
+
+
+def hold_sharded(tag, mode, held):
+    """The gathered states of a sharded run's first dts (name -> tensor)
+    against the single-process references (spmd_references): finite;
+    the face mesh within SPMD_SPREAD_FACTOR of two single-process card
+    dts (bit for bit where they agree, spread_gate); the tiled mesh, whose
+    step takes the filter's and the vorticity damper's transpose forms
+    (the JAX package's tiled path), by phase 4's rule against phase 5's
+    CPU dts, its distance to the single-process card dt printed; the
+    first dt against phase 5's CPU dts by phase 4's rule; dry mass."""
+    refs = spmd_references()
+    g, m, mass0 = refs["g"], refs["m"], refs["mass0"]
+    for i, got in enumerate(held):
+        single = refs["singles"][0][i]
+        for k, v in got.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{tag}: non-finite {k}")
+        if mode == "face":
+            spread_gate(f"{tag} dt {i + 1}", got, single,
+                        refs["singles"][1][i])
+        else:
+            for k, a in single.items():
+                say(f"{tag} {k:5s} max|tiled-single| "
+                    f"{float((got[k].to(a.device) - a).abs().max()):.3e}")
+        if i == 0:
+            compare_states(tag, got, *cpu_references(g, 48))
+        mass = float((got["delp"].to(m.rarea.device).double()
+                      / m.rarea.double()[:, None]).sum())
+        rel = (mass - mass0) / mass0
+        say(f"{tag} dry mass relative change after dt {i + 1}: {rel:.3e}")
+        if not abs(rel) <= MASS_BOUND:
+            raise AssertionError(f"{tag}: dry mass not conserved")
+
+
 def phase_spmd(mode):
     """Phase 24 (face) or 25 (tiled): the multi-rank dycore at C48 x 63 on
-    this card (module docstring)."""
+    this card, ranks as processes (module docstring)."""
     from fv3net_tpu_torch.parallel import multihost
 
-    n = 48
-    g = CubedSphereGrid.make(n, halo=H)
-    # the single-process references, before the ranks start: two card
-    # runs of the held dts and the float64 CPU dt of C12
-    run1, m, _ = stepper(g, "cuda")
-    phis = torch.zeros((6, n, n), device="cuda")
-    mass0 = dry_mass(benchmark_state(n, NZ, PTOP, "cuda"), m)
-    singles = []
-    for _ in range(2):
-        s, out = benchmark_state(n, NZ, PTOP, "cuda"), []
-        for _ in range(SPMD_GATE_DTS[mode]):
-            s = run1(s, phis, 1)
-            out.append({k: v for k, v in s._asdict().items()
-                        if v is not None})
-        singles.append(out)
-    torch.cuda.synchronize()
-    g12 = CubedSphereGrid.make(SPMD_CPU_N, halo=H)
-    run64, _, _ = stepper(g12, "cpu", torch.float64)
-    st0 = benchmark_state(SPMD_CPU_N, NZ, PTOP, "cpu")
-    ref64 = run64(type(st0)(*(None if x is None else x.double()
-                              for x in st0)),
-                  torch.zeros((6, SPMD_CPU_N, SPMD_CPU_N),
-                              dtype=torch.float64), 1)
+    spmd_references()  # before the ranks start
     nprocs = SPMD_MESHES[mode]
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as d:
@@ -5169,44 +5371,12 @@ def phase_spmd(mode):
                     f"{tag} rank {r} dt {i}: launches {dt['launches']}")
     check_counts(f"{tag} one dt, each rank", ranks[0]["dts"][0]["launches"],
                  expected)
-    for i, held in enumerate(states["held"]):
-        for k, v in held.items():
-            if not bool(torch.isfinite(v).all()):
-                raise AssertionError(f"{tag}: non-finite {k}")
-        if mode == "face":
-            spread_gate(f"{tag} dt {i + 1}", held, singles[0][i],
-                        singles[1][i])
-        else:
-            # the tiled step takes the filter's and the vorticity
-            # damper's transpose forms (the JAX package's tiled path), not
-            # the single-process arithmetic: held by phase 4's rule
-            for k, a in singles[0][i].items():
-                say(f"{tag} {k:5s} max|tiled-single| "
-                    f"{float((held[k].cuda() - a).abs().max()):.3e}")
-        if i == 0:
-            compare_states(tag, held, *cpu_references(g, n))
-        mass = float((held["delp"].to(m.rarea.device).double()
-                      / m.rarea.double()[:, None]).sum())
-        rel = (mass - mass0) / mass0
-        say(f"{tag} dry mass relative change after dt {i + 1}: {rel:.3e}")
-        if not abs(rel) <= MASS_BOUND:
-            raise AssertionError(f"{tag}: dry mass not conserved")
-    want = {k: v for k, v in ref64._asdict().items() if v is not None}
-    bitwise = True
-    for k, w in want.items():
-        got = states["cpu64"][k]
-        bitwise &= torch.equal(got, w)
-        err = float((got - w).abs().max())
-        say(f"{tag} CPU float64 C{SPMD_CPU_N} {k:5s} max|sharded-single| "
-            f"{err:.3e}")
-        if not bool(((got - w).abs()
-                     <= SPMD_CPU_TOL + SPMD_CPU_TOL * w.abs()).all()):
-            raise AssertionError(f"{tag}: CPU float64 {k} beyond 1e-12")
-    say(f"{tag} CPU float64 C{SPMD_CPU_N}: bit for bit {bitwise}")
-    timed = [dt for rk in ranks for dt in rk["dts"][SPMD_GATE_DTS[mode]:]]
-    slowest = [max(rk["dts"][SPMD_GATE_DTS[mode] + j]["ms"] for rk in ranks)
+    hold_sharded(tag, mode, states["held"])
+    timed = [dt for rk in ranks for dt in rk["dts"][SPMD_GATE_DTS:]]
+    slowest = [max(rk["dts"][SPMD_GATE_DTS + j]["ms"] for rk in ranks)
                for j in range(SPMD_TIMED_DTS)]
     ms = statistics.median(slowest)
+
     def med(key):
         return statistics.median(dt[key] for dt in timed)
 
@@ -5222,6 +5392,86 @@ def phase_spmd(mode):
         f"a rank; first dt {max(rk['dts'][0]['ms'] for rk in ranks):.1f} ms; "
         f"stepper set-up {max(rk['setup_s'] for rk in ranks):.1f} s")
     return ranks[0]["dts"][0]["launches"]
+
+
+def phase_local(mode):
+    """Phase 26 (face) or 27 (tiled): the same meshes as the shards of
+    this process at C48 x 63 on this card (module docstring).  Returns
+    a shard's launches a dt."""
+    from fv3net_tpu_torch.parallel.mesh import make_local_mesh
+
+    n = 48
+    refs = spmd_references()
+    tag = f"local {mode} C48x63"
+    expected = LAUNCHES_SPMD_FACE if mode == "face" else LAUNCHES_SPMD_TILED
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(LOCAL_LAYOUTS[mode])
+    D = mesh.n_devices
+    every = {k: D * c for k, c in expected.items()}
+    run, shard, gather = _spmd_stepper(mode, mesh, n, "cuda", torch.float32)
+    sharded, ph = shard(benchmark_state(n, NZ, PTOP, "cuda"),
+                        torch.zeros((6, n, n), device="cuda"))
+    setup_s = time.perf_counter() - t0
+
+    # an eager dt of every shard, counted
+    for comm in mesh.comms():
+        comm.reset_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    eager = run.one_dt(sharded, ph)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for d, counts in enumerate(mesh.launches):
+        if counts != expected:
+            raise AssertionError(f"{tag} shard {d}: launches {counts}")
+    check_counts(f"{tag} one eager dt, each shard", mesh.launches[0],
+                 expected)
+    check_counts(f"{tag} one eager dt, all {D} shards", read_counts(),
+                 every)
+    comm = mesh.comm(0)
+    say(f"{tag} shard 0: {comm.calls} exchanges a dt, {comm.bytes / 1e6:.3f}"
+        f" MB handed over on the device, {comm.seconds * 1e3:.1f} ms of its "
+        f"thread in them (the other shards' turns included); first eager dt "
+        f"{first_s:.1f} s, set-up {setup_s:.1f} s")
+    hold_sharded(tag, mode, [fields_of(gather(eager))])
+
+    # the replay: its capture (two eager warm-up dts), one replayed dt
+    reset_counts()
+    t0 = time.perf_counter()
+    first = run(sharded, ph, 1)
+    torch.cuda.synchronize()
+    say(f"{tag} first call (warm-ups, capture, one replay) "
+        f"{time.perf_counter() - t0:.1f} s; graphs held "
+        f"{len(run.graphed.graphs())}, "
+        f"{run.graphed.memory() / 2 ** 20:.1f} MiB")
+    check_counts(f"{tag} one replayed dt, all {D} shards", read_counts(),
+                 every)
+    # eager and replayed dts from the same state in turns: ms/dt both ways,
+    # and the first eager one of them the replay's second eager dt
+    again = []
+
+    def eager_dt():
+        out = run.one_dt(sharded, ph)
+        if not again:
+            again.append(out)
+
+    med = ab_calls(f"{tag} dt", eager_dt, lambda: run(sharded, ph, 1),
+                   LOCAL_AB_DTS)
+    hold_replay(tag, gather(first), gather(eager), gather(again[0]))
+    reset_counts()
+    later = run(first, ph, 1)
+    torch.cuda.synchronize()
+    check_counts(f"{tag} a later replayed dt", read_counts(), every)
+    busy, _ = trace_replay(tag, lambda: run(later, ph, 1), every,
+                           union=True)
+    say(f"{tag} device busy {busy:.3f} ms a dt: idle share of the replayed "
+        f"dt {1.0 - busy / med['replay']:.3f}, of the eager dt "
+        f"{1.0 - busy / med['eager']:.3f}; against the single-process "
+        f"replayed dt (phase 5) and the process ranks' dt (phase "
+        f"{24 if mode == 'face' else 25}) printed there")
+    check_state(tag, gather(run(later, ph, 1)), refs["m"], refs["mass0"],
+                3)
+    return mesh.launches[0]
 
 
 def width(name, n):
@@ -5268,7 +5518,7 @@ def kernel_summary(stats, probe_launches, paths):
                 library_device_ms=r["library_device_ms"],
                 at_16384=dict(big))
     for tag, launches in paths.items():
-        if tag == "sw" or tag.startswith("spmd"):
+        if tag == "sw" or tag.startswith(("spmd", "local")):
             # single-layer or shard shapes, which phase 3 does not time
             # (phase 22 prints the SW step's loss)
             continue
@@ -5295,6 +5545,14 @@ def timed(name, fn, *args):
 def main():
     t0 = time.perf_counter()
     timed("device", phase_device)
+    pool = start_cpu_jobs()
+    try:
+        run_phases(t0)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def run_phases(t0):
     timed("build", phase_build)
     probe_launches, stats = timed("probe", phase_probe)
     stats.update(timed("kernels", phase_kernels))
@@ -5331,6 +5589,8 @@ def main():
     timed("radiation", phase_radiation)
     spmd_face_launches = timed("spmd face", phase_spmd, "face")
     spmd_tiled_launches = timed("spmd tiled", phase_spmd, "tiled")
+    local_face_launches = timed("local face", phase_local, "face")
+    local_tiled_launches = timed("local tiled", phase_local, "tiled")
     kernels = kernel_summary(stats, probe_launches, {
         "C48": main_launches, "C192 fused": fused_launches,
         "C384 fused": c384_launches,
@@ -5340,7 +5600,9 @@ def main():
         "series C48": series_launches,
         "coarsening C384": coarsening_launches, "sw": sw_launches,
         "spmd face C48": spmd_face_launches,
-        "spmd tiled C48": spmd_tiled_launches})
+        "spmd tiled C48": spmd_tiled_launches,
+        "local face C48": local_face_launches,
+        "local tiled C48": local_tiled_launches})
     say(f"all phases: {time.perf_counter() - t0:.1f} s")
     say(card())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import graphs
 from ..constants import GRAV
 from ..device import default_device
 from ..grid.geometry import CubedSphereGrid
@@ -610,9 +611,12 @@ def _filter_weights(area_px, area_py, h, n, lead):
     boundary faces, which BOTH adjacent faces compute, once each.  Entry
     I-1 of the last axis weights x face I, between cells I-1 and I (and
     likewise for y)."""
-    dbl = torch.ones(area_px.shape[-1] - 1, dtype=area_px.dtype,
+    one = torch.ones(area_px.shape[-1] - 1, dtype=area_px.dtype,
                      device=area_px.device)
-    dbl[h - 1] = dbl[h + n - 1] = 2.0
+    i = torch.arange(one.shape[0], device=one.device)
+    # a mask, not an item set: no tensor made from a host number (a
+    # captured step's rule, tests/torch_parity.NoHostRead(scalars=True))
+    dbl = torch.where((i == h - 1) | (i == h + n - 1), 2.0 * one, one)
     wx = 0.5 * (area_px[:, :, 1:] + area_px[:, :, :-1]) * dbl
     wy = 0.5 * (area_py[:, 1:, :] + area_py[:, :-1, :]) * dbl[:, None]
     return _lead_bc(wx, lead), _lead_bc(wy, lead)
@@ -661,9 +665,14 @@ def scalar_filter_plain(q, m, c):
         half = [0.5 if inner else 1.0 for inner in (
             not m.edge_w, not m.edge_e, not m.edge_s, not m.edge_n
         )]
-        colw = torch.ones(n + 1, dtype=q.dtype, device=q.device)
-        roww = torch.ones(n + 1, dtype=q.dtype, device=q.device)
-        colw[0], colw[n], roww[0], roww[n] = half
+        one = torch.ones(n + 1, dtype=q.dtype, device=q.device)
+        i = torch.arange(n + 1, device=q.device)
+
+        def ends(first, last):  # [first, 1, ..., 1, last], as a mask
+            return torch.where(
+                i == 0, first * one, torch.where(i == n, last * one, one))
+
+        colw, roww = ends(*half[:2]), ends(*half[2:])
         wfx = wfx * colw
         wfy = wfy * roww[:, None]
 
@@ -1235,19 +1244,32 @@ def make_sw_stepper(g: CubedSphereGrid, dt: float, hord: int = 5,
                     d2_damp: float = 0.12, dtype=torch.float32,
                     device=None, **scheme):
     """Build a multi-step SW stepper: (run, m) with run(state, nsteps) ->
-    state, a Python loop over shallow_water_step.  The metrics are built
-    on the CPU and moved to `device` (the CUDA device unless the caller
-    names one); scheme: SWMetrics.make's metric_cwinds, metric_ke and
+    state.  On CUDA tensors ``run`` replays a CUDA graph of one
+    shallow_water_step nsteps times (``graphs.Graphed``, the counterpart
+    of the JAX package's jitted scan), captured on the first call for
+    each set of shapes; on the CPU it is the eager loop, and
+    ``run.one_step`` is the eager step.  The metrics are built on the
+    CPU and moved to `device` (the CUDA device unless the caller names
+    one); scheme: SWMetrics.make's metric_cwinds, metric_ke and
     corner_damp."""
     if device is None:
         device = default_device("make_sw_stepper")
     m = SWMetrics.make(g, dtype, device=device, **scheme)
 
+    def one_step(state: ShallowWaterState):
+        return shallow_water_step(state, m, dt, hord, d2_damp)
+
+    graphed = graphs.Graphed(one_step, carry="all")
+
     def run(state: ShallowWaterState, nsteps: int):
+        if state.delp.device.type == graphs.CAPTURED_DEVICE:
+            return graphed(state, steps=nsteps)
         for _ in range(nsteps):
-            state = shallow_water_step(state, m, dt, hord, d2_damp)
+            state = one_step(state)
         return state
 
+    run.one_step = one_step
+    run.graphed = graphed
     return run, m
 
 

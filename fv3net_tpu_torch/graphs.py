@@ -229,7 +229,7 @@ class _Capture:
     """One graph: its static buffers, its outputs and its counts."""
 
     def __init__(self, fn, args, leaves, spec, carry, donate,
-                 warmup=WARMUP):
+                 warmup=WARMUP, capture_error_mode="global"):
         dev = leaves[0].device
         n_first = len(_flatten(args[0])[0]) if carry is not None else 0
         first = leaves[:n_first]
@@ -266,7 +266,8 @@ class _Capture:
             for w, b in before.items():
                 w.launches = b
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode=capture_error_mode):
                 # read after the context has emptied the allocator's
                 # cache: the graph's private pool takes new segments
                 reserved = torch.cuda.memory_reserved(dev)
@@ -342,12 +343,16 @@ class Graphed:
     (``_real_call``) and its capture warms up nothing, so the state sees
     every call once, in order.  ``captures`` maps each key to its
     capture, or, before it, to the real calls taken.
+    capture_error_mode: ``torch.cuda.graph``'s; "thread_local" where other
+    threads launch and allocate into the capture (a local mesh's shards,
+    ``parallel/spmd_dycore.py``), which "global" refuses.
     """
 
     def __init__(self, fn: Callable, *, carry: Optional[Union[str, int]] =
                  None, donate: bool = False,
                  key: Callable[[], tuple] = tuple,
-                 max_captures: Optional[int] = None, updates: bool = False):
+                 max_captures: Optional[int] = None, updates: bool = False,
+                 capture_error_mode: str = "global"):
         if donate and carry is None:
             raise ValueError("donate needs carry: the output it aliases")
         if updates and carry is not None:
@@ -359,6 +364,7 @@ class Graphed:
         self.key = key
         self.max_captures = max_captures
         self.updates = updates
+        self.capture_error_mode = capture_error_mode
         self.captures = collections.OrderedDict()
 
     def _with_kwargs(self, *args):
@@ -409,10 +415,11 @@ class Graphed:
             if self.updates and cap < WARMUP:
                 self.captures[key] = cap + 1
                 return _real_call(fn, args, leaves[0].device)
+            opts = {"warmup": 0} if self.updates else {}
+            if self.capture_error_mode != "global":
+                opts["capture_error_mode"] = self.capture_error_mode
             cap = self.captures[key] = _Capture(
-                fn, args, leaves, spec, self.carry, self.donate,
-                **({"warmup": 0} if self.updates else {}),
-            )
+                fn, args, leaves, spec, self.carry, self.donate, **opts)
         return cap(leaves, steps)
 
     def graphs(self) -> list:

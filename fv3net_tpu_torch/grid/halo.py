@@ -24,15 +24,17 @@ from the shared corner lattice, which makes the corner cases (literal cube
 corners) fall out of the derivation instead of hand-coded tables.
 
 Under ``spmd_mode`` (the JAX file's lines 34-55) each public exchange
-dispatches to its shard-local form over a process group: the face mesh's
-(parallel/halo_spmd.py) or, with a TileLayout, the within-face tiled
-plans (parallel/tiling.py).  That is what lets the dycore step run
-unchanged on one face, or one tile, per rank (parallel/spmd_dycore.py).
+dispatches to its shard-local form over a mesh (a process group, or the
+shards of one process): the face mesh's (parallel/halo_spmd.py) or, with
+a TileLayout, the within-face tiled plans (parallel/tiling.py).  That is
+what lets the dycore step run unchanged on one face, or one tile, per
+rank or shard (parallel/spmd_dycore.py).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -40,30 +42,41 @@ import torch
 
 from . import topology as topo
 
-# the Comm of the exchange axis (parallel.halo_spmd.Comm) and the
-# TileLayout of the active spmd_mode; None: the single-process exchanges
-_SPMD_AXIS = None
-_SPMD_TILING = None
+class _Spmd(threading.local):
+    """The active spmd_mode of this thread: the Comm of the exchange axis
+    (parallel.halo_spmd.Comm or LocalComm) and its TileLayout; None: the
+    single-process exchanges.  Thread-local, so that the shards of a
+    local mesh (parallel.mesh.LocalMesh), one thread each, each exchange
+    over their own axis."""
+
+    axis = None
+    tiling = None
+
+
+_SPMD = _Spmd()
 
 
 @contextlib.contextmanager
 def spmd_mode(axis, tiling=None):
-    """Run every exchange as its shard-local form over `axis`, the Comm
-    of the mesh's face axis (or, with a TileLayout `tiling`, of the
-    flattened (face, y, x) axes)."""
-    global _SPMD_AXIS, _SPMD_TILING
-    prev = (_SPMD_AXIS, _SPMD_TILING)
-    _SPMD_AXIS = axis
-    _SPMD_TILING = tiling
+    """Run every exchange of this thread as its shard-local form over
+    `axis`, the Comm of the mesh's face axis (or, with a TileLayout
+    `tiling`, of the flattened (face, y, x) axes)."""
+    prev = (_SPMD.axis, _SPMD.tiling)
+    _SPMD.axis, _SPMD.tiling = axis, tiling
     try:
         yield
     finally:
-        _SPMD_AXIS, _SPMD_TILING = prev
+        _SPMD.axis, _SPMD.tiling = prev
+
+
+def spmd_axis():
+    """The Comm of this thread's spmd_mode (None outside one)."""
+    return _SPMD.axis
 
 
 def spmd_active() -> bool:
-    """Whether the exchanges run over a process group (spmd_mode)."""
-    return _SPMD_AXIS is not None
+    """Whether this thread's exchanges run over a mesh (spmd_mode)."""
+    return _SPMD.axis is not None
 
 
 # ---------------------------------------------------------------------------
@@ -660,14 +673,14 @@ def halo_exchange(field, h: int, fill: str = "none"):
     version of FV3's copy_corners(dir=1/2) (tp_core.F90); use 'y' before
     y-direction stencils that run on x-halo columns and vice versa.
     """
-    if _SPMD_TILING is not None:
+    if _SPMD.tiling is not None:
         from ..parallel import tiling as _tl
 
-        return _tl.halo_exchange_tiled(field, _SPMD_TILING, fill, _SPMD_AXIS)
-    if _SPMD_AXIS is not None:
+        return _tl.halo_exchange_tiled(field, _SPMD.tiling, fill, _SPMD.axis)
+    if _SPMD.axis is not None:
         from ..parallel import halo_spmd as _hs
 
-        return _hs.halo_exchange_local(field, h, fill, _SPMD_AXIS)
+        return _hs.halo_exchange_local(field, h, fill, _SPMD.axis)
     n = field.shape[-1]
     N = n + 2 * h
     fi, pi = _scalar_gather(n, h, fill, field.device)
@@ -729,14 +742,14 @@ def halo_exchange_dgrid(u, v, h: int):
     are zero.  Reverse-mode autodiff transposes it by gathers
     (halo_transpose.py), not by a scatter-add.
     """
-    if _SPMD_TILING is not None:
+    if _SPMD.tiling is not None:
         from ..parallel import tiling as _tl
 
-        return _tl.halo_exchange_dgrid_tiled(u, v, _SPMD_TILING, _SPMD_AXIS)
-    if _SPMD_AXIS is not None:
+        return _tl.halo_exchange_dgrid_tiled(u, v, _SPMD.tiling, _SPMD.axis)
+    if _SPMD.axis is not None:
         from ..parallel import halo_spmd as _hs
 
-        return _hs.halo_exchange_dgrid_local(u, v, h, _SPMD_AXIS)
+        return _hs.halo_exchange_dgrid_local(u, v, h, _SPMD.axis)
     from .halo_transpose import staggered_exchange
 
     return staggered_exchange(u, v, "dgrid", h, "")
@@ -751,16 +764,16 @@ def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
     rotated into this face's frame (see _cgrid_tables).  Transposed by
     gathers, as halo_exchange_dgrid.
     """
-    if _SPMD_TILING is not None:
+    if _SPMD.tiling is not None:
         from ..parallel import tiling as _tl
 
         return _tl.halo_exchange_cgrid_tiled(
-            uc, vc, _SPMD_TILING, fill, _SPMD_AXIS
+            uc, vc, _SPMD.tiling, fill, _SPMD.axis
         )
-    if _SPMD_AXIS is not None:
+    if _SPMD.axis is not None:
         from ..parallel import halo_spmd as _hs
 
-        return _hs.halo_exchange_cgrid_local(uc, vc, h, fill, _SPMD_AXIS)
+        return _hs.halo_exchange_cgrid_local(uc, vc, h, fill, _SPMD.axis)
     from .halo_transpose import staggered_exchange
 
     return staggered_exchange(uc, vc, "cgrid", h, fill)
@@ -781,16 +794,16 @@ def canonicalize_cgrid_boundary(uc, vc):
     (rotated into its frame).  Restores exact shared-face flux
     cancellation (global mass conservation to roundoff) for arbitrary
     wind fields.  uc: [6, ..., n, n+1]; vc: [6, ..., n+1, n]."""
-    if _SPMD_TILING is not None:
+    if _SPMD.tiling is not None:
         from ..parallel import tiling as _tl
 
         return _tl.canonicalize_cgrid_boundary_tiled(
-            uc, vc, _SPMD_TILING, _SPMD_AXIS
+            uc, vc, _SPMD.tiling, _SPMD.axis
         )
-    if _SPMD_AXIS is not None:
+    if _SPMD.axis is not None:
         from ..parallel import halo_spmd as _hs
 
-        return _hs.canonicalize_cgrid_boundary_local(uc, vc, _SPMD_AXIS)
+        return _hs.canonicalize_cgrid_boundary_local(uc, vc, _SPMD.axis)
     (pu, mu), (pv, mv) = _boundary_partner(uc, vc, "canon")
     uo = torch.where(mu, pu, uc.reshape(pu.shape))
     vo = torch.where(mv, pv, vc.reshape(pv.shape))
@@ -801,15 +814,15 @@ def average_dgrid_boundary(u, v):
     """Replace both stored copies of every shared boundary D-edge with
     their (sign-consistent) average.  u: [6, ..., n+1, n],
     v: [6, ..., n, n+1]; the interior is untouched."""
-    if _SPMD_TILING is not None:
+    if _SPMD.tiling is not None:
         from ..parallel import tiling as _tl
 
-        return _tl.average_dgrid_boundary_tiled(u, v, _SPMD_TILING,
-                                                _SPMD_AXIS)
-    if _SPMD_AXIS is not None:
+        return _tl.average_dgrid_boundary_tiled(u, v, _SPMD.tiling,
+                                                _SPMD.axis)
+    if _SPMD.axis is not None:
         from ..parallel import halo_spmd as _hs
 
-        return _hs.average_dgrid_boundary_local(u, v, _SPMD_AXIS)
+        return _hs.average_dgrid_boundary_local(u, v, _SPMD.axis)
     (pu, mu), (pv, mv) = _boundary_partner(u, v, "avg")
     own_u = u.reshape(pu.shape)
     own_v = v.reshape(pv.shape)
@@ -825,10 +838,10 @@ def extend_cells_one(field):
     within-face tile boundaries.  Bit-preserving contract: one-sided
     boundary formulas written as 0.5*(ext[j] + ext[j+1]) reproduce their
     pre-extension bits (0.5*(x+x) == x)."""
-    if _SPMD_TILING is not None:
+    if _SPMD.tiling is not None:
         from ..parallel import tiling as _tl
 
-        return _tl.extend_cells_one_tiled(field, _SPMD_TILING, _SPMD_AXIS)
+        return _tl.extend_cells_one_tiled(field, _SPMD.tiling, _SPMD.axis)
     return edge_pad(field, 1)
 
 

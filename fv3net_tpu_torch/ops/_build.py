@@ -14,11 +14,13 @@ be built raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -58,17 +60,49 @@ COUNTED = {}
 build_info = {}  # path, seconds and compiler output of the last build
 
 
+# the library's build and every launch counter's update: the shards of a
+# local mesh (parallel.mesh.LocalMesh) launch kernels from threads of their
+# own, and ``launches += 1`` is no atomic update
+_LOCK = threading.Lock()
+_TALLY = threading.local()  # .counts: the calling thread's tally, or None
+
+
 def counted(name: str):
     """Register a kernel wrapper under `name` in ``COUNTED``, its
-    ``launches`` counter at 0.  The wrapper adds one where it launches
-    its kernel; a replayed graph (``graphs.Graphed``) adds the launches
-    it captured."""
+    ``launches`` counter at 0.  The wrapper counts each launch of its
+    kernel with ``launched``; a replayed graph (``graphs.Graphed``) adds
+    the launches it captured."""
     def register(fn):
         fn.launches = 0
+        fn.counter_name = name
         COUNTED[name] = fn
         return fn
 
     return register
+
+
+def launched(fn) -> None:
+    """One launch of the kernel of wrapper `fn`: its counter moves by one
+    (under a lock), and so does the calling thread's tally, if it keeps
+    one (``tally``)."""
+    with _LOCK:
+        fn.launches += 1
+    counts = getattr(_TALLY, "counts", None)
+    if counts is not None:
+        counts[fn.counter_name] = counts.get(fn.counter_name, 0) + 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Within the block, the launches this thread makes are counted apart
+    as well, in the dict it yields (wrapper name -> launches)."""
+    counts = dict.fromkeys(COUNTED, 0)
+    before = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = before
 
 
 def find_nvcc() -> str:
@@ -141,13 +175,14 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -62,5 +62,5 @@ def column_pressures_cuda(dp, ptop: float):
         "fv3_column", ptr, pe.data_ptr(), pi_lay.data_ptr(), pm.data_ptr(),
         F, nz, Y * X, float(ptop), P00, KAPPA, _build.stream(),
     )
-    column_pressures_cuda.launches += 1
+    _build.launched(column_pressures_cuda)
     return pe, pi_lay, pm

@@ -58,7 +58,7 @@ def del4_filter_cuda(q, area_px, area_py, c: float, halo: int):
         "fv3_del4", *ptrs, out.data_ptr(), F, nz, n, halo, lv,
         float(c) / 8.0, _build.stream(),
     )
-    del4_filter_cuda.launches += 1
+    _build.launched(del4_filter_cuda)
     return out
 
 
@@ -91,5 +91,5 @@ def del4_filter_pair_cuda(qx, qy, area_px, area_py, c: float, halo: int):
         "fv3_del4_pair", *ptrs, out.data_ptr(), F, nz, n, halo, lv,
         float(c) / 8.0, _build.stream(),
     )
-    del4_filter_pair_cuda.launches += 1
+    _build.launched(del4_filter_pair_cuda)
     return out

@@ -48,5 +48,5 @@ def ppm_remap_cuda(q1, pe1, pe2, iv: int, kord: int):
         "fv3_remap", *ptrs, q2.data_ptr(), qe.data_ptr(), gam.data_ptr(),
         F, Fp, km, kn, Y * X, iv, kord, _build.stream(),
     )
-    ppm_remap_cuda.launches += 1
+    _build.launched(ppm_remap_cuda)
     return q2

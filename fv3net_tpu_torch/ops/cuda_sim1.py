@@ -53,5 +53,5 @@ def sim1_solver_cuda(dt, dm, pt, dz, w, pem, pm, ws, p_fac: float = 0.05,
         F, nz, nx, halo, float(dt), float(p_fac), RDGAS,
         REFERENCE_SURFACE_PRESSURE, GAMMA, -CV_AIR / CP_AIR, _build.stream(),
     )
-    sim1_solver_cuda.launches += 1
+    _build.launched(sim1_solver_cuda)
     return w2, dz2, ppe

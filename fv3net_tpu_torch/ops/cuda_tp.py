@@ -74,7 +74,7 @@ def fv_tp_2d_cuda(qp_x, qp_y, crx, cry, xfx, yfx, area_px, area_py,
         "fv3_tp2d", *ptrs, a_fstride, a_kstride, fx.data_ptr(),
         fy.data_ptr(), F, nz, N, hord, lv, _build.stream(),
     )
-    fv_tp_2d_cuda.launches += 1
+    _build.launched(fv_tp_2d_cuda)
     return fx, fy
 
 
@@ -116,5 +116,5 @@ def fv_tp_2d_multi5_cuda(dpx, dpy, ptx, pty, wx, wy, dzx, dzy, ox, oy,
         "fv3_tp2d_multi5", array(ptrs), array([t.data_ptr() for t in out]),
         F, nz, N, hord, _build.stream(),
     )
-    fv_tp_2d_multi5_cuda.launches += 1
+    _build.launched(fv_tp_2d_multi5_cuda)
     return tuple(out)

@@ -6,7 +6,10 @@ unlimited kord > 16, mappm.f90:132-509) with the ``cs_limiters`` it calls,
 ``ppm_profile`` (4th-order edges + Huynh constraint for kord <= 7,
 mappm.f90:614-852) with ``ppm_limiters``, for iv in {-2, -1, 0, 1, 2},
 and the remap integration ``ppm_remap`` with mappm's out-of-range layer
-rules or the exactly conservative form (``exact_boundaries=True``).  The
+rules or the exactly conservative form (``exact_boundaries=True``): a
+``graphs.jit`` unit, as the JAX package jits it, whose CUDA float32
+columns of a variant K5 covers run the kernel (``ppm_remap_plain`` is the
+torch form).  The
 layer axis k is leading; every k-shifted term is a slice and the two
 tridiagonal sweeps are Python loops over k with all columns batched per
 step.
@@ -31,6 +34,8 @@ device.
 from __future__ import annotations
 
 import torch
+
+from .. import graphs
 
 
 def _clamp(x, lo, hi):
@@ -634,10 +639,11 @@ def _reconstruct(q1, dp1, iv: int, kord: int, qs):
     return ppm_profile(q1, dp1, iv, kord)
 
 
-def ppm_remap(q1, pe1, pe2, iv: int = 1, kord: int = 1, qs=None,
-              exact_boundaries: bool = False):
+def ppm_remap_plain(q1, pe1, pe2, iv: int = 1, kord: int = 1, qs=None,
+                    exact_boundaries: bool = False):
     """Mass-flux-preserving remap q1(pe1) -> q2(pe2) (mappm,
-    mappm.f90:10).
+    mappm.f90:10), in torch on the tensors' device (``ppm_remap``'s
+    plain form).
 
     Args:
         q1: layer means on the source grid, [km, ...] (k leading)
@@ -722,6 +728,40 @@ def kernel_covers(iv: int, kord: int) -> bool:
     return iv in (1, 0, -1) and (kord in (9, 10) or kord > 16)
 
 
+def _native(a):
+    """[k, *columns] as K5's native layout [F, k, Y, X]: a 4-D input's
+    first column axis as F (a view), any other's columns as one row."""
+    if a.ndim == 4:
+        return a.movedim(0, 1)
+    return a.reshape(a.shape[0], 1, 1, -1).movedim(0, 1)
+
+
+# The JAX package jits ppm_remap on its own, iv, kord and exact_boundaries
+# static (fv3net_tpu/ops/remap.py:662), and the coarsening and the
+# fine-resolution budget call it outside any other jit: here a graphs.jit
+# unit, those three constants of its key.
+@graphs.jit
+def ppm_remap(q1, pe1, pe2, iv: int = 1, kord: int = 1, qs=None,
+              exact_boundaries: bool = False):
+    """``ppm_remap_plain``'s remap q1(pe1) -> q2(pe2) ([k, *columns]) as
+    the JAX package's jitted ppm_remap: a ``graphs.jit`` unit, one
+    replayed CUDA graph a key on CUDA tensors, the eager body on the CPU
+    and inside another capture.  For float32 CUDA columns whose (iv,
+    kord) the K5 kernel covers (and no qs) the body is the kernel on the
+    native layout (``remap_levels``; with mappm's rules after it,
+    ``remap_levels_mappm``, unless exact_boundaries), otherwise
+    ``ppm_remap_plain``."""
+    cols = q1.shape[1:]
+    if (q1.is_cuda and q1.dtype == torch.float32 and qs is None
+            and kernel_covers(iv, kord)
+            and pe1.shape[1:] == cols == pe2.shape[1:]):
+        fn = remap_levels if exact_boundaries else remap_levels_mappm
+        q2 = fn(*(_native(a) for a in (q1, pe1, pe2)), iv, kord)
+        return q2.movedim(1, 0).reshape((q2.shape[1],) + tuple(cols))
+    return ppm_remap_plain(q1, pe1, pe2, iv=iv, kord=kord, qs=qs,
+                           exact_boundaries=exact_boundaries)
+
+
 def remap_levels_plain(q1, pe1, pe2, iv: int, kord: int):
     """``ppm_remap(..., exact_boundaries=True)`` on the native layout:
     q1 [F, km, Y, X], pe1 [F', km+1, Y, X], pe2 [F', kn+1, Y, X] ->
@@ -732,7 +772,7 @@ def remap_levels_plain(q1, pe1, pe2, iv: int, kord: int):
     if rep != 1:
         pe1 = pe1.repeat(rep, 1, 1, 1)
         pe2 = pe2.repeat(rep, 1, 1, 1)
-    return ppm_remap(
+    return ppm_remap_plain(
         q1.movedim(1, 0), pe1.movedim(1, 0), pe2.movedim(1, 0),
         iv=iv, kord=kord, exact_boundaries=True,
     ).movedim(0, 1)
@@ -761,7 +801,7 @@ def remap_levels_mappm(q1, pe1, pe2, iv: int, kord: int):
     the plain ``ppm_remap`` otherwise.  Bit for bit the plain form on the
     CPU; pe1 and pe2 have q1's face count."""
     if not kernel_covers(iv, kord):
-        return ppm_remap(
+        return ppm_remap_plain(
             q1.movedim(1, 0), pe1.movedim(1, 0), pe2.movedim(1, 0),
             iv=iv, kord=kord,
         ).movedim(0, 1)

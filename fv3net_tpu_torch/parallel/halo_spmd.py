@@ -1,4 +1,5 @@
-"""Explicit halo exchange over the face axis of a process group.
+"""Explicit halo exchange over the face axis of a mesh: the ranks of a
+process group (``Comm``) or the shards of one process (``LocalComm``).
 
 Counterpart of the JAX package's ``parallel/halo_spmd.py``.  Each rank
 holds one face ([1, ..., n, n]); every exchange of ``grid/halo.py``
@@ -17,7 +18,11 @@ backend (several ranks on one card, or CPU ranks) a message is staged
 through the host: the payload is copied to the CPU, sent, and copied
 back to the receiver's device; with NCCL (one card per rank) it stays on
 the device.  ``Comm`` counts the calls and times them apart from the
-compute the rank has queued before each.
+compute the rank has queued before each.  Between the shards of one
+process (``LocalComm``, a local mesh's) a message is the sender's device
+tensor itself, handed to the receiver in memory and ordered on the card
+by an event: no copy, no host synchronisation, and so an exchange a CUDA
+graph can hold.
 
 Each exchange is a ``torch.autograd.Function``: its backward runs the
 inverse messages (each receiver ships the cotangents of the slots it
@@ -34,6 +39,7 @@ transposes ppermute exactly": the dampers that build M^T(W M) with
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from functools import lru_cache
 from typing import Dict, List, Sequence, Tuple
@@ -129,6 +135,165 @@ class Comm:
         self.calls += 1
         self.seconds += time.perf_counter() - t0
         return out
+
+
+class LocalHub:
+    """What the shards of one process share for their exchanges: the
+    turn, the payloads in flight and, on the card, each shard's events.
+
+    The shards' threads run one at a time, in turns (shard order): each
+    runs until its next exchange, posts its payloads there and hands the
+    turn on (``pass_turn``).  When a shard's turn comes back, every shard
+    has posted that exchange's payloads: a barrier, taken in turns, so
+    that no two shards' Python runs at once (threads that take the
+    interpreter lock by turns at every torch op spend their time handing
+    it over).  On the card a shard's thread only enqueues work on its own
+    stream, so the device runs the shards' kernels concurrently all the
+    same.  A payload posted at a shard's k-th exchange waits in slot
+    k % 2 until its receiver takes it: a sender posts its (k+2)-th only
+    after every shard has had its turn past the (k+1)-th, and taken its
+    k-th payloads before.  A wait for the turn lasts at most
+    ``timeout_s``; ``abort`` (or a wait that times out) breaks the hub,
+    so that every shard waiting, or coming to wait, raises
+    ``threading.BrokenBarrierError``."""
+
+    def __init__(self, size: int, timeout_s: float):
+        self.size, self.timeout_s = size, timeout_s
+        self.lock = threading.Lock()
+        # a condition a shard, so that handing the turn on wakes only the
+        # shard whose turn it is
+        self.conds = [threading.Condition(self.lock) for _ in range(size)]
+        self.events = {}  # (shard, slot) -> torch.cuda.Event, kept
+        self.reset()
+
+    def reset(self):
+        """Ready for a new run of the shards (after a broken one too)."""
+        with self.lock:
+            self.turn, self.broken = 0, False
+            self.done = [False] * self.size
+            self.slots = ({}, {})  # (sender, receiver) -> payload
+            self.gen = [0] * self.size  # each shard's exchanges this run
+
+    def _break(self):
+        """Under the lock: every waiting shard wakes and raises."""
+        self.broken = True
+        for cond in self.conds:
+            cond.notify()
+
+    def _wait(self, d: int):
+        """Under the lock: until it is shard d's turn."""
+        if not self.conds[d].wait_for(
+                lambda: self.broken or self.turn == d, self.timeout_s):
+            self._break()
+        if self.broken:
+            raise threading.BrokenBarrierError(
+                f"shard {d}: the hub is broken (a shard failed, or waited "
+                f"more than {self.timeout_s} s for its turn)")
+
+    def _hand_on(self, d: int):
+        """Under the lock: the turn to the next shard after d that has
+        not finished."""
+        for k in range(1, self.size + 1):
+            if not self.done[(d + k) % self.size]:
+                self.turn = (d + k) % self.size
+                self.conds[self.turn].notify()
+                break
+
+    def start(self, d: int):
+        """Shard d's thread begins: wait for its first turn."""
+        with self.lock:
+            self._wait(d)
+
+    def pass_turn(self, d: int):
+        """Shard d at an exchange: the turn to the next shard, and back."""
+        with self.lock:
+            self._hand_on(d)
+            self._wait(d)
+
+    def finish(self, d: int):
+        """Shard d's thread ends: it takes no more turns."""
+        with self.lock:
+            self.done[d] = True
+            if self.turn == d:
+                self._hand_on(d)
+
+    def abort(self):
+        with self.lock:
+            self._break()
+
+
+class LocalComm:
+    """One shard's end of a local mesh's exchange axis: the interface of
+    ``Comm`` (``size``, ``index``, ``exchange``, the counters), its peers
+    the other shards of this process (``LocalHub``).
+
+    ``exchange`` posts this shard's payloads, hands the turn on until
+    every shard has posted (``LocalHub``) and takes its own: device
+    tensors handed over as they are, with no copy and no
+    synchronisation.  Each shard runs on a thread of its own
+    (``parallel.mesh.LocalMesh.map``) and, on the card, on a stream of
+    its own: a sender's stream records an event after its
+    payloads, the receiver's stream waits for it, and each payload is
+    marked as used on the receiver's stream (``record_stream``), so the
+    caching allocator does not hand its memory to the sender's next
+    tensor while the receiver may still read it.  In a CUDA-graph
+    capture the events are the graph's edges between the shards'
+    branches.  ``seconds`` is the time in the exchanges, the other
+    shards' turns included; nothing is staged, so ``wait_seconds`` and
+    ``copy_seconds`` stay 0."""
+
+    def __init__(self, hub: LocalHub, index: int):
+        self.hub, self.index = hub, index
+        self.reset_counts()
+
+    @property
+    def size(self) -> int:
+        return self.hub.size
+
+    def reset_counts(self):
+        self.calls, self.bytes = 0, 0
+        self.seconds = self.wait_seconds = self.copy_seconds = 0.0
+
+    def exchange(self, sends: Dict[int, torch.Tensor],
+                 recvs: Dict[int, int], like: torch.Tensor):
+        """``Comm.exchange``: send ``sends[d]`` ([lead..., k]) to shard d
+        and take ``recvs[d]`` entries from shard d; returns {d: [lead...,
+        k]}, the senders' own tensors."""
+        t0 = time.perf_counter()
+        hub, me = self.hub, self.index
+        slot = hub.gen[me] % 2
+        hub.gen[me] += 1
+        posted = hub.slots[slot]
+        for d, x in sends.items():
+            posted[(me, d)] = x.detach()
+            self.bytes += x.numel() * x.element_size()
+        stream = None
+        if like.is_cuda:
+            stream = torch.cuda.current_stream(like.device)
+            event = hub.events.get((me, slot))
+            if event is None:
+                event = hub.events[(me, slot)] = torch.cuda.Event()
+            event.record(stream)
+        hub.pass_turn(me)
+        out = {}
+        for g in sorted(recvs):
+            x = posted.pop((g, me))
+            if x.shape[-1] != recvs[g]:
+                raise ValueError(
+                    f"shard {me}: {x.shape[-1]} entries from shard {g}, "
+                    f"{recvs[g]} expected")
+            if stream is not None:
+                stream.wait_event(hub.events[(g, slot)])
+                x.record_stream(stream)
+            out[g] = x
+        self.calls += 1
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+# the communicators an exchange runs over: a process group's, a local
+# mesh's
+COMMS = (Comm, LocalComm)
 
 
 # --------------------------------------------------------------------------
@@ -359,8 +524,8 @@ def _comm_of(axis):
     if axis is None:
         from ..grid import halo as halo_mod
 
-        axis = halo_mod._SPMD_AXIS
-    if not isinstance(axis, Comm) or axis.size != 6:
+        axis = halo_mod.spmd_axis()
+    if not isinstance(axis, COMMS) or axis.size != 6:
         raise ValueError(
             "the face-mesh exchanges need the Comm of a 6-rank face axis"
         )

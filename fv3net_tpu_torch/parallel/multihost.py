@@ -10,10 +10,18 @@ each process joins one ``torch.distributed`` process group
 ``spawn`` starts such a group of processes on one machine and checks
 every rank's exit code.
 
-Transport: NCCL when every rank has a card of its own; gloo otherwise
-(CPU ranks, or several ranks sharing one card: NCCL refuses two ranks of
-one communicator on the same device), in which case the exchanges stage
-their payloads through the host (parallel/halo_spmd.py).
+Which transport goes where:
+- several shards of one process share a card through device tensors
+  (``mesh.LocalMesh``, ``halo_spmd.LocalComm``): no process group, and
+  the dycore's ``run`` is one replayed CUDA graph a dt
+  (parallel/spmd_dycore.py).  The JAX package's own form;
+- process ranks with a card each: NCCL (``initialize`` picks it when
+  there are at least as many cards as ranks); eager, payloads on the
+  device.  Not run on a one-card machine;
+- process ranks without a card of their own (CPU ranks, or several ranks
+  sharing one card: NCCL refuses two ranks of one communicator on the
+  same device): gloo, eager, each exchange staged through the host
+  (parallel/halo_spmd.py ``Comm``).
 """
 
 from __future__ import annotations

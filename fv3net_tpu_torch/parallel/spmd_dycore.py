@@ -1,44 +1,59 @@
-"""The multi-rank dycore: one face (or tiles of faces) per rank, halo
-exchanges over a torch.distributed process group.
+"""The multi-rank dycore: one face (or tiles of faces) per rank or shard,
+halo exchanges over a mesh.
 
 Counterpart of the JAX package's ``parallel/spmd_dycore.py``.  The
 numerical step is the SAME code as the single-process path --
-``hydro.build_one_dt`` -- run by every rank with (a) the SWMetrics
-tensors sliced to the rank's faces or tile and (b) ``grid.halo.
+``hydro.build_one_dt`` -- run on every shard with (a) the SWMetrics
+tensors sliced to the shard's faces or tile and (b) ``grid.halo.
 spmd_mode`` switching every halo exchange (scalar, D-grid, C-grid,
 boundary canonicalisation and averaging, the one-cell extension) to its
 shard-local form (parallel/halo_spmd.py, parallel/tiling.py).  The
 dampers built as M^T(W M) with ``torch.func.vjp`` stay exact transposes
 because the exchanges' backward is their exact transpose.  The kernels
-run inside each rank at shard shapes; the del-4 filter takes the
+run inside each shard at shard shapes; the del-4 filter takes the
 exchanged pair (``ops/cuda_filter.del4_filter_pair_cuda``) on the face
 mesh and its plain form on tiles.
 
 The reference scales by 6*x*y MPI ranks with FMS halo updates
 (runtime/segmented_run/run.py:34-35): ``make_spmd_dycore_stepper`` is the
-6-rank face mesh, ``make_tiled_spmd_dycore_stepper`` the (face=F, y=Y,
-x=X) mesh of parallel/tiling.py.
+6-way face mesh, ``make_tiled_spmd_dycore_stepper`` the (face=F, y=Y,
+x=X) mesh of parallel/tiling.py.  Both take either kind of mesh:
 
-Both steppers take ``remat`` (each acoustic substep checkpointed, as
-``build_one_dt`` does it).  Their steps stay eager on the card: every
-exchange is staged through the host over gloo, which a CUDA graph cannot
-hold, so unlike the single-process ``run`` they replay no graph.
+- a ``mesh.LocalMesh``: the JAX package's form, ``jax.jit(shard_map(...))``
+  over a process's local devices.  One process steps every shard, each
+  on a thread of its own and, on the card, a stream of its own, the
+  exchanges device tensors handed between them (``halo_spmd.LocalComm``).
+  On CUDA tensors ``run`` replays one CUDA graph of one dt of every shard
+  (``graphs.Graphed``, one branch a shard), nsteps times; on the CPU it
+  is the eager threaded loop.  ``shard`` and ``gather`` stay on the
+  device;
+- a ``mesh.CubedSphereMesh``: this process is one rank of a process
+  group (multihost.py), stepping its own shard.  Every exchange is staged
+  through the host over gloo, which a CUDA graph cannot hold, so ``run``
+  stays eager, and ``gather`` goes through the host.
+
+Both take ``remat`` (each acoustic substep checkpointed, as
+``build_one_dt`` does it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 import torch.distributed as dist
 
+from .. import graphs
 from ..device import default_device
 from ..dycore.hydro import DycoreState, build_one_dt, hybrid_coefficients
 from ..dycore.sw import SWMetrics
 from ..grid import halo as halo_mod
 from ..grid.geometry import CubedSphereGrid
-from .mesh import CubedSphereMesh
+from .mesh import CubedSphereMesh, LocalMesh
 from .tiling import TileLayout, tile_inv_corner_mult
+
+Mesh = Union[CubedSphereMesh, LocalMesh]
 
 
 def _slice_metrics(m: SWMetrics, faces: range) -> SWMetrics:
@@ -70,10 +85,55 @@ def _all_gather(x: torch.Tensor, mesh: CubedSphereMesh):
     return [parts[r] for r in mesh._plane_ranks()]
 
 
+def _local_run(mesh: LocalMesh, one_dts, tiling=None):
+    """``run(sharded, phis, nsteps)`` of a local mesh: one dt of every
+    shard is ``mesh.map`` of each shard's one_dt under its spmd_mode;
+    on CUDA tensors a ``graphs.Graphed`` of it (carry: the shards'
+    states), replayed nsteps times, its capture open to the shards'
+    threads (``capture_error_mode="thread_local"``: they allocate into
+    the graph's pool while the caller's thread holds the capture)."""
+    comms = mesh.comms()
+
+    def one_dt(sharded, phis):
+        def shard_dt(d):
+            with halo_mod.spmd_mode(comms[d], tiling=tiling):
+                return one_dts[d](sharded[d], phis[d])
+
+        return tuple(mesh.map(shard_dt, sharded[0].delp.device))
+
+    graphed = graphs.Graphed(one_dt, carry="all",
+                             capture_error_mode="thread_local")
+
+    def run(sharded, phis, nsteps: int):
+        sharded, phis = tuple(sharded), tuple(phis)
+        if sharded[0].delp.device.type == graphs.CAPTURED_DEVICE:
+            return graphed(sharded, phis, steps=nsteps)
+        for _ in range(nsteps):
+            sharded = one_dt(sharded, phis)
+        return sharded
+
+    run.one_dt = one_dt
+    run.graphed = graphed
+    return run
+
+
+def _face_axis(name):
+    return 1 if name == "q" else 0
+
+
+def _faces_of(parts):
+    """The full state from every face shard's DycoreState (face order):
+    each field concatenated on its face axis."""
+    return DycoreState(*[
+        None if xs[0] is None else torch.cat(xs, dim=_face_axis(name))
+        for name, xs in zip(DycoreState._fields, zip(*parts))
+    ])
+
+
 def make_spmd_dycore_stepper(
     g: CubedSphereGrid,
     nz: int,
-    mesh: CubedSphereMesh,
+    mesh: Mesh,
     dt_atmos: float,
     k_split: int = 1,
     n_split: int = 6,
@@ -86,27 +146,56 @@ def make_spmd_dycore_stepper(
     device=None,
 ):
     """The multi-rank dycore step over a 6-way face mesh (one face a
-    rank; level shards, if any, repeat the step).
+    shard; level shards of a process group, if any, repeat the step).
 
-    Returns (run, shard, gather): ``run(state, phis, nsteps)`` steps this
-    rank's face ([1, nz, ...] fields, q [ntracer, 1, ...], phis
-    [1, n, n]) on `device` (the CUDA device unless the caller names
-    one); ``shard(state, phis)`` is this rank's slice of a full state;
-    ``gather(state)`` rebuilds the full state on every rank (through the
-    host).
+    Returns (run, shard, gather), on `device` (the CUDA device unless the
+    caller names one).  On a LocalMesh: ``shard(state, phis)`` is every
+    shard's slice of a full state ([1, nz, ...] fields, q [ntracer, 1,
+    ...], phis [1, n, n]: a tuple of six DycoreStates and a tuple of six
+    phis); ``run(sharded, phis, nsteps)`` steps them all (one replayed
+    graph a dt on CUDA); ``gather(sharded)`` rebuilds the full state on
+    the device.  On a CubedSphereMesh (a process rank): ``shard`` is
+    this rank's slice, ``run`` steps it, and ``gather`` rebuilds the full
+    state on every rank (through the host).
     """
     if mesh.face_shards != 6 or mesh.y_shards * mesh.x_shards != 1:
         raise ValueError("spmd dycore needs a 6-way face mesh")
     if device is None:
         device = default_device("make_spmd_dycore_stepper")
     m = SWMetrics.make(g, dtype, device=device)
+
+    def face_dt(f):
+        return _one_dt_builder(
+            _slice_metrics(m, range(f, f + 1)), nz, ptop, dtype, device,
+            dt_atmos=dt_atmos, k_split=k_split, n_split=n_split, hord=hord,
+            kord=kord, d2_damp=d2_damp, remat=remat,
+        )
+
+    def put(x, f, axis=0):
+        if x is None:
+            return None
+        return x.narrow(axis, f, 1).to(device).contiguous()
+
+    def shard_of(state, phis, f):
+        return DycoreState(*[
+            put(x, f, _face_axis(name))
+            for name, x in zip(DycoreState._fields, state)
+        ]), put(phis, f)
+
+    if isinstance(mesh, LocalMesh):
+        run = _local_run(mesh, [face_dt(f) for f in range(6)])
+
+        def shard(state: DycoreState, phis):
+            parts = [shard_of(state, phis, f) for f in range(6)]
+            return tuple(p[0] for p in parts), tuple(p[1] for p in parts)
+
+        def gather(sharded):
+            return _faces_of(sharded)
+
+        return run, shard, gather
+
     f = mesh.coords()[0]
-    ml = _slice_metrics(m, range(f, f + 1))
-    one_dt = _one_dt_builder(
-        ml, nz, ptop, dtype, device, dt_atmos=dt_atmos, k_split=k_split,
-        n_split=n_split, hord=hord, kord=kord, d2_damp=d2_damp,
-        remat=remat,
-    )
+    one_dt = face_dt(f)
     comm = mesh.face_comm
 
     def run(state: DycoreState, phis, nsteps: int):
@@ -116,26 +205,17 @@ def make_spmd_dycore_stepper(
         return state
 
     def shard(state: DycoreState, phis):
-        def put(x, axis=0):
-            if x is None:
-                return None
-            return x.narrow(axis, f, 1).to(device).contiguous()
-
-        local = DycoreState(*[
-            put(x, 1 if name == "q" else 0)
-            for name, x in zip(DycoreState._fields, state)
-        ])
-        return local, put(phis)
+        return shard_of(state, phis, f)
 
     def gather(state: DycoreState):
-        def cat(x, axis=0):
-            if x is None:
-                return None
-            return torch.cat(_all_gather(x, mesh), dim=axis).to(x.device)
-
+        parts = zip(*[
+            [None] * 6 if x is None else _all_gather(x, mesh)
+            for x in state
+        ])
+        out = _faces_of([DycoreState(*p) for p in parts])
         return DycoreState(*[
-            cat(x, 1 if name == "q" else 0)
-            for name, x in zip(DycoreState._fields, state)
+            None if x is None else x.to(ref.device)
+            for x, ref in zip(out, state)
         ])
 
     run.one_dt = one_dt
@@ -242,10 +322,51 @@ def unblock_winds(ub, vb, lay: TileLayout):
     return u, v
 
 
+def _tiles_of(parts, lay: TileLayout):
+    """The full state from every tile's DycoreState ((face, y, x) order,
+    blocked winds), on the tiles' device."""
+    L, nl = lay.L, lay.nl
+
+    def place(d):
+        a, rest = divmod(d, lay.Y * lay.X)
+        return (a,) + divmod(rest, lay.X)
+
+    def cells(xs, lead=0):
+        if xs[0] is None:
+            return None
+        shape = list(xs[0].shape)
+        shape[lead] = 6
+        shape[-2] = shape[-1] = lay.n
+        out = xs[0].new_empty(shape)
+        for d, x in enumerate(xs):
+            a, b, c = place(d)
+            idx = [slice(None)] * len(shape)
+            idx[lead] = slice(a * L, (a + 1) * L)
+            idx[-2] = slice(b * nl, (b + 1) * nl)
+            idx[-1] = slice(c * nl, (c + 1) * nl)
+            out[tuple(idx)] = x
+        return out
+
+    def blocked(xs):
+        out = xs[0].new_empty((6, lay.Y, lay.X) + tuple(xs[0].shape[1:]))
+        for d, x in enumerate(xs):
+            a, b, c = place(d)
+            out[a * L : (a + 1) * L, b, c] = x
+        return out
+
+    fields = dict(zip(DycoreState._fields, zip(*parts)))
+    u, v = unblock_winds(blocked(fields["u"]), blocked(fields["v"]), lay)
+    return DycoreState(
+        delp=cells(fields["delp"]), pt=cells(fields["pt"]), u=u, v=v,
+        q=cells(fields["q"], lead=1), w=cells(fields["w"]),
+        delz=cells(fields["delz"]),
+    )
+
+
 def make_tiled_spmd_dycore_stepper(
     g: CubedSphereGrid,
     nz: int,
-    mesh: CubedSphereMesh,
+    mesh: Mesh,
     lay: TileLayout,
     dt_atmos: float,
     k_split: int = 1,
@@ -260,12 +381,16 @@ def make_tiled_spmd_dycore_stepper(
 ):
     """The (face, y, x)-tiled multi-rank dycore step.
 
-    Returns (run, shard, gather): ``run(state, phis, nsteps)`` steps this
-    rank's tile (cells [L, nz, nl, nl], blocked winds u [L, nz, nl+1, nl]
-    and v [L, nz, nl, nl+1], q [ntracer, L, ...], phis [L, nl, nl]) on
-    `device` (the CUDA device unless the caller names one); ``shard``
-    cuts this rank's tile from a full state; ``gather`` rebuilds the full
-    state on every rank (through the host).
+    Returns (run, shard, gather), on `device` (the CUDA device unless the
+    caller names one).  A tile's state: cells [L, nz, nl, nl], blocked
+    winds u [L, nz, nl+1, nl] and v [L, nz, nl, nl+1] (``block_winds``),
+    q [ntracer, L, ...], phis [L, nl, nl].  On a LocalMesh: ``shard``
+    cuts every tile from a full state (tuples in (face, y, x) order),
+    ``run(sharded, phis, nsteps)`` steps them all (one replayed graph a
+    dt on CUDA), ``gather`` rebuilds the full state on the device
+    (``unblock_winds``).  On a CubedSphereMesh (a process rank):
+    ``shard`` cuts this rank's tile, ``run`` steps it, ``gather``
+    rebuilds the full state on every rank (through the host).
     """
     if (mesh.face_shards, mesh.y_shards, mesh.x_shards) != (
         lay.F, lay.Y, lay.X
@@ -275,18 +400,54 @@ def make_tiled_spmd_dycore_stepper(
         raise ValueError("grid/layout mismatch")
     if device is None:
         device = default_device("make_tiled_spmd_dycore_stepper")
-    a, b, c, _ = mesh.coords()
     m = SWMetrics.make(g, dtype, device=device)
-    ml = _slice_metrics_tiled(m, lay, a, b, c)
-    one_dt = _one_dt_builder(
-        ml, nz, ptop, dtype, device, dt_atmos=dt_atmos, k_split=k_split,
-        n_split=n_split, hord=hord, kord=kord, d2_damp=d2_damp,
-        remat=remat,
-    )
-    comm = mesh.face_comm
     L, nl = lay.L, lay.nl
-    fs = slice(a * L, (a + 1) * L)
-    ys, xs = slice(b * nl, (b + 1) * nl), slice(c * nl, (c + 1) * nl)
+
+    def tile_dt(d):
+        a, b, c, _ = mesh.coords(d)
+        return _one_dt_builder(
+            _slice_metrics_tiled(m, lay, a, b, c), nz, ptop, dtype, device,
+            dt_atmos=dt_atmos, k_split=k_split, n_split=n_split, hord=hord,
+            kord=kord, d2_damp=d2_damp, remat=remat,
+        )
+
+    def put(x):
+        return None if x is None else x.to(device).contiguous()
+
+    def shard_of(state, ub, vb, phis, coords):
+        a, b, c, _ = coords
+        fs = slice(a * L, (a + 1) * L)
+        ys, xs = slice(b * nl, (b + 1) * nl), slice(c * nl, (c + 1) * nl)
+
+        def cells(x, lead=0):
+            if x is None:
+                return None
+            return put(x[(slice(None),) * lead + (fs, slice(None), ys, xs)])
+
+        return DycoreState(
+            delp=cells(state.delp), pt=cells(state.pt),
+            u=put(ub[fs, b, c]), v=put(vb[fs, b, c]),
+            q=cells(state.q, lead=1), w=cells(state.w),
+            delz=cells(state.delz),
+        ), put(phis[fs, ys, xs])
+
+    if isinstance(mesh, LocalMesh):
+        run = _local_run(mesh, [tile_dt(d) for d in range(lay.D)],
+                         tiling=lay)
+
+        def shard(state: DycoreState, phis):
+            ub, vb = block_winds(state.u, state.v, lay)
+            parts = [shard_of(state, ub, vb, phis, mesh.coords(d))
+                     for d in range(lay.D)]
+            return tuple(p[0] for p in parts), tuple(p[1] for p in parts)
+
+        def gather(sharded):
+            return _tiles_of(sharded, lay)
+
+        return run, shard, gather
+
+    one_dt = tile_dt(mesh.rank)
+    comm = mesh.face_comm
 
     def run(state: DycoreState, phis, nsteps: int):
         with halo_mod.spmd_mode(comm, tiling=lay):
@@ -295,60 +456,19 @@ def make_tiled_spmd_dycore_stepper(
         return state
 
     def shard(state: DycoreState, phis):
-        def put(x):
-            return None if x is None else x.to(device).contiguous()
-
-        u = state.u[fs, :, b * nl : b * nl + nl + 1, xs]
-        v = state.v[fs, :, ys, c * nl : c * nl + nl + 1]
-        local = DycoreState(
-            delp=put(state.delp[fs, :, ys, xs]),
-            pt=put(state.pt[fs, :, ys, xs]),
-            u=put(u), v=put(v),
-            q=None if state.q is None else put(state.q[:, fs, :, ys, xs]),
-            w=None if state.w is None else put(state.w[fs, :, ys, xs]),
-            delz=(None if state.delz is None
-                  else put(state.delz[fs, :, ys, xs])),
-        )
-        return local, put(phis[fs, ys, xs])
+        ub, vb = block_winds(state.u, state.v, lay)
+        return shard_of(state, ub, vb, phis, mesh.coords())
 
     def gather(state: DycoreState):
-        D = lay.D
-
-        def cells(x, lead=0):
-            if x is None:
-                return None
-            parts = _all_gather(x, mesh)
-            shape = list(x.shape)
-            shape[lead] = 6
-            shape[-2] = shape[-1] = lay.n
-            out = torch.empty(shape, dtype=x.dtype)
-            for d in range(D):
-                da, rem = divmod(d, lay.Y * lay.X)
-                db, dc = divmod(rem, lay.X)
-                idx = [slice(None)] * len(shape)
-                idx[lead] = slice(da * L, (da + 1) * L)
-                idx[-2] = slice(db * nl, (db + 1) * nl)
-                idx[-1] = slice(dc * nl, (dc + 1) * nl)
-                out[tuple(idx)] = parts[d]
-            return out.to(x.device)
-
-        def blocked(x):
-            parts = _all_gather(x, mesh)
-            out = torch.empty((6, lay.Y, lay.X) + tuple(x.shape[1:]),
-                              dtype=x.dtype)
-            for d in range(D):
-                da, rem = divmod(d, lay.Y * lay.X)
-                db, dc = divmod(rem, lay.X)
-                out[da * L : (da + 1) * L, db, dc] = parts[d]
-            return out
-
-        u, v = unblock_winds(blocked(state.u), blocked(state.v), lay)
-        return DycoreState(
-            delp=cells(state.delp), pt=cells(state.pt),
-            u=u.to(state.u.device), v=v.to(state.v.device),
-            q=cells(state.q, lead=1), w=cells(state.w),
-            delz=cells(state.delz),
-        )
+        parts = zip(*[
+            [None] * lay.D if x is None else _all_gather(x, mesh)
+            for x in state
+        ])
+        out = _tiles_of([DycoreState(*p) for p in parts], lay)
+        return DycoreState(*[
+            None if x is None else x.to(ref.device)
+            for x, ref in zip(out, state)
+        ])
 
     run.one_dt = one_dt
     run.comm = comm

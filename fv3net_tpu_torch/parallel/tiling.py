@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .halo_spmd import Comm, RankExchange, Tables, run_exchange
+from .halo_spmd import COMMS, Comm, RankExchange, Tables, run_exchange
 
 
 # --------------------------------------------------------------------------
@@ -229,8 +229,8 @@ def _comm(comm, lay: "TileLayout"):
     if comm is None:
         from ..grid import halo as halo_mod
 
-        comm = halo_mod._SPMD_AXIS
-    if not isinstance(comm, Comm) or comm.size != lay.D:
+        comm = halo_mod.spmd_axis()
+    if not isinstance(comm, COMMS) or comm.size != lay.D:
         raise ValueError(
             f"layout {lay} needs the Comm of its {lay.D} (face, y, x) ranks"
         )

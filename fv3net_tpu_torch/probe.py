@@ -142,7 +142,7 @@ def affine_cuda(x):
         if err:
             raise RuntimeError(f"fv3_probe_affine failed with CUDA error "
                                f"code {err}")
-        affine_cuda.launches += 1
+        _build.launched(affine_cuda)
     return y
 
 
@@ -163,7 +163,7 @@ def stencil_cuda(x):
         if err:
             raise RuntimeError(f"fv3_probe_stencil failed with CUDA error "
                                f"code {err}")
-        stencil_cuda.launches += 1
+        _build.launched(stencil_cuda)
     return y
 
 

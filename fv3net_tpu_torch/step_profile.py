@@ -7,7 +7,7 @@ Run on the GPU machine from the repository root:
     python -m fv3net_tpu_torch.step_profile [--n 48|192] [--fused]
                                             [--coupled | --prognostic
                                              | --nudged] [--out DIR]
-    python -m fv3net_tpu_torch.step_profile --sw [--n 48|192|384]
+    python -m fv3net_tpu_torch.step_profile --sw [--n 48|192|384] [--eager]
 
 Builds the benchmark configuration (bench.py ``_build_config``: C<n> x 63,
 k_split=1, n_split=6, hord=5, kord=9, f32; dt_atmos 900 s at C48 and
@@ -25,13 +25,14 @@ microphysics over six advected species, the nudger of T and humidity
 toward two snapshots; C48 only, its substeps labelled); or with --sw one
 step of the shallow-water model (``dycore.make_sw_stepper`` at C<n>, dt
 600 * 24 / n s, hord 5, d2 0.12, f32, a 3000 m layer with smooth 5 m/s
-winds; its operators labelled).  The dycore dt and the coupled step are
-what a user runs on the card: replays of their CUDA graphs
-(``make_dycore_stepper``'s ``run``, ``CompiledTimeLoop.step``; the
-warm-up dt captures them), as are the dycore and the units the JAX
+winds).  The dycore dt, the coupled step and the SW step are what a user
+runs on the card: replays of their CUDA graphs (``make_dycore_stepper``'s
+and ``make_sw_stepper``'s ``run``, ``CompiledTimeLoop.step``; the warm-up
+dt captures them), as are the dycore and the units the JAX
 package jits inside the prognostic and nudged steps (the physics, the
 radiation, the ML predictors' apply: ``graphs.jit``).  With --eager the
-dycore dt is ``run.one_dt`` and the coupled step
+SW step is ``run.one_step`` (its operators labelled), the dycore dt
+``run.one_dt`` and the coupled step
 ``build_compiled_step``'s eager stages, its three stages and the
 dycore's functions labelled; the prognostic and nudged steps run every
 unit and the dycore eagerly (``graphs.eager()``).  Warms up one dt,
@@ -174,10 +175,11 @@ def _coupled_steps(N, out, eager):
         _labelled(f"coupled_{k}", stages[k]) for k in keys))
 
 
-def _sw_steps(N):
+def _sw_steps(N, eager):
     """(step, traced step) of the shallow-water model through
     make_sw_stepper on the card: C<N>, a 3000 m deep layer with the smooth
-    5 m/s winds of parity.smooth_wind."""
+    5 m/s winds of parity.smooth_wind; the replayed ``run``, or with
+    `eager` the eager ``run.one_step``."""
     from .parity import smooth_wind
 
     g = CubedSphereGrid.make(N, halo=3)
@@ -193,7 +195,7 @@ def _sw_steps(N):
     )]
 
     def step():
-        state[0] = run(state[0], 1)
+        state[0] = run.one_step(state[0]) if eager else run(state[0], 1)
 
     return step, step
 
@@ -424,9 +426,6 @@ def main(argv=None):
     if args.train and (N != 48 or args.fused or args.coupled
                        or args.prognostic or args.nudged or args.sw):
         raise ValueError("--train runs the dense training loop alone (C48)")
-    if args.eager and args.sw:
-        raise ValueError("--eager profiles the dycore dt, the coupled, "
-                         "prognostic or nudged step")
     if not args.sw and N not in DT_ATMOS:
         raise ValueError(f"the dycore step runs at C{sorted(DT_ATMOS)}")
     card = subprocess.run(
@@ -441,7 +440,7 @@ def main(argv=None):
     # directory, not to --out
     case = tempfile.TemporaryDirectory() if args.nudged else None
     step, traced_step = (
-        _sw_steps(N) if args.sw
+        _sw_steps(N, args.eager) if args.sw
         else _coupled_steps(N, args.out, args.eager) if args.coupled
         else _prognostic_steps(N, eager=args.eager) if args.prognostic
         else _prognostic_steps(N, case.name, args.eager) if args.nudged
@@ -457,9 +456,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
-    module, names = ((sw, SW_STAGES) if args.sw
+    module, names = ((sw, SW_STAGES) if args.sw and args.eager
                      else (hydro, STAGES)
-                     if args.eager and not (args.prognostic or args.nudged)
+                     if args.eager and not (args.prognostic or args.nudged
+                                            or args.sw)
                      else (None, ()))
     originals = {name: getattr(module, name) for name in names}
     traced_dts = 2

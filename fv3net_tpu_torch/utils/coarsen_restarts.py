@@ -11,7 +11,8 @@ host arrays (numpy) or tensors (torch, on their device) -- the reference
 needed a dask/Beam cluster for the same job (SURVEY L8).  The pressure
 method's remap runs on a torch device for host arrays too (``device``,
 the CUDA device by default), as the JAX package runs it in jnp; on CUDA
-float32 tensors it is the K5 kernel (``ops.remap.remap_levels_mappm``).
+float32 tensors it is the K5 kernel, in the replayed graph of the
+``ops.remap.ppm_remap`` unit (the JAX package jits ppm_remap).
 The categorical block modes and the "complex" surface method are host
 code (tensors are read to the host), as in the JAX package.
 
@@ -154,11 +155,12 @@ def coarsen_restarts_on_pressure(
     mass-weight-average on matching levels.  This avoids mixing air
     from different pressures where terrain varies inside a block.
 
-    The remap (mappm's rules, ``ops.remap.remap_levels_mappm``: K5 on
-    CUDA float32 tensors) runs on the tensors' device, or for host
-    arrays on `device` (the CUDA device unless the caller names another),
-    whose results come back to the host."""
-    from ..ops.remap import remap_levels_mappm
+    The remap (mappm's rules, the ``ops.remap.ppm_remap`` unit, which the
+    JAX package jits: K5 on CUDA float32 tensors, a replayed graph a
+    field) runs on the tensors' device, or for host arrays on `device`
+    (the CUDA device unless the caller names another), whose results come
+    back to the host."""
+    from ..ops.remap import ppm_remap
     from .coarsen import block_upsample
 
     delp = state[DELP]
@@ -173,12 +175,12 @@ def coarsen_restarts_on_pressure(
     p1, p2 = (torch.as_tensor(p, device=dev) for p in (pe1, pe2))
 
     def remap(f):
-        # on the native layout [6, nz, ny, nx]
-        if host:
-            return remap_levels_mappm(
-                torch.as_tensor(f, device=dev), p1, p2, 1, kord
-            ).cpu().numpy()
-        return remap_levels_mappm(f, p1, p2, 1, kord)
+        # ppm_remap wants k leading: [nz, ...]
+        q2 = ppm_remap(
+            torch.as_tensor(f, device=dev).movedim(1, 0), p1.movedim(1, 0),
+            p2.movedim(1, 0), iv=1, kord=kord,
+        ).movedim(0, 1)
+        return q2.cpu().numpy() if host else q2
 
     remapped = {DELP: delp}
     for name, f in state.items():

@@ -23,8 +23,9 @@ tensors.  ``pressure_level_average``, ``exposed_area`` and
 ``compute_budget_ingredients`` compute on a torch device -- the tensors'
 own, or for host arrays ``device`` (the CUDA device unless the caller
 names another) -- and return tensors there, as the JAX package's return
-device arrays.  The remap is ``ops.remap.remap_levels`` on the native
-layout: the K5 kernel for CUDA float32 tensors.
+device arrays.  The remap is the ``ops.remap.ppm_remap`` unit, as the
+JAX package jits ppm_remap: the K5 kernel for CUDA float32 tensors, in a
+replayed graph.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..device import device_for
-from ..ops.remap import remap_levels
+from ..ops.remap import ppm_remap
 from .coarsen import block_coarsen, block_upsample, \
     weighted_block_average
 from .thermo import (
@@ -52,8 +53,8 @@ def pressure_level_average(field, delp_fine, delp_coarse, area,
 
     field/delp_fine [tile, nz, yf, xf]; delp_coarse
     [tile, nz, yc, xc]; area [tile, yf, xf]; factor = yf // yc.  The
-    conservative remap (iv 1, kord 9, exact boundaries) runs on the
-    native layout through ``remap_levels``: K5 on CUDA float32 tensors.
+    conservative remap (iv 1, kord 9, exact boundaries) is the
+    ``ppm_remap`` unit: K5 on CUDA float32 tensors.
     """
     dev = device_for((field, delp_fine, delp_coarse, area), device,
                      "pressure_level_average")
@@ -66,7 +67,10 @@ def pressure_level_average(field, delp_fine, delp_coarse, area,
     pe_coarse_up = block_upsample(
         pressure_interface(delp_coarse.double(), axis=-3), factor
     ).to(delp_coarse.dtype)
-    regridded = remap_levels(field, pe_fine, pe_coarse_up, iv=1, kord=9)
+    regridded = ppm_remap(
+        field.movedim(1, 0), pe_fine.movedim(1, 0),
+        pe_coarse_up.movedim(1, 0), iv=1, kord=9, exact_boundaries=True,
+    ).movedim(0, 1)
     return weighted_block_average(regridded, area[:, None], factor)
 
 

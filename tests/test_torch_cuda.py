@@ -1003,8 +1003,9 @@ def test_pressure_coarsening_kernel(dev):
     launches = ppm_remap_cuda.launches
     got = remap.remap_levels_mappm(q, p1, p2, 1, 9)
     assert ppm_remap_cuda.launches == launches + 1
-    want = remap.ppm_remap(q.movedim(1, 0), p1.movedim(1, 0),
-                           p2.movedim(1, 0), iv=1, kord=9).movedim(0, 1)
+    want = remap.ppm_remap_plain(q.movedim(1, 0), p1.movedim(1, 0),
+                                 p2.movedim(1, 0), iv=1, kord=9
+                                 ).movedim(0, 1)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
     factor = 4
@@ -1377,3 +1378,143 @@ def test_compiled_loop_replays_and_keeps_diagnostics(dev, tmp_path):
             first, kept = diags, {k: q.data.clone() for k, q in diags.items()}
     for k, q in first.items():
         assert torch.equal(q.data, kept[k]), k
+
+
+# --- the last jitted entry points: the local mesh, the SW run, ppm_remap ---
+
+# a shard's launches in one dt of the face mesh (chip_smoke's
+# LAUNCHES_SPMD_FACE: K3 by its exchanged-pair entry) and of a tile
+SHARD_LAUNCHES = {
+    (6, 1, 1): {"fv_tp_2d": 31, "sim1_solver": 6, "del4_filter": 0,
+                "del4_filter_pair": 24, "column_pressures": 12,
+                "ppm_remap": 6},
+    (2, 2, 2): {"fv_tp_2d": 31, "sim1_solver": 6, "del4_filter": 0,
+                "del4_filter_pair": 0, "column_pressures": 12,
+                "ppm_remap": 6},
+}
+
+
+def _local_c12(dev, layout):
+    """A local mesh's C12 stepper on the card and the sharded benchmark
+    state."""
+    from fv3net_tpu_torch.dycore import hydro
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+    from fv3net_tpu_torch.parallel import spmd_dycore
+    from fv3net_tpu_torch.parallel.mesh import make_local_mesh
+    from fv3net_tpu_torch.parallel.tiling import TileLayout
+
+    mesh = make_local_mesh(layout)
+    g = CubedSphereGrid.make(n, halo=H)
+    if layout == (6, 1, 1):
+        run, shard, gather = spmd_dycore.make_spmd_dycore_stepper(
+            g, NZ, mesh, 900.0)
+    else:
+        run, shard, gather = spmd_dycore.make_tiled_spmd_dycore_stepper(
+            g, NZ, mesh, TileLayout(n, H, *layout), 900.0)
+    sharded, phis = shard(hydro.benchmark_state(n, NZ, 300.0, dev),
+                          torch.zeros((6, n, n), device=dev))
+    return mesh, run, gather, sharded, phis
+
+
+def _fields(state):
+    return {k: x for k, x in state._asdict().items() if x is not None}
+
+
+@pytest.mark.parametrize("layout", [(6, 1, 1), (2, 2, 2)])
+def test_local_mesh_replay_equals_eager(dev, layout):
+    """The replayed dt of every shard (one CUDA graph, captured on the
+    first call) against two eager dts of the local mesh (bit for bit
+    where they agree), and two chained replays against two eager dts;
+    the face mesh's eager dt against the single-process dt, within the
+    spread of two of those."""
+    mesh, run, gather, sh, ph = _local_c12(dev, layout)
+    e1, e2 = (_fields(gather(run.one_dt(sh, ph))) for _ in range(2))
+    _spread_equal(_fields(gather(run(sh, ph, 1))), e1, e2, "replay")
+    two = gather(run.one_dt(run.one_dt(sh, ph), ph))
+    _spread_equal(_fields(gather(run(sh, ph, 2))), _fields(two),
+                  _fields(gather(run.one_dt(run.one_dt(sh, ph), ph))),
+                  "two dts")
+    assert len(run.graphed.graphs()) == 1
+    if layout == (6, 1, 1):
+        single, st, phis = _c12_stepper(dev)
+        s1, s2 = (_fields(single.one_dt(st, phis)) for _ in range(2))
+        for k in s1:  # the sharded dt within the single-process spread
+            bad = (e1[k] - s1[k]).abs() > 4.0 * (s1[k] - s2[k]).abs()
+            assert not bool(bad.any()), k
+
+
+@pytest.mark.parametrize("layout", [(6, 1, 1), (2, 2, 2)])
+def test_local_mesh_counts_each_shard(dev, layout):
+    """An eager dt counts each shard's launches (mesh.launches) and all of
+    them; the first call (warm-ups, capture, one replay) and each later
+    replay count every shard's launches a dt, the warm-ups and the
+    capture none."""
+    from fv3net_tpu_torch.ops import _build
+
+    mesh, run, _, sh, ph = _local_c12(dev, layout)
+    per = SHARD_LAUNCHES[layout]
+    every = {k: mesh.n_devices * c for k, c in per.items()}
+
+    def counts():
+        return {k: _build.COUNTED[k].launches for k in per}
+
+    c0 = counts()
+    run.one_dt(sh, ph)
+    c1 = counts()
+    assert all({k: d[k] for k in per} == per for d in mesh.launches)
+    assert {k: c1[k] - c0[k] for k in per} == every
+    run(sh, ph, 1)
+    c2 = counts()
+    run(sh, ph, 3)
+    c3 = counts()
+    assert {k: c2[k] - c1[k] for k in per} == every
+    assert {k: c3[k] - c2[k] for k in per} == {k: 3 * c for k, c in
+                                               every.items()}
+
+
+def test_sw_run_replays_and_equals_eager(dev):
+    """make_sw_stepper's run on the card: a CUDA graph of one step,
+    replayed (one capture), within the spread of two eager steps; three
+    replays count K1 six times and K3 three times."""
+    from fv3net_tpu_torch.convert import sw_state_from_numpy
+    from fv3net_tpu_torch.dycore import make_sw_stepper
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+    from fv3net_tpu_torch.ops.cuda_filter import del4_filter_cuda
+
+    g = CubedSphereGrid.make(n, halo=H)
+    run, _ = make_sw_stepper(g, 300.0)
+    st = sw_state_from_numpy([np.asarray(a, np.float32)
+                              for a in _w2_state(g)])
+    e1, e2 = (_fields(run.one_step(st)) for _ in range(2))
+    _spread_equal(_fields(run(st, 1)), e1, e2, "SW replay")
+    k1, k3 = fv_tp_2d_cuda.launches, del4_filter_cuda.launches
+    run(st, 3)
+    assert (fv_tp_2d_cuda.launches - k1, del4_filter_cuda.launches - k3) \
+        == (6, 3)
+    assert len(run.graphed.graphs()) == 1
+
+
+def test_ppm_remap_unit_replays_k5(dev):
+    """ops.remap.ppm_remap on the card: one capture a key (mappm's rules
+    and the exact boundaries two keys), K5 in each replay (one launch a
+    call), bit for bit with its eager body and within K5's tolerance of
+    the plain remap."""
+    rng = np.random.RandomState(41)
+    w = np.cumsum(0.2 + rng.rand(NZ + 1, 6, n, n), axis=0)
+    pe1 = 300.0 + (w - w[:1]) / (w[-1:] - w[:1]) * 1e5
+    pe2 = pe1 * (1.0 + 0.04 * (rng.rand(1, 6, n, n) - 0.5))
+    q, p1, p2 = (_t(a, dev) for a in (1.0 + 0.1 * rng.randn(NZ, 6, n, n),
+                                      pe1, pe2))
+    unit = remap.ppm_remap
+    unit.graphed.captures.clear()
+    for exact in (False, True, False):
+        before = ppm_remap_cuda.launches
+        got = unit(q, p1, p2, iv=1, kord=9, exact_boundaries=exact)
+        assert ppm_remap_cuda.launches == before + 1
+        eager = unit.eager(q, p1, p2, iv=1, kord=9, exact_boundaries=exact)
+        assert torch.equal(got, eager)
+        want = remap.ppm_remap_plain(q, p1, p2, iv=1, kord=9,
+                                     exact_boundaries=exact)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert unit.captures() == 2
+    unit.graphed.captures.clear()

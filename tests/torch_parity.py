@@ -170,3 +170,29 @@ class NoHostRead(TorchDispatchMode):
         ) or (func in INDEXING and _masked(args)):
             raise RuntimeError(f"host read inside the step: {func}")
         return func(*args, **(kwargs or {}))
+
+
+class StandInCapture:
+    """A stand-in for ``graphs._Capture`` on the CPU (with
+    ``graphs.CAPTURED_DEVICE`` set to "cpu"): each replay runs the body
+    eagerly on the arguments it is given (a real capture's static
+    buffers), the carried state chained `steps` times.  ``made`` counts
+    the captures."""
+
+    made = 0
+
+    def __init__(self, fn, args, leaves, spec, carry, donate, **opts):
+        type(self).made += 1
+        self.fn, self.spec, self.carry = fn, spec, carry
+        self.static_bytes = self.pool_bytes = 0
+
+    def __call__(self, leaves, steps):
+        from fv3net_tpu_torch import graphs
+
+        args = graphs._build(self.spec, iter(leaves))
+        if self.carry is None:
+            return self.fn(*args)
+        out = args[0]
+        for _ in range(steps):
+            out = self.fn(out, *args[1:])
+        return out
