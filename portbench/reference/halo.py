@@ -1,0 +1,719 @@
+"""A frozen copy of the port's single-device halo exchange
+(``fv3net_tpu_torch/grid/halo.py``), plain torch, for the benchmark's
+reference dycore.
+
+Fields live on the full cube as ``[6, ..., n, n]`` tensors; the exchange
+produces padded ``[6, ..., n+2h, n+2h]`` tensors whose edge halos hold the
+neighboring faces' interior values with the correct inter-face index
+rotation (and component rotation for vectors).  Each exchange is ONE
+gather over the whole padded lattice: own positions read themselves,
+halo positions read the neighbour's stored value, times a sign for
+staggered vector components.  Tables are built once per (n, h, fill) in
+numpy and cached as index tensors per device.  The mesh (spmd) forms and
+the autograd transposes of the original are left out.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import topology as topo
+
+# ---------------------------------------------------------------------------
+# numpy table functions (verbatim from the JAX package's grid/halo.py)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _scalar_tables(n: int, h: int, fill: str = "none"):
+    if fill == "none":
+        src_face, src_j, src_i, corner_mask = topo.halo_source_indices(n, h)
+    else:
+        src_face, src_j, src_i, corner_mask = (
+            topo.halo_source_indices_filled(n, h, fill)
+        )
+    flat = (src_face * n + src_j) * n + src_i
+    return flat, corner_mask
+
+
+@lru_cache(maxsize=None)
+def _agrid_vector_tables(n: int, h: int):
+    """Rotation coefficient tables for A-grid vector halo exchange."""
+    np_sz = n + 2 * h
+    m00 = np.ones((6, np_sz, np_sz))
+    m01 = np.zeros((6, np_sz, np_sz))
+    m10 = np.zeros((6, np_sz, np_sz))
+    m11 = np.ones((6, np_sz, np_sz))
+    for f in range(6):
+        for e in range(4):
+            l = topo.link(f, e)
+            r = l.rot
+            c, s = [(1, 0), (0, 1), (-1, 0), (0, -1)][r]
+            # M = [[c, -s], [s, c]] maps neighbor (u,v) -> ours
+            if e == topo.EDGE_W:
+                sl = np.s_[f, h : h + n, 0:h]
+            elif e == topo.EDGE_E:
+                sl = np.s_[f, h : h + n, h + n :]
+            elif e == topo.EDGE_S:
+                sl = np.s_[f, 0:h, h : h + n]
+            else:
+                sl = np.s_[f, h + n :, h : h + n]
+            m00[sl], m01[sl], m10[sl], m11[sl] = c, -s, s, c
+    return m00, m01, m10, m11
+
+
+def _quantize(xyz: np.ndarray) -> np.ndarray:
+    """Quantize unit-sphere coords to integers for exact matching."""
+    return np.round(xyz * 1e9).astype(np.int64)
+
+
+
+def _edge_keys(A, B):
+    """Quantized corner pairs [..., 3] -> (key [..., 6] with the two
+    corners in lexicographic order, the quantized first corner)."""
+    qa, qb = _quantize(A), _quantize(B)
+    # qa <= qb as tuples: decided by the first component that differs
+    diff = qa != qb
+    first = np.argmax(diff, axis=-1)[..., None]
+    a_first = ~diff.any(-1) | (np.take_along_axis(qa, first, -1)[..., 0]
+                               < np.take_along_axis(qb, first, -1)[..., 0])
+    lo = np.where(a_first[..., None], qa, qb)
+    hi = np.where(a_first[..., None], qb, qa)
+    return np.concatenate([lo, hi], axis=-1), qa
+
+
+def _as_void(keys):
+    """[M, 6] int64 rows as one comparable value each."""
+    keys = np.ascontiguousarray(keys)
+    return keys.view(np.dtype((np.void, keys.dtype.itemsize * 6)))[:, 0]
+
+
+@lru_cache(maxsize=None)
+def _dgrid_tables(n: int, h: int):
+    """Gather tables for D-grid staggered wind halo exchange.
+
+    u[J, i] lives on the x-directed edge between corners (J, i), (J, i+1):
+    shape (n+1, n).  v[j, I] on the y-directed edge between corners (j, I),
+    (j+1, I): shape (n, n+1).  Across a face boundary an edge is the same
+    physical great-circle segment, so we match halo edge positions to
+    stored edges geometrically: each edge is keyed by the quantized xyz of
+    its (unordered) corner pair; the sign is +1 when the stored direction
+    agrees with the query direction.  This derivation makes every corner
+    case (including edges straddling the face boundary and the literal
+    cube corners) fall out automatically.  (The JAX package builds the
+    same tables with a Python loop over every edge; here the lookup is
+    vectorised: the same keys, the same first-writer-wins order, the
+    same tables, tests/test_torch_grid.py.)
+    """
+    from .geometry import extended_corners, gnomonic_grid
+
+    base = gnomonic_grid(n)  # [6, n+1, n+1, 3]
+    ext = extended_corners(n, h)  # [6, n+2h+1, n+2h+1, 3] (NaN corners)
+    nu = (n + 1) * n  # one face's u count; v entries offset by 6*nu
+
+    # every stored edge, in the order the faces store them (face by face,
+    # its u edges then its v edges): shared-boundary edges are stored by
+    # two faces, and the first writer wins (values are consistent by
+    # construction)
+    keys, froms, flats = [], [], []
+    for g in range(6):
+        for kind in ("u", "v"):
+            if kind == "u":
+                A, B = base[g, :, :-1], base[g, :, 1:]
+                flat = (g * (n + 1) + np.arange(n + 1)[:, None]) * n \
+                    + np.arange(n)[None, :]
+            else:
+                A, B = base[g, :-1, :], base[g, 1:, :]
+                flat = 6 * nu + (g * n + np.arange(n)[:, None]) * (n + 1) \
+                    + np.arange(n + 1)[None, :]
+            k, qa = _edge_keys(A, B)
+            keys.append(k.reshape(-1, 6))
+            froms.append(qa.reshape(-1, 3))
+            flats.append(flat.reshape(-1))
+    keys, froms, flats = (np.concatenate(x) for x in (keys, froms, flats))
+    table, first = np.unique(_as_void(keys), return_index=True)
+    froms, flats = froms[first], flats[first]
+
+    def build(kind: str):
+        if kind == "u":
+            shp = (6, n + 2 * h + 1, n + 2 * h)
+            A, B = ext[:, :, :-1], ext[:, :, 1:]
+        else:
+            shp = (6, n + 2 * h, n + 2 * h + 1)
+            A, B = ext[:, :-1, :], ext[:, 1:, :]
+        f, a, b = np.meshgrid(*(np.arange(m) for m in shp), indexing="ij")
+        # own lattice positions (interior AND own boundary) pass through
+        # identically -- the exchange must never overwrite a face's own
+        # stored edge values.
+        if kind == "u":
+            own = (h <= a) & (a <= h + n) & (h <= b) & (b < h + n)
+            own_flat = (f * (n + 1) + (a - h)) * n + (b - h)
+        else:
+            own = (h <= a) & (a < h + n) & (h <= b) & (b <= h + n)
+            own_flat = 6 * nu + (f * n + (a - h)) * (n + 1) + (b - h)
+        flat = np.zeros(shp, dtype=np.int64)
+        sign = np.zeros(shp, dtype=np.float64)
+        flat[own] = own_flat[own]
+        sign[own] = 1.0
+        query = ~own & np.isfinite(A).all(-1) & np.isfinite(B).all(-1)
+        k, qa = _edge_keys(A[query], B[query])
+        k = _as_void(k)
+        pos = np.minimum(np.searchsorted(table, k), table.size - 1)
+        hit = table[pos] == k
+        idx = np.flatnonzero(query)[hit]
+        flat.reshape(-1)[idx] = flats[pos[hit]]
+        same = (froms[pos[hit]] == qa[hit]).all(-1)
+        sign.reshape(-1)[idx] = np.where(same, 1.0, -1.0)
+        return flat, sign
+
+    return build("u"), build("v")
+
+
+def _rot_matrix(rot: int) -> np.ndarray:
+    c, s = [(1, 0), (0, 1), (-1, 0), (0, -1)][rot]
+    return np.array([[c, -s], [s, c]])
+
+
+
+@lru_cache(maxsize=None)
+def _cgrid_tables(n: int, h: int, fill: str):
+    """Gather tables for C-grid (face-normal) staggered fields.
+
+    uc [6, n, n+1]: x-component stored on x-faces (between cells (j,i-1)
+    and (j,i), face index i); vc [6, n+1, n]: y-component on y-faces.
+    Used for C-grid winds, Courant numbers and mass fluxes.
+
+    Slots are resolved through the neighbor charts via the affine edge
+    maps; the component sign/swap comes from the chart rotation matrix.
+    Cube-corner slots are resolved by chart composition, ordered so the
+    value equals bit-for-bit what the strip-owning neighbor holds in its
+    own (single-map) halo -- the property that makes shared-edge fluxes
+    cancel exactly and keeps global mass conservation to roundoff.
+    fill='x' orders the composition for fields consumed by x-direction
+    stencils (first through the y-neighbor), 'y' the transpose.
+    """
+    assert fill in ("x", "y")
+    first = "y" if fill == "x" else "x"
+    N = n + 2 * h
+    nu = n * (n + 1)  # own uc size per face; vc offset = 6*nu
+
+    def uc_flat(g, j, i_face):
+        return (g * n + j) * (n + 1) + i_face
+
+    def vc_flat(g, j_face, i):
+        return 6 * nu + (g * (n + 1) + j_face) * n + i
+
+    def resolve(f, c1, c2):
+        """Map adjacent cell pair (possibly out of face) to the stored
+        face value: returns (flat, sign_x, sign_y) where sign_x/sign_y
+        are the coefficients for an x-normal / y-normal query slot."""
+        from .topology import _edge_map_affine, link, EDGE_W, EDGE_E, \
+            EDGE_S, EDGE_N
+
+        def extract(g, cells, M):
+            """Return the stored-value triple if the pair is a stored
+            face of face g (boundary faces included), else None.
+
+            value_f = M @ (u, v)_g (M maps neighbor components to
+            ours); only the mapped face's normal component is stored,
+            so the coefficient is the corresponding M entry.
+            """
+            (j1, i1), (j2, i2) = cells[0], cells[1]
+            if j1 == j2 and abs(i1 - i2) == 1:
+                if 0 <= j1 < n and 0 <= max(i1, i2) <= n:
+                    return (
+                        uc_flat(g, int(j1), int(max(i1, i2))),
+                        M[0, 0],
+                        M[1, 0],
+                    )
+            if i1 == i2 and abs(j1 - j2) == 1:
+                if 0 <= i1 < n and 0 <= max(j1, j2) <= n:
+                    return (
+                        vc_flat(g, int(max(j1, j2)), int(i1)),
+                        M[0, 1],
+                        M[1, 1],
+                    )
+            return None
+
+        M = np.eye(2, dtype=int)
+        g = f
+        cells = [np.array(c1), np.array(c2)]
+        for _ in range(3):
+            got = extract(g, cells, M)
+            if got is not None:
+                return got
+            out_j = [not (0 <= c[0] < n) for c in cells]
+            out_i = [not (0 <= c[1] < n) for c in cells]
+            # a chart change is only valid along a coordinate that is
+            # out of range for BOTH cells; when both coordinates qualify
+            # (genuine corner), use the fill preference
+            j_both = out_j[0] and out_j[1]
+            i_both = out_i[0] and out_i[1]
+            if j_both and i_both:
+                use_y = first == "y"
+            elif j_both:
+                use_y = True
+            elif i_both:
+                use_y = False
+            else:
+                raise RuntimeError("straddling pair cannot be resolved")
+            ref = cells[0] if (out_j[0] if use_y else out_i[0]) else cells[1]
+            if use_y:
+                e = EDGE_S if ref[0] < 0 else EDGE_N
+            else:
+                e = EDGE_W if ref[1] < 0 else EDGE_E
+            l = link(g, e)
+            A, b = _edge_map_affine(l, n)
+            cells = [A @ c + b for c in cells]
+            M = _rot_matrix(l.rot) @ M
+            g = l.nbr_face
+        raise RuntimeError(f"cgrid resolve failed: {cells}")
+
+    def build(kind):
+        if kind == "uc":
+            shp = (6, N, N + 1)
+        else:
+            shp = (6, N + 1, N)
+        flat = np.zeros(shp, dtype=np.int64)
+        sign = np.zeros(shp, dtype=np.float64)
+        for f in range(6):
+            for a in range(shp[1]):
+                for b_ in range(shp[2]):
+                    if kind == "uc":
+                        # x-face at padded (row a, face col b_): cells
+                        # (a-h, b_-h-1) and (a-h, b_-h)
+                        j = a - h
+                        c1 = (j, b_ - h - 1)
+                        c2 = (j, b_ - h)
+                        own = 0 <= j < n and h <= b_ <= h + n
+                        if own:
+                            flat[f, a, b_] = uc_flat(f, j, b_ - h)
+                            sign[f, a, b_] = 1.0
+                            continue
+                    else:
+                        i = b_ - h
+                        c1 = (a - h - 1, i)
+                        c2 = (a - h, i)
+                        own = 0 <= i < n and h <= a <= h + n
+                        if own:
+                            flat[f, a, b_] = vc_flat(f, a - h, i)
+                            sign[f, a, b_] = 1.0
+                            continue
+                    # skip slots whose cells cannot be resolved (beyond
+                    # the diagonal reach of two charts)
+                    try:
+                        fl, sx, sy = resolve(f, c1, c2)
+                    except (RuntimeError, ValueError, KeyError):
+                        continue
+                    s = sx if kind == "uc" else sy
+                    if s == 0:
+                        continue
+                    flat[f, a, b_] = fl
+                    sign[f, a, b_] = float(s)
+        return flat, sign
+
+    return build("uc"), build("vc")
+
+
+
+@lru_cache(maxsize=None)
+def _cgrid_boundary_canon_tables(n: int):
+    """Canonicalization tables for the two stored copies of shared
+    boundary C-faces.
+
+    Each face stores its own value for every one of its boundary faces
+    (uc columns 0 and n, vc rows 0 and n), so every physical
+    tile-boundary face has TWO stored copies.  When the two owners
+    compute different values (the reconstructions see different halo
+    inputs at corner-adjacent cells), shared-face mass fluxes no longer
+    cancel and global conservation breaks for non-symmetric flows.
+    These tables let the higher-indexed face adopt the lower-indexed
+    face's copy (sign-rotated into its own frame): for every boundary
+    slot of every face, (neighbor_pool_index, coefficient,
+    replace_mask).  The FMS-equivalent convention is mpp's domain
+    symmetry on staggered fields.
+    """
+    from .topology import (
+        _edge_map_affine,
+        link,
+        EDGE_W,
+        EDGE_E,
+        EDGE_S,
+        EDGE_N,
+    )
+
+    nu = n * (n + 1)
+
+    def uc_flat(g, j, i_face):
+        return (g * n + j) * (n + 1) + i_face
+
+    def vc_flat(g, j_face, i):
+        return 6 * nu + (g * (n + 1) + j_face) * n + i
+
+    def neighbor_copy(f, edge, cells):
+        """(pool_flat, coef) of the neighbor's stored copy for the
+        boundary face between `cells` = ((j1,i1),(j2,i2)) of face f."""
+        l = link(f, edge)
+        A, b = _edge_map_affine(l, n)
+        M = _rot_matrix(l.rot)
+        g = l.nbr_face
+        (j1, i1), (j2, i2) = [A @ np.array(c) + b for c in cells]
+        if j1 == j2 and abs(i1 - i2) == 1:
+            return uc_flat(g, int(j1), int(max(i1, i2))), M[0, 0], M[1, 0]
+        if i1 == i2 and abs(j1 - j2) == 1:
+            return vc_flat(g, int(max(j1, j2)), int(i1)), M[0, 1], M[1, 1]
+        raise RuntimeError("boundary pair did not map to a stored face")
+
+    # output tables over the stored arrays' own shapes
+    uc_idx = np.zeros((6, n, n + 1), np.int64)
+    uc_coef = np.zeros((6, n, n + 1))
+    uc_rep = np.zeros((6, n, n + 1), bool)
+    vc_idx = np.zeros((6, n + 1, n), np.int64)
+    vc_coef = np.zeros((6, n + 1, n))
+    vc_rep = np.zeros((6, n + 1, n), bool)
+    for f in range(6):
+        for edge, col in ((EDGE_W, 0), (EDGE_E, n)):
+            l = link(f, edge)
+            if l.nbr_face >= f:
+                continue
+            for j in range(n):
+                cells = ((j, col - 1), (j, col))
+                fl, cx, _ = neighbor_copy(f, edge, cells)
+                uc_idx[f, j, col] = fl
+                uc_coef[f, j, col] = cx
+                uc_rep[f, j, col] = True
+        for edge, row in ((EDGE_S, 0), (EDGE_N, n)):
+            l = link(f, edge)
+            if l.nbr_face >= f:
+                continue
+            for i in range(n):
+                cells = ((row - 1, i), (row, i))
+                fl, _, cy = neighbor_copy(f, edge, cells)
+                vc_idx[f, row, i] = fl
+                vc_coef[f, row, i] = cy
+                vc_rep[f, row, i] = True
+    return (
+        uc_idx.astype(np.int32), uc_coef, uc_rep,
+        vc_idx.astype(np.int32), vc_coef, vc_rep,
+    )
+
+
+
+@lru_cache(maxsize=None)
+def _dgrid_boundary_pair_tables(n: int):
+    """For every boundary D-edge of every face, the (pool_flat, sign)
+    of the OTHER face's stored copy of the same physical edge.
+
+    The D-grid state [6, n+1, n]/[6, n, n+1] stores each shared
+    boundary edge TWICE (once per adjacent face); the two copies are
+    updated independently by each face's stencils and drift apart at
+    the inter-face coordinate kink.  These tables support averaging
+    the copies (mpp domain-symmetry role).  Cube-corner-touching edges
+    are included; entries with pair_mask False have no partner (none,
+    for the closed cube).
+    """
+    from .geometry import gnomonic_grid
+
+    base = gnomonic_grid(n)  # [6, n+1, n+1, 3]
+    nu = (n + 1) * n
+
+    table: dict = {}
+
+    def key_of(A, B):
+        ka, kb = tuple(_quantize(A)), tuple(_quantize(B))
+        return ((ka, kb) if ka <= kb else (kb, ka)), ka
+
+    def store(kind, g, a, b, A, B):
+        key, ka = key_of(A, B)
+        flat = (
+            (g * (n + 1) + a) * n + b
+            if kind == "u"
+            else 6 * nu + (g * n + a) * (n + 1) + b
+        )
+        table.setdefault(key, []).append((flat, ka))
+
+    for g in range(6):
+        for J in (0, n):
+            for i in range(n):
+                store("u", g, J, i, base[g, J, i], base[g, J, i + 1])
+        for j in range(n):
+            for I in (0, n):
+                store("v", g, j, I, base[g, j, I], base[g, j + 1, I])
+
+    u_idx = np.zeros((6, n + 1, n), np.int64)
+    u_sign = np.zeros((6, n + 1, n))
+    u_mask = np.zeros((6, n + 1, n), bool)
+    v_idx = np.zeros((6, n, n + 1), np.int64)
+    v_sign = np.zeros((6, n, n + 1))
+    v_mask = np.zeros((6, n, n + 1), bool)
+
+    def fill(kind, g, a, b, A, B):
+        key, ka = key_of(A, B)
+        entries = table.get(key, [])
+        flat_self = (
+            (g * (n + 1) + a) * n + b
+            if kind == "u"
+            else 6 * nu + (g * n + a) * (n + 1) + b
+        )
+        others = [e for e in entries if e[0] != flat_self]
+        if not others:
+            return
+        flat, stored_from = others[0]
+        sgn = 1.0 if stored_from == ka else -1.0
+        if kind == "u":
+            u_idx[g, a, b] = flat
+            u_sign[g, a, b] = sgn
+            u_mask[g, a, b] = True
+        else:
+            v_idx[g, a, b] = flat
+            v_sign[g, a, b] = sgn
+            v_mask[g, a, b] = True
+
+    for g in range(6):
+        for J in (0, n):
+            for i in range(n):
+                fill("u", g, J, i, base[g, J, i], base[g, J, i + 1])
+        for j in range(n):
+            for I in (0, n):
+                fill("v", g, j, I, base[g, j, I], base[g, j + 1, I])
+    return (
+        u_idx.astype(np.int32), u_sign, u_mask,
+        v_idx.astype(np.int32), v_sign, v_mask,
+    )
+
+
+
+# ---------------------------------------------------------------------------
+# table decoding into per-device gather indices
+# ---------------------------------------------------------------------------
+
+
+def _decode_pool(flat, rows_a, cols_a, rows_b, cols_b):
+    """Split flat indices of the two-segment pool [a (6 faces); b (6
+    faces)] into (face, position) over the per-face concatenation
+    [a_f | b_f] of length rows_a*cols_a + rows_b*cols_b."""
+    flat = np.asarray(flat, np.int64)
+    sa = rows_a * cols_a
+    sb = rows_b * cols_b
+    in_a = flat < 6 * sa
+    fb = flat - 6 * sa
+    face = np.where(in_a, flat // sa, fb // sb)
+    pos = np.where(in_a, flat % sa, sa + fb % sb)
+    return face, pos
+
+
+def _index_tensors(face, pos, device):
+    """[6, P] numpy (face, pos) -> broadcastable [6, 1, P] int64 tensors."""
+    def t(a):
+        return torch.as_tensor(
+            np.asarray(a, np.int64).reshape(6, 1, -1), device=device
+        )
+
+    return t(face), t(pos)
+
+
+@lru_cache(maxsize=None)
+def _scalar_gather(n: int, h: int, fill: str, device: torch.device):
+    flat, _ = _scalar_tables(n, h, fill)
+    return _index_tensors(flat // (n * n), flat % (n * n), device)
+
+
+@lru_cache(maxsize=None)
+def _staggered_gather(kind: str, n: int, h: int, fill: str,
+                      device: torch.device, dtype: torch.dtype):
+    """(face, pos, sign) gather tensors for both outputs of a D- or
+    C-grid pair exchange."""
+    if kind == "dgrid":
+        tables = _dgrid_tables(n, h)
+        shape = (n + 1, n, n, n + 1)
+    else:
+        tables = _cgrid_tables(n, h, fill)
+        shape = (n, n + 1, n + 1, n)
+    out = []
+    for flat, sign in tables:
+        face, pos = _decode_pool(flat.reshape(6, -1), *shape)
+        fi, pi = _index_tensors(face, pos, device)
+        sg = torch.as_tensor(
+            np.asarray(sign).reshape(6, 1, -1), dtype=dtype, device=device
+        )
+        out.append((fi, pi, sg, flat.shape[1:]))
+    return tuple(out)
+
+
+@lru_cache(maxsize=None)
+def _boundary_gather(kind: str, n: int, device: torch.device,
+                     dtype: torch.dtype):
+    """(face, pos, coef, mask) gather tensors over the stored arrays'
+    own shapes for the shared-boundary tables (canonicalisation of
+    C-faces, averaging of D-edges)."""
+    if kind == "canon":
+        ia, ca, ma, ib, cb, mb = _cgrid_boundary_canon_tables(n)
+        shape = (n, n + 1, n + 1, n)
+    else:
+        ia, ca, ma, ib, cb, mb = _dgrid_boundary_pair_tables(n)
+        shape = (n + 1, n, n, n + 1)
+    out = []
+    for idx, coef, mask in ((ia, ca, ma), (ib, cb, mb)):
+        face, pos = _decode_pool(idx.reshape(6, -1), *shape)
+        fi, pi = _index_tensors(face, pos, device)
+        cf = torch.as_tensor(
+            np.asarray(coef).reshape(6, 1, -1), dtype=dtype, device=device
+        )
+        mk = torch.as_tensor(
+            np.asarray(mask).reshape(6, 1, -1), device=device
+        )
+        out.append((fi, pi, cf, mk))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the exchanges
+# ---------------------------------------------------------------------------
+
+
+def _gather(src, fi, pi):
+    """out[f, m, p] = src[fi[f, p], m, pi[f, p]] for src [6, M, S]."""
+    m = torch.arange(src.shape[1], device=src.device).view(1, -1, 1)
+    return src[fi, m, pi]
+
+
+def _pool(a, b):
+    """Per-face concatenation [6, M, A + B] of two staggered arrays."""
+    return torch.cat(
+        [a.reshape(6, -1, a.shape[-2] * a.shape[-1]),
+         b.reshape(6, -1, b.shape[-2] * b.shape[-1])], dim=-1,
+    )
+
+
+def halo_exchange(field, h: int, fill: str = "none"):
+    """Pad a cell-centered scalar [6, ..., n, n] with h halo cells.
+
+    fill='none': cube-corner halo slots get the nearest edge value
+    (clipped index) and must not be consumed by stencils.
+    fill='x' / 'y': corner slots are resolved to the true third-face
+    cells by row / column continuation -- the cube-topology-exact
+    version of FV3's copy_corners(dir=1/2) (tp_core.F90); use 'y' before
+    y-direction stencils that run on x-halo columns and vice versa.
+    """
+    n = field.shape[-1]
+    N = n + 2 * h
+    fi, pi = _scalar_gather(n, h, fill, field.device)
+    out = _gather(field.reshape(6, -1, n * n), fi, pi)
+    return out.reshape(field.shape[:-2] + (N, N))
+
+
+def halo_exchange_vector_cgrid(u, v, h: int):
+    """Halo-exchange an A-grid (cell-centered) vector with rotation.
+
+    u, v: [6, ..., n, n] components along the face-local x / y directions.
+    Returns padded (u, v) with halo components rotated into this face's
+    frame (the rotation tables staged to the fields' device once).
+    """
+    n = u.shape[-1]
+    up = halo_exchange(u, h)
+    vp = halo_exchange(v, h)
+    m00, m01, m10, m11 = _agrid_vector_tensors(n, h, u.dtype, u.device)
+    uo = m00 * up + m01 * vp
+    vo = m10 * up + m11 * vp
+    return uo, vo
+
+
+@lru_cache(maxsize=None)
+def _agrid_vector_tensors(n: int, h: int, dtype: torch.dtype,
+                          device: torch.device):
+    """The rotation tables of halo_exchange_vector_cgrid on `device`."""
+    return tuple(
+        torch.as_tensor(a, dtype=dtype, device=device)
+        for a in _agrid_vector_tables(n, h)
+    )
+
+
+def _staggered_exchange(a, b, kind, h, fill):
+    """The plain staggered exchange (one signed gather per output)."""
+    n = a.shape[-1] if kind == "dgrid" else a.shape[-2]
+    pool = _pool(a, b)
+    outs = []
+    for fi, pi, sg, shp in _staggered_gather(
+        kind, n, h, fill, a.device, a.dtype
+    ):
+        outs.append(
+            (_gather(pool, fi, pi) * sg).reshape(a.shape[:-2] + shp)
+        )
+    return outs[0], outs[1]
+
+
+def halo_exchange_dgrid(u, v, h: int):
+    """Halo-exchange D-grid staggered winds.
+
+    u: [6, ..., n+1, n] x-edge tangential component
+    v: [6, ..., n, n+1] y-edge tangential component
+    Returns padded (u [6,...,n+2h+1,n+2h], v [6,...,n+2h,n+2h+1]); the halo
+    holds the neighbor's u or v value on the same physical edge with the
+    correct sign.  Positions with no well-defined source (cube corners)
+    are zero.
+    """
+    return _staggered_exchange(u, v, "dgrid", h, "")
+
+
+def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
+    """Halo-exchange C-grid (face-normal) components with corner fill.
+
+    uc: [6, ..., n, n+1] x-component at x-faces; vc: [6, ..., n+1, n].
+    Returns padded (uc [6,...,N,N+1], vc [6,...,N+1,N]), N = n+2h, with
+    halo AND cube-corner slots holding the neighbors' stored values
+    rotated into this face's frame (see _cgrid_tables).
+    """
+    return _staggered_exchange(uc, vc, "cgrid", h, fill)
+
+
+def _boundary_partner(a, b, kind):
+    n = a.shape[-1] if kind == "avg" else a.shape[-2]
+    pool = _pool(a, b)
+    return [
+        (_gather(pool, fi, pi) * cf, mk)
+        for fi, pi, cf, mk in _boundary_gather(kind, n, a.device, a.dtype)
+    ]
+
+
+def canonicalize_cgrid_boundary(uc, vc):
+    """Make the two stored copies of every shared boundary C-face equal:
+    the higher-indexed face adopts the lower-indexed face's value
+    (rotated into its frame).  Restores exact shared-face flux
+    cancellation (global mass conservation to roundoff) for arbitrary
+    wind fields.  uc: [6, ..., n, n+1]; vc: [6, ..., n+1, n]."""
+    (pu, mu), (pv, mv) = _boundary_partner(uc, vc, "canon")
+    uo = torch.where(mu, pu, uc.reshape(pu.shape))
+    vo = torch.where(mv, pv, vc.reshape(pv.shape))
+    return uo.reshape(uc.shape), vo.reshape(vc.shape)
+
+
+def average_dgrid_boundary(u, v):
+    """Replace both stored copies of every shared boundary D-edge with
+    their (sign-consistent) average.  u: [6, ..., n+1, n],
+    v: [6, ..., n, n+1]; the interior is untouched."""
+    (pu, mu), (pv, mv) = _boundary_partner(u, v, "avg")
+    own_u = u.reshape(pu.shape)
+    own_v = v.reshape(pv.shape)
+    uo = torch.where(mu, 0.5 * (own_u + pu), own_u)
+    vo = torch.where(mv, 0.5 * (own_v + pv), own_v)
+    return uo.reshape(u.shape), vo.reshape(v.shape)
+
+
+def extend_cells_one(field):
+    """Pad a cell-centered field [6 (or L), ..., n, n] by ONE ghost cell
+    per side within the face: edge replication at face level.  Bit-preserving contract: one-sided
+    boundary formulas written as 0.5*(ext[j] + ext[j+1]) reproduce their
+    pre-extension bits (0.5*(x+x) == x)."""
+    return edge_pad(field, 1)
+
+
+def edge_pad(x, w: int):
+    """Edge-replicating pad of the last two axes by w on every side
+    (jnp.pad mode='edge')."""
+    Y, X = x.shape[-2], x.shape[-1]
+    rj = torch.arange(-w, Y + w, device=x.device).clamp(0, Y - 1)
+    ri = torch.arange(-w, X + w, device=x.device).clamp(0, X - 1)
+    return x.index_select(-2, rj).index_select(-1, ri)
