@@ -34,6 +34,15 @@ three schemes (``dyn_substep``): the c_sw/d_sw default, the legacy
 two-stage midpoint (c_half=False) and plain forward-backward
 (midpoint=False).  On CPU tensors every piece runs its plain torch
 form.
+
+FV3's routine clocks are device spans (``tracing.span``; nothing on
+CPU tensors or in a mesh): ``dycore.dt`` around the dt; in each
+c_sw/d_sw substep ``dycore.c_sw`` (the shared exchanges and the C-grid
+half-stage) and ``dycore.d_sw`` (the substep core), inside which
+``dycore.riem_solver`` (the column pressures, the vertical solve and
+the dz exchange; nonhydrostatic) and ``dycore.damping`` (the three
+dampers); then ``dycore.tracer_2d`` and ``dycore.remap``: 54 marks a
+nonhydrostatic dt of 6 substeps.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from ..ops.advection import (
 )
 from ..ops.cuda_column import column_pressures, exner_chain
 from ..ops.remap import remap_levels
+from ..tracing import span
 from .riemann import hydrostatic_dz, sim1_solve
 from .sw import (
     CORNER_DAMP_COEF,
@@ -353,12 +363,14 @@ def dyn_substep(state: DycoreState, m: SWMetrics, dt: float, ptop: float,
     Returns (new_state_without_tracers, accumulated fluxes).
     """
     if midpoint and c_half:
-        exch = _exchanges(state, m.halo)
-        adv = _c_sw_half_3d(state, m, 0.5 * dt, ptop, phis, *exch)
-        new, (fx, fy, crx, cry) = _substep_core(
-            state, state, m, dt, ptop, hord, d2_damp, phis,
-            exch=exch, adv=adv,
-        )
+        with span("dycore.c_sw", state.delp):
+            exch = _exchanges(state, m.halo)
+            adv = _c_sw_half_3d(state, m, 0.5 * dt, ptop, phis, *exch)
+        with span("dycore.d_sw", state.delp):
+            new, (fx, fy, crx, cry) = _substep_core(
+                state, state, m, dt, ptop, hord, d2_damp, phis,
+                exch=exch, adv=adv,
+            )
     elif midpoint:
         # nondimensional damping applied once per substep (stage 2)
         half, _ = _substep_core(state, state, m, 0.5 * dt, ptop, 1,
@@ -503,30 +515,33 @@ def _substep_core(ev: DycoreState, base: DycoreState, m: SWMetrics,
         else 0.0
     )
     if nonhydro:
-        pe_p, pi_lay, pm_p = column_pressures(dp_p, ptop)
-        # vertical acoustics: semi-implicit solve on the transported state
-        # (Riem_Solver3 position in fv_dynamics), then the TRUE
-        # geopotential from the solved layer heights
-        dm_int = delp_new / GRAV
-        if phis is not None:
-            # terrain BC: ws = V . grad(z_s) from bottom-level C-winds
-            zs = phis / GRAV
-            zsx = halo_exchange(zs, h, fill="x")
-            zsy = halo_exchange(zs, h, fill="y")
-            dzdx_f = (zsx - _shx(zsx, -1)) / m.dxc_f
-            dzdy_f = (zsy - _shy(zsy, -1)) / m.dyc_f
-            ucb, vcb = uc[:, -1], vc[:, -1]
-            ws_full = 0.5 * (
-                ucb * dzdx_f + _shx(ucb * dzdx_f, 1)
-                + vcb * dzdy_f + _shy(vcb * dzdy_f, 1)
+        with span("dycore.riem_solver", dp_p):
+            pe_p, pi_lay, pm_p = column_pressures(dp_p, ptop)
+            # vertical acoustics: semi-implicit solve on the transported
+            # state (Riem_Solver3 position in fv_dynamics), then the TRUE
+            # geopotential from the solved layer heights
+            dm_int = delp_new / GRAV
+            if phis is not None:
+                # terrain BC: ws = V . grad(z_s) from bottom-level C-winds
+                zs = phis / GRAV
+                zsx = halo_exchange(zs, h, fill="x")
+                zsy = halo_exchange(zs, h, fill="y")
+                dzdx_f = (zsx - _shx(zsx, -1)) / m.dxc_f
+                dzdy_f = (zsy - _shy(zsy, -1)) / m.dyc_f
+                ucb, vcb = uc[:, -1], vc[:, -1]
+                ws_full = 0.5 * (
+                    ucb * dzdx_f + _shx(ucb * dzdx_f, 1)
+                    + vcb * dzdy_f + _shy(vcb * dzdy_f, 1)
+                )
+            else:
+                ws_full = torch.zeros_like(dp_p[:, 0])
+            # pe, pm and ws padded: the solve reads their interior (no
+            # copy)
+            w2, dz2, ppe = sim1_solve(
+                dt, dm_int, pt_new, dz_adv, w_adv, pe_p, pm_p, ws_full,
+                halo=h,
             )
-        else:
-            ws_full = torch.zeros_like(dp_p[:, 0])
-        # pe, pm and ws padded: the solve reads their interior (no copy)
-        w2, dz2, ppe = sim1_solve(
-            dt, dm_int, pt_new, dz_adv, w_adv, pe_p, pm_p, ws_full, halo=h
-        )
-        dz_p = halo_exchange(dz2, h, fill="y")
+            dz_p = halo_exchange(dz2, h, fill="y")
         dphi = -GRAV * dz_p  # positive downward
     else:
         # hydrostatic: the plain chain keeps the interface Exner function
@@ -562,13 +577,14 @@ def _substep_core(ev: DycoreState, base: DycoreState, m: SWMetrics,
 
     # --- dissipation on the BASE winds (once per substep) ----------------
     if d2_damp != 0.0:
-        du_damp, dv_damp = div_damp(base.u, base.v, m, d2_damp)
-        du_vd, dv_vd = vort_damp(base.u, base.v, m, VORT_DAMP_COEF)
-        du_cd, dv_cd = corner_div_damp(
-            base.u, base.v, m, CORNER_DAMP_COEF
-        )
-        du_damp = du_damp + du_vd + du_cd
-        dv_damp = dv_damp + dv_vd + dv_cd
+        with span("dycore.damping", base.u):
+            du_damp, dv_damp = div_damp(base.u, base.v, m, d2_damp)
+            du_vd, dv_vd = vort_damp(base.u, base.v, m, VORT_DAMP_COEF)
+            du_cd, dv_cd = corner_div_damp(
+                base.u, base.v, m, CORNER_DAMP_COEF
+            )
+            du_damp = du_damp + du_vd + du_cd
+            dv_damp = dv_damp + dv_vd + dv_cd
     else:
         du_damp = torch.zeros_like(base.u)
         dv_damp = torch.zeros_like(base.v)
@@ -809,42 +825,44 @@ def build_one_dt(m, ak, bk, nz, dt_atmos, k_split, n_split, hord, kord,
         return type(st)(*out[:ns]), tuple(out[ns:])
 
     def one_dt(state: DycoreState, phis):
-        for _ in range(k_split):
-            st = state
-            if st.q is not None:
-                # flux accumulators feed ONLY the tracer transport
-                zero = st.delp.new_zeros((st.delp.shape[0], nz, N, N))
-                acc = (zero, zero, zero, zero)
-            else:
-                acc = (None,) * 4
-            st2 = st
-            for _ in range(n_split):
-                st2, acc = (substep_remat if remat else substep)(
-                    st2, acc, phis)
-            mfx, mfy, cxa, cya = acc
-            # tracer transport with accumulated mass fluxes
-            if st2.q is not None:
-                apx = m.area_px[:, None] * halo_exchange(
-                    st.delp, h, fill="x"
-                )
-                apy = m.area_py[:, None] * halo_exchange(
-                    st.delp, h, fill="y"
-                )
-
-                def tr(qq):
-                    qx = halo_exchange(qq, h, fill="x")
-                    qy = halo_exchange(qq, h, fill="y")
-                    fxq, fyq = fv_tp_2d(
-                        qx, qy, cxa, cya, mfx, mfy, apx, apy, hord
-                    )
-                    dv = (fxq - _shx(fxq, 1)) + (fyq - _shy(fyq, 1))
-                    return (
-                        qq * st.delp
-                        + dv[:, :, h : h + n, h : h + n] * m.rarea[:, None]
-                    ) / st2.delp
-
-                st2 = st2._replace(q=torch.stack([tr(qq) for qq in st2.q]))
-            state = remap_step(st2, ak, bk, ptop, kord, kord, kord, kord)
+        with span("dycore.dt", state.delp):
+            for _ in range(k_split):
+                st = state
+                if st.q is not None:
+                    # flux accumulators feed ONLY the tracer transport
+                    zero = st.delp.new_zeros((st.delp.shape[0], nz, N, N))
+                    acc = (zero, zero, zero, zero)
+                else:
+                    acc = (None,) * 4
+                st2 = st
+                for _ in range(n_split):
+                    st2, acc = (substep_remat if remat else substep)(
+                        st2, acc, phis)
+                mfx, mfy, cxa, cya = acc
+                # tracer transport with accumulated mass fluxes
+                if st2.q is not None:
+                    with span("dycore.tracer_2d", st2.delp):
+                        st2 = st2._replace(
+                            q=tracer_2d(st, st2, mfx, mfy, cxa, cya))
+                with span("dycore.remap", st2.delp):
+                    state = remap_step(st2, ak, bk, ptop, kord, kord, kord,
+                                       kord)
         return state
+
+    def tracer_2d(st, st2, mfx, mfy, cxa, cya):
+        apx = m.area_px[:, None] * halo_exchange(st.delp, h, fill="x")
+        apy = m.area_py[:, None] * halo_exchange(st.delp, h, fill="y")
+
+        def tr(qq):
+            qx = halo_exchange(qq, h, fill="x")
+            qy = halo_exchange(qq, h, fill="y")
+            fxq, fyq = fv_tp_2d(qx, qy, cxa, cya, mfx, mfy, apx, apy, hord)
+            dv = (fxq - _shx(fxq, 1)) + (fyq - _shy(fyq, 1))
+            return (
+                qq * st.delp
+                + dv[:, :, h : h + n, h : h + n] * m.rarea[:, None]
+            ) / st2.delp
+
+        return torch.stack([tr(qq) for qq in st2.q])
 
     return one_dt

@@ -51,6 +51,7 @@ from ..grid.halo import (
     halo_exchange_dgrid,
 )
 from ..ops.advection import fv_tp_2d, ppm_flux
+from ..tracing import host_span
 
 FILTER_COEF = 0.02
 VORT_DAMP_COEF = 0.02
@@ -149,6 +150,7 @@ class SWMetrics:
         )
 
     @classmethod
+    @host_span("setup.metrics")
     def make(cls, g: CubedSphereGrid, dtype=torch.float32,
              metric_cwinds: bool = True, metric_ke: bool = True,
              corner_damp: bool = True, device=None) -> "SWMetrics":

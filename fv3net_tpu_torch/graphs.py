@@ -34,9 +34,12 @@ replays it with one launch:
 * every other output is cloned after the replay, so a result the
   caller keeps is never overwritten by the next replay;
 * the kernels' launch counters (``<wrapper>.launches`` of every wrapper
-  in ``ops._build.COUNTED``) move only for launches on the device: the
-  warm-up's and the capture's Python calls are taken back, and each
-  replay adds the counts the capture recorded.
+  in ``ops._build.COUNTED``) and the tally of exchanges and device spans
+  (``tracing.COUNTS``) move only for work on the device: the warm-up's
+  and the capture's Python calls are taken back, and each replay adds
+  the counts the capture recorded;
+* the warm-up and the capture are the host spans ``graphs.warmup`` and
+  ``graphs.capture`` (``tracing.host_span``).
 
 Only CUDA tensors are captured; a capture that fails raises, and
 nothing falls back to eager.  The CPU path of the callers stays eager.
@@ -81,6 +84,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .ops._build import COUNTED
 
 _LOG = logging.getLogger(__name__)
@@ -258,7 +262,8 @@ class _Capture:
         _inside += 1
         try:
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
+            with tracing.host_span("graphs.warmup"), tracing.recorded(), \
+                    torch.cuda.stream(side):
                 for _ in range(warmup):
                     fn(*s_args)
             torch.cuda.current_stream(dev).wait_stream(side)
@@ -266,8 +271,10 @@ class _Capture:
             for w, b in before.items():
                 w.launches = b
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side,
-                                  capture_error_mode=capture_error_mode):
+            with tracing.host_span("graphs.capture"), \
+                    tracing.recorded() as self.tally, \
+                    torch.cuda.graph(self.graph, stream=side,
+                                     capture_error_mode=capture_error_mode):
                 # read after the context has emptied the allocator's
                 # cache: the graph's private pool takes new segments
                 reserved = torch.cuda.memory_reserved(dev)
@@ -310,6 +317,7 @@ class _Capture:
             self.graph.replay()
             for w, c in self.counts.items():
                 w.launches += c
+        tracing.COUNTS.replay(self.tally, steps)
         if self.carry is None:
             (out_leaves, out_spec), = self.parts
             return _build(out_spec, (t.clone() for t in out_leaves))

@@ -21,6 +21,7 @@ from functools import lru_cache
 import numpy as np
 
 from ..constants import OMEGA, PI, RADIUS
+from ..tracing import host_span
 from . import topology as topo
 
 
@@ -230,6 +231,7 @@ class CubedSphereGrid:
         return np.s_[..., h : h + self.n, h : h + self.n]
 
     @classmethod
+    @host_span("setup.grid")
     def make(cls, n: int, halo: int = 3) -> "CubedSphereGrid":
         h = halo
         corners = extended_corners(n, h)  # [6, N+1, N+1, 3], NaN corners

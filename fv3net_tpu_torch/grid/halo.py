@@ -23,6 +23,11 @@ a u<->v swap (quarter-turn index rotation).  The index maps are derived
 from the shared corner lattice, which makes the corner cases (literal cube
 corners) fall out of the derivation instead of hand-coded tables.
 
+Each single-process exchange counts its call and the bytes it writes in
+``tracing.COUNTS`` (under its own name; a captured graph's replays add
+its capture's counts), and no device span fires under ``spmd_mode``
+(``tracing.mute_while``).
+
 Under ``spmd_mode`` (the JAX file's lines 34-55) each public exchange
 dispatches to its shard-local form over a mesh (a process group, or the
 shards of one process): the face mesh's (parallel/halo_spmd.py) or, with
@@ -40,6 +45,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import tracing
 from . import topology as topo
 
 class _Spmd(threading.local):
@@ -77,6 +83,10 @@ def spmd_axis():
 def spmd_active() -> bool:
     """Whether this thread's exchanges run over a mesh (spmd_mode)."""
     return _SPMD.axis is not None
+
+
+# a mesh's shards interleave on several streams: no device span there
+tracing.mute_while(spmd_active)
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +695,7 @@ def halo_exchange(field, h: int, fill: str = "none"):
     N = n + 2 * h
     fi, pi = _scalar_gather(n, h, fill, field.device)
     out = _gather(field.reshape(6, -1, n * n), fi, pi)
+    tracing.exchanged("halo_exchange", out)
     return out.reshape(field.shape[:-2] + (N, N))
 
 
@@ -752,7 +763,9 @@ def halo_exchange_dgrid(u, v, h: int):
         return _hs.halo_exchange_dgrid_local(u, v, h, _SPMD.axis)
     from .halo_transpose import staggered_exchange
 
-    return staggered_exchange(u, v, "dgrid", h, "")
+    out = staggered_exchange(u, v, "dgrid", h, "")
+    tracing.exchanged("halo_exchange_dgrid", *out)
+    return out
 
 
 def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
@@ -776,7 +789,9 @@ def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
         return _hs.halo_exchange_cgrid_local(uc, vc, h, fill, _SPMD.axis)
     from .halo_transpose import staggered_exchange
 
-    return staggered_exchange(uc, vc, "cgrid", h, fill)
+    out = staggered_exchange(uc, vc, "cgrid", h, fill)
+    tracing.exchanged("halo_exchange_cgrid", *out)
+    return out
 
 
 def _boundary_partner(a, b, kind):
@@ -807,6 +822,7 @@ def canonicalize_cgrid_boundary(uc, vc):
     (pu, mu), (pv, mv) = _boundary_partner(uc, vc, "canon")
     uo = torch.where(mu, pu, uc.reshape(pu.shape))
     vo = torch.where(mv, pv, vc.reshape(pv.shape))
+    tracing.exchanged("canonicalize_cgrid_boundary", uo, vo)
     return uo.reshape(uc.shape), vo.reshape(vc.shape)
 
 
@@ -828,6 +844,7 @@ def average_dgrid_boundary(u, v):
     own_v = v.reshape(pv.shape)
     uo = torch.where(mu, 0.5 * (own_u + pu), own_u)
     vo = torch.where(mv, 0.5 * (own_v + pv), own_v)
+    tracing.exchanged("average_dgrid_boundary", uo, vo)
     return uo.reshape(u.shape), vo.reshape(v.shape)
 
 

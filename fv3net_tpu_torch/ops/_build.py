@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -51,6 +53,7 @@ SIGNATURES = {
     "fv3_probe_affine": [_P] * 2 + [_L] * 3 + [_I] + [_P],
     "fv3_probe_stencil": [_P] * 2 + [_L] + [_I] * 4 + [_P],
     "fv3_probe_resident": [_I],
+    "fv3_mark": [_I, _P, _L, _P],
 }
 
 _lib = None
@@ -173,15 +176,17 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the load or build
+    is the host span ``setup.kernels``)."""
     global _lib
     with _LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            with tracing.host_span("setup.kernels"):
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -203,6 +208,16 @@ def stream() -> int:
     first (5-8 us of a wrapper's host time on the H100 machine,
     kernel_times.py)."""
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+def _write_mark(log: torch.Tensor, mark_id: int):
+    """The card's writer of ``tracing``'s device spans:
+    ``fv3_mark<mark_id>`` appends (mark_id, the global timer) to `log`
+    on the current stream."""
+    call("fv3_mark", mark_id, log.data_ptr(), log.shape[0] - 1, stream())
+
+
+tracing.WRITERS["cuda"] = _write_mark
 
 
 def check(t: torch.Tensor, name: str, shape: tuple, device) -> int:

@@ -21,6 +21,10 @@ Per-substep semantics follow the reference's runtime/loop.py:
     MSE-conserving limiter -> add tendency -> mass-conserving set ->
     Monitor(python)
 
+The three stages are the device spans ``step.dynamics`` (around the
+dycore's own), ``step.physics`` and ``step.postphysics`` (with an ML
+model), in the step's graph too (``tracing.span``).
+
 Host work per step is the cos-zenith-angle field (numpy, copied to the
 device once per step), the solar constant (a 0-d device tensor, so that
 a replayed graph reads each step's value) and the datetime advance.
@@ -36,6 +40,7 @@ import torch
 
 from ..constants import GRAV
 from ..graphs import Graphed, eager as all_eager
+from ..tracing import span
 from ..util.quantity import Quantity
 from ..utils.zenith import cos_zenith_angle
 from . import names
@@ -135,19 +140,23 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
 
     # --- stage 1: monitored dynamics -----------------------------------
     def stage_dynamics(state, phis):
-        diags = {
-            "water_vapor_path": (state.q[0] * state.delp / GRAV).sum(dim=1)
-        }
-        t_b = temperature(state)
-        st = one_dt(state, phis)
-        _monitor(
-            diags, "fv3_dynamics", t_b, state.q[0], state.delp,
-            temperature(st), st.q[0], st.delp, dt,
-        )
+        with span("step.dynamics", state.delp):
+            diags = {"water_vapor_path": (
+                state.q[0] * state.delp / GRAV).sum(dim=1)}
+            t_b = temperature(state)
+            st = one_dt(state, phis)
+            _monitor(
+                diags, "fv3_dynamics", t_b, state.q[0], state.delp,
+                temperature(st), st.q[0], st.delp, dt,
+            )
         return st, diags
 
     # --- stage 2: radiation + physics (monitored) ----------------------
     def stage_physics(st, tsfc, total_precip, cosz, solcon):
+        with span("step.physics", st.delp):
+            return physics_body(st, tsfc, total_precip, cosz, solcon)
+
+    def physics_body(st, tsfc, total_precip, cosz, solcon):
         diags = {}
         temp = temperature(st)
         qv, qc = st.q[0], st.q[1]
@@ -218,9 +227,13 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         }
 
     def stage_postphysics(st):
-        diags = {}
         if ml_model is None:
-            return st, diags
+            return st, {}
+        with span("step.postphysics", st.delp):
+            return postphysics_body(st)
+
+    def postphysics_body(st):
+        diags = {}
         temp = temperature(st)
         qv, qc = st.q[0], st.q[1]
         preds = ml_model.pure_fn(ml_params, _ml_inputs(st, temp, qv))

@@ -160,8 +160,10 @@ def append(url: str, n_steps: Optional[int] = None, device=None) -> int:
     loop = TimeLoop(wrapper, state, model_cfg.dt_atmos, n_steps=steps)
     area = wrapper.get_model().area
     from ..runtime.timing import ScalarSink, write_timing_json
+    from .. import tracing
 
     scalars = ScalarSink(seg_dir)
+    tracing.reset()  # the segment's own device spans in timing.json
     for step, (time, diags) in enumerate(loop):
         for df in diag_files:
             df.observe(time, diags)

@@ -6,55 +6,61 @@ The reference times every TimeLoop substep with ``pace.util.Timer``
 at the end of the run (``log_global_timings``, loop.py:516-543), plus
 per-rank tensorboard scalar writers (runtime/main.py:47-49).  This
 module provides the single-process equivalents: a ``Timer`` with
-``clock(name)`` context managers, ``timing_report`` producing the
-min/max/mean-per-substep JSON, and a dependency-free ``ScalarSink``
-that appends JSONL scalar records a report/CLI can consume.
+``clock(name)`` context managers (``tracing.Timer``), ``timing_report``
+producing the min/max/mean-per-substep JSON with the device spans of
+``tracing``'s log (FV3's routine clocks) and the process's set-up spans
+(``tracing.HOST``) beside them, and a
+dependency-free ``ScalarSink`` that appends JSONL scalar records a
+report/CLI can consume.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
-import time as _time
 from typing import Dict, List, Mapping
 
+from .. import tracing
+from ..tracing import Timer
 
-class Timer:
-    """Accumulate wall-clock samples per named block
-    (pace.util.Timer role).  The clock is the host's: around GPU work it
-    measures enqueue time unless the block ends in a synchronisation."""
+__all__ = ["Timer", "timing_report", "write_timing_json", "ScalarSink",
+           "read_scalars"]
 
-    def __init__(self):
-        self.times: Dict[str, List[float]] = {}
 
-    @contextlib.contextmanager
-    def clock(self, name: str):
-        t0 = _time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times.setdefault(name, []).append(
-                _time.perf_counter() - t0
-            )
-
-    def reset(self):
-        self.times = {}
+def _stats(samples: List[float]) -> Dict[str, float]:
+    return {
+        "min": min(samples),
+        "max": max(samples),
+        "mean": sum(samples) / len(samples),
+        "total": sum(samples),
+        "count": len(samples),
+    }
 
 
 def timing_report(timer: Timer) -> Dict[str, Dict[str, float]]:
     """min/max/mean/total seconds per substep name
     (log_global_timings, loop.py:516-543; single process, so the
-    reduction is over steps instead of ranks)."""
-    out = {}
-    for name, samples in timer.times.items():
-        out[name] = {
-            "min": min(samples),
-            "max": max(samples),
-            "mean": sum(samples) / len(samples),
-            "total": sum(samples),
-            "count": len(samples),
-        }
+    reduction is over steps instead of ranks); under ``host:<name>`` the
+    same of the process's host spans of set-up (``tracing.HOST``); and
+    under ``device:<span>`` the same of each device span's duration on
+    the card (``tracing.device_spans``: the spans the log holds, since
+    the process started or the last ``tracing.reset()``).  Where the log
+    has wrapped, its spans are the newest ones only: a device entry then
+    gives, in place of its total and count, the log's entries that were
+    overwritten (``dropped``)."""
+    out = {name: _stats(samples) for name, samples in timer.times.items()}
+    for name, samples in tracing.HOST.times.items():
+        out[f"host:{name}"] = _stats(samples)
+    device: Dict[str, List[float]] = {}
+    for s in tracing.device_spans():
+        device.setdefault(s.name, []).append(s.ms / 1e3)
+    lost = tracing.dropped() if device else 0
+    for name, samples in device.items():
+        stats = _stats(samples)
+        if lost:
+            del stats["total"], stats["count"]
+            stats["dropped"] = lost
+        out[f"device:{name}"] = stats
     return out
 
 

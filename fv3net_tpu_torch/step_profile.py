@@ -31,11 +31,13 @@ and ``make_sw_stepper``'s ``run``, ``CompiledTimeLoop.step``; the warm-up
 dt captures them), as are the dycore and the units the JAX
 package jits inside the prognostic and nudged steps (the physics, the
 radiation, the ML predictors' apply: ``graphs.jit``).  With --eager the
-SW step is ``run.one_step`` (its operators labelled), the dycore dt
-``run.one_dt`` and the coupled step
-``build_compiled_step``'s eager stages, its three stages and the
-dycore's functions labelled; the prognostic and nudged steps run every
-unit and the dycore eagerly (``graphs.eager()``).  Warms up one dt,
+SW step is ``run.one_step`` (its operators labelled: the SW step has no
+device spans yet), the dycore dt ``run.one_dt`` and the coupled step
+``build_compiled_step``'s eager stages; the prognostic and nudged steps
+run every unit and the dycore eagerly (``graphs.eager()``), their
+substeps labelled.  The stages of the dycore dt and of the coupled step,
+replayed or eager, are their device spans (``tracing``: FV3's routine
+clocks, marks the capture records in the graph).  Warms up one dt,
 then:
   * times 5 dts (30 steps of the prognostic and nudged runs, whose
     eager steps spread widely) with the host clock (synchronized), the
@@ -45,7 +47,13 @@ then:
     idle share, the number of kernel launches per dt, the copies per dt
     (torch's copy kernels and memcpy activities), the kernels by device
     time, and the host time of the labelled stages (each wrapped in a
-    record_function label for the traced dts only).
+    record_function label for the traced dts only);
+  * from the device spans of the traced dts (``tracing.device_spans``,
+    the log emptied before them): each span's calls, ms and self ms a
+    dt (``tracing.per_step``), the device ops inside it by ms a dt
+    (``tracing.attribute`` over the trace's ops, placed by the marks),
+    the scatter-add and the copies by span, and the offset from the
+    log's clock to the trace's (``tracing.align``).
 Writes ``step_profile_c<n>[_fused|_coupled|_prognostic|_nudged|_sw]``
 ``[_eager].json`` and
 ``.txt`` under
@@ -82,7 +90,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import graphs, wrapper
+from . import graphs, tracing, wrapper
 from .dycore import hydro, sw
 from .grid import CubedSphereGrid
 from .ops import advection
@@ -91,15 +99,8 @@ from .runtime import nudged_case
 
 NZ, PTOP = 63, 300.0
 DT_ATMOS = {48: 900.0, 192: 225.0}
-# module-level callables of dycore.hydro labelled in the eager dts
-STAGES = (
-    "_c_sw_half_3d", "_substep_core", "remap_step", "fv_tp_2d",
-    "scalar_filter", "div_damp", "vort_damp", "corner_div_damp",
-    "sim1_solve", "column_pressures", "halo_exchange",
-    "halo_exchange_dgrid", "average_dgrid_boundary", "padded_cgrid_winds",
-    "remap_levels", "fv_tp_2d_multi5",
-)
-# ... and of dycore.sw in the shallow-water step's traced steps
+# module-level callables of dycore.sw labelled in the shallow-water
+# step's traced eager steps (the SW step has no device spans)
 SW_STAGES = (
     "_c_sw_half_2d", "_sw_core", "fv_tp_2d", "scalar_filter", "div_damp",
     "vort_damp", "corner_div_damp", "halo_exchange", "halo_exchange_dgrid",
@@ -148,7 +149,7 @@ def _dycore_steps(N, fused, eager):
 def _coupled_steps(N, out, eager):
     """(step, traced step) of the coupled configuration: the replayed
     step through CompiledTimeLoop, both; or with `eager` its eager step,
-    and its three eager stages in turn, labelled."""
+    its three eager stages in turn (their device spans ``step.*``)."""
     dense = coupled_bench.train_dense_artifact(
         os.path.join(out, f"dense_c{N}"), NZ, "cuda")
     wm, model = coupled_bench.initialize(N, "cuda", dense)
@@ -158,21 +159,15 @@ def _coupled_steps(N, out, eager):
     mdl = loop.mdl
     stages = compiled_loop.build_compiled_step(mdl, model).eager_stages
 
-    def eager_step(dyn, phys, post):
-        def step():
-            cosz, solcon = loop._astronomy()
-            st, _ = dyn(mdl.state, mdl.phis)
-            st, tp, _, _ = phys(st, loop._tsfc,
-                                loop._on_device(mdl.total_precip), cosz,
-                                solcon)
-            mdl.state, _ = post(st)
-            mdl.total_precip = tp
+    def step():
+        cosz, solcon = loop._astronomy()
+        st, _ = stages["dynamics"](mdl.state, mdl.phis)
+        st, tp, _, _ = stages["physics"](
+            st, loop._tsfc, loop._on_device(mdl.total_precip), cosz, solcon)
+        mdl.state, _ = stages["postphysics"](st)
+        mdl.total_precip = tp
 
-        return step
-
-    keys = ("dynamics", "physics", "postphysics")
-    return eager_step(*(stages[k] for k in keys)), eager_step(*(
-        _labelled(f"coupled_{k}", stages[k]) for k in keys))
+    return step, step
 
 
 def _sw_steps(N, eager):
@@ -335,6 +330,45 @@ def _write(stem, summary, prof):
     print(json.dumps(summary))
 
 
+def _device_spans(ops, steps):
+    """The device spans of the log over `steps` traced steps: for each
+    span, calls, ms and self ms a step (the median over the log's
+    ``dycore.dt``s), ms a step of its ops by name (the top 15), of the
+    scatter-add and of the copies (``tracing.attribute`` over the
+    trace's device ops `ops`, start and end in us); and the offset from
+    the log's clock to the trace's, in ns (``tracing.align``)."""
+    spans = tracing.device_spans()
+    if not spans:
+        return {}
+    self_ms = tracing.per_step(spans=spans)
+    by_span = tracing.attribute(ops)
+    try:
+        offset = tracing.align(ops)
+    except ValueError:  # the profiler dropped a mark
+        offset = None
+    out = {"log_to_trace_ns": offset}
+    for name in tracing.SPANS + (tracing.OUTSIDE,):
+        ms = [s.ms for s in spans if s.name == name]
+        inside = by_span.get(name, {})
+        if not ms and not inside:
+            continue
+        out[name] = {
+            "calls": len(ms) / steps,
+            "ms": sum(ms) / steps,
+            "self_ms": (statistics.median(self_ms[name])
+                        if name in self_ms else None),
+            "indexing_backward_ms": sum(
+                v for k, v in inside.items()
+                if "indexing_backward" in k) * 1e3 / steps,
+            "copy_ms": sum(v for k, v in inside.items()
+                           if "copy" in k.lower()) * 1e3 / steps,
+            "top_ops_ms": sorted(
+                ([k[:120], v * 1e3 / steps] for k, v in inside.items()),
+                key=lambda r: -r[1])[:15],
+        }
+    return out
+
+
 def _kernels(prof, steps):
     """(device busy ms, device ops, {kernel: [calls, ms]}) a step of the
     traced steps: kernels and copies, not the device spans of labels (the
@@ -404,9 +438,8 @@ def main(argv=None):
                     help="the dense training loop of chip_smoke phase 14 "
                          "at the train CLI's defaults (C48)")
     ap.add_argument("--eager", action="store_true",
-                    help="the dycore dt or the coupled step eager, its "
-                         "stages labelled; the prognostic or nudged step "
-                         "with every unit eager")
+                    help="the dycore dt or the coupled step eager; the "
+                         "prognostic or nudged step with every unit eager")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     N = args.n
@@ -456,13 +489,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
-    module, names = ((sw, SW_STAGES) if args.sw and args.eager
-                     else (hydro, STAGES)
-                     if args.eager and not (args.prognostic or args.nudged
-                                            or args.sw)
-                     else (None, ()))
+    module, names = (sw, SW_STAGES) if args.sw and args.eager else (None, ())
     originals = {name: getattr(module, name) for name in names}
     traced_dts = 2
+    tracing.reset()
     try:
         for name, fn in originals.items():
             setattr(module, name, _labelled(name, fn))
@@ -499,6 +529,9 @@ def main(argv=None):
     # memcpy activities
     copies = [(c, ms) for k, (c, ms) in by_kernel.items()
               if "copy" in k.lower()]
+    ops = [(e.name, e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == cuda and not e.name.startswith("stage::")
+           and not getattr(e, "is_user_annotation", False)]
     summary = {
         "config": (f"C{N} shallow water (Williamson 2) dt={600.0 * 24 / N} "
                    f"hord=5 d2=0.12 f32" if args.sw else
@@ -539,6 +572,7 @@ def main(argv=None):
              for k, (c, host, span) in stages.items()),
             key=lambda r: -r[2],
         ),
+        "device_spans_per_dt": _device_spans(ops, traced_dts),
     }
     os.makedirs(args.out, exist_ok=True)
     stem = os.path.join(

@@ -1518,3 +1518,84 @@ def test_ppm_remap_unit_replays_k5(dev):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert unit.captures() == 2
     unit.graphed.captures.clear()
+
+
+def _c48_stepper(dev):
+    """The C48 x 63 dt of bench.py (hord 5, kord 9, one tracer)."""
+    from fv3net_tpu_torch.dycore import hydro
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+
+    run, _, _ = hydro.make_dycore_stepper(
+        CubedSphereGrid.make(48, halo=H), NZ, 900.0, device=dev)
+    return run, hydro.benchmark_state(48, NZ, 300.0, dev), torch.zeros(
+        (6, 48, 48), device=dev)
+
+
+def test_marked_replay_equals_eager_and_writes_54_marks(dev):
+    """A replayed C48 dt, its 54 marks captured in it, equals the eager dt
+    (which writes the same 54) bit for bit; each replay writes its own
+    54, which decode to one dycore.dt and its stages."""
+    from fv3net_tpu_torch import tracing
+
+    run, st, phis = _c48_stepper(dev)
+    tracing.reset()
+    eager = run.one_dt(st, phis)
+    assert len(tracing.entries()) == 54
+    replayed = run(st, phis, 1)  # warm-up, capture, one replay
+    _assert_states_equal(replayed, eager, "marked replay")
+    tracing.reset()
+    run(st, phis, 3)
+    ids = [i for i, _ in tracing.entries()]
+    assert len(ids) == 3 * 54 and ids[:54] == ids[54:108] == ids[108:]
+    names = [s.name for s in tracing.device_spans()]
+    assert names.count("dycore.dt") == 3
+    assert names.count("dycore.d_sw") == names.count("dycore.damping") == 18
+
+
+def test_stage_spans_tile_the_dt(dev):
+    """Over 20 replayed C48 dts, each timed by CUDA events: the stages'
+    and the dt's self times sum to the dt's span, and the span is within
+    2% of the event time (which adds the graph's copy-in and clone-out)."""
+    from fv3net_tpu_torch import tracing
+
+    run, st, phis = _c48_stepper(dev)
+    run(st, phis, 1)
+    torch.cuda.synchronize()
+    tracing.reset()
+    events = []
+    for _ in range(20):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        st = run(st, phis, 1)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    spans = [s for s in tracing.device_spans() if s.name == "dycore.dt"]
+    steps = tracing.per_step()
+    assert len(spans) == 20 and set(steps) == {
+        "dycore.dt", "dycore.c_sw", "dycore.d_sw", "dycore.riem_solver",
+        "dycore.damping", "dycore.tracer_2d", "dycore.remap"}
+    for k, (s, (a, b)) in enumerate(zip(spans, events)):
+        tiled = sum(v[k] for v in steps.values())
+        assert tiled == pytest.approx(s.ms, rel=1e-9)
+        assert s.ms == pytest.approx(a.elapsed_time(b), rel=0.02), k
+
+
+def test_replay_moves_exchange_counts(dev):
+    """A replay adds the exchanges' calls and bytes and the spans' calls
+    of one eager dt, on the card; the warm-up and the capture add none."""
+    from fv3net_tpu_torch import tracing
+
+    run, st, phis = _c12_stepper(dev)
+    snap = tracing.COUNTS.snapshot()
+    run.one_dt(st, phis)
+    eager = tracing.COUNTS.since(snap)
+    assert eager[("dycore.dt", "cuda")] == (1, 0)
+    assert eager[("halo_exchange", "cuda")][1] > 0
+    snap = tracing.COUNTS.snapshot()
+    run(st, phis, 1)
+    assert tracing.COUNTS.since(snap) == eager
+    snap = tracing.COUNTS.snapshot()
+    run(st, phis, 2)
+    assert tracing.COUNTS.since(snap) == {
+        k: (2 * c, 2 * b) for k, (c, b) in eager.items()}

@@ -317,10 +317,13 @@ def test_coupling_hot_path_stays_on_device(models):
     st = twrapper.get_state([names.TEMP, names.DELP])
     assert isinstance(st[names.DELP].data, torch.Tensor)
     assert isinstance(st[names.TEMP].data, torch.Tensor)
-    assert set(loop.log_timings()) == {
+    report = loop.log_timings()
+    assert {k for k in report if not k.startswith("host:")} == {
         "mainloop", "tracers", "dynamics", "prephysics", "physics",
         "postphysics",
     }
+    # beside them the process's host spans of set-up (the model's build)
+    assert {"host:setup.grid", "host:setup.metrics"} <= set(report)
 
 
 def test_simple_suite_physics_on_device(models):
