@@ -629,28 +629,50 @@ def _staggered_gather(kind: str, n: int, h: int, fill: str,
 
 
 @lru_cache(maxsize=None)
-def _boundary_gather(kind: str, n: int, device: torch.device,
+def _boundary_gather(kind: str, n: int, nz: int, device: torch.device,
                      dtype: torch.dtype):
-    """(face, pos, coef, mask) gather tensors over the stored arrays'
-    own shapes for the shared-boundary tables (canonicalisation of
-    C-faces, averaging of D-edges)."""
+    """Compact tables of the shared-boundary slots (canonicalisation of
+    C-faces, averaging of D-edges) of a stored pair a [6, nz, ra, ca],
+    b [6, nz, rb, cb], both flattened.
+
+    For each of a and b: (slot, from_a, from_b, coef), over its replaced
+    (canon) or paired (avg) slots at every level, those whose partner
+    lies in a first: `slot` the slots' flat positions in the array
+    itself, `from_a` / `from_b` their partners' flat positions in a /
+    in b, `coef` each slot's coefficient or sign.  12n (canon) or 24n
+    (avg) slots a level in all, and no two of them share a partner, so
+    the transpose of the gather scatters distinct entries."""
     if kind == "canon":
         ia, ca, ma, ib, cb, mb = _cgrid_boundary_canon_tables(n)
         shape = (n, n + 1, n + 1, n)
     else:
         ia, ca, ma, ib, cb, mb = _dgrid_boundary_pair_tables(n)
         shape = (n + 1, n, n, n + 1)
+    sa, sb = shape[0] * shape[1], shape[2] * shape[3]
+    level = np.arange(nz)
+
+    def flat(face, pos, size):
+        """[S] (face, pos) -> [S * nz] flat positions in [6, nz, size]."""
+        return ((face[:, None] * nz + level) * size + pos[:, None]).ravel()
+
+    def t(a, dt=torch.int64):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
     out = []
-    for idx, coef, mask in ((ia, ca, ma), (ib, cb, mb)):
-        face, pos = _decode_pool(idx.reshape(6, -1), *shape)
-        fi, pi = _index_tensors(face, pos, device)
-        cf = torch.as_tensor(
-            np.asarray(coef).reshape(6, 1, -1), dtype=dtype, device=device
-        )
-        mk = torch.as_tensor(
-            np.asarray(mask).reshape(6, 1, -1), device=device
-        )
-        out.append((fi, pi, cf, mk))
+    for idx, coef, mask, size in ((ia, ca, ma, sa), (ib, cb, mb, sb)):
+        face, pos = np.nonzero(np.asarray(mask).reshape(6, -1))
+        g, q = _decode_pool(np.asarray(idx).reshape(6, -1)[face, pos],
+                            *shape)
+        cf = np.asarray(coef).reshape(6, -1)[face, pos]
+        in_a = q < sa
+        order = np.concatenate([np.flatnonzero(in_a),
+                                np.flatnonzero(~in_a)])
+        out.append((
+            t(flat(face[order], pos[order], size)),
+            t(flat(g[in_a], q[in_a], sa)),
+            t(flat(g[~in_a], q[~in_a] - sa, sb)),
+            t(np.repeat(cf[order], nz), dtype),
+        ))
     return tuple(out)
 
 
@@ -795,12 +817,25 @@ def halo_exchange_cgrid(uc, vc, h: int, fill: str = "y"):
 
 
 def _boundary_partner(a, b, kind):
+    """The stored pair with its shared-boundary slots rewritten, as flat
+    fresh copies of a and b: a replaced slot takes partner * coef
+    (canon), a paired slot 0.5 * (own + partner * sign) (avg); every
+    other slot keeps its own value.  Only the 12n or 24n boundary slots
+    a level are gathered (``_boundary_gather``), so autograd's transpose
+    scatters one partner term onto each of as many distinct entries."""
     n = a.shape[-1] if kind == "avg" else a.shape[-2]
-    pool = _pool(a, b)
-    return [
-        (_gather(pool, fi, pi) * cf, mk)
-        for fi, pi, cf, mk in _boundary_gather(kind, n, a.device, a.dtype)
-    ]
+    nz = a[0].numel() // (a.shape[-2] * a.shape[-1])
+    af, bf = a.reshape(-1), b.reshape(-1)
+    outs = []
+    for own, (slot, from_a, from_b, cf) in zip(
+        (af, bf), _boundary_gather(kind, n, nz, a.device, a.dtype)
+    ):
+        p = torch.cat([af.index_select(0, from_a),
+                       bf.index_select(0, from_b)]) * cf
+        if kind == "avg":
+            p = 0.5 * (own.index_select(0, slot) + p)
+        outs.append(own.index_copy(0, slot, p))
+    return outs
 
 
 def canonicalize_cgrid_boundary(uc, vc):
@@ -819,11 +854,9 @@ def canonicalize_cgrid_boundary(uc, vc):
         from ..parallel import halo_spmd as _hs
 
         return _hs.canonicalize_cgrid_boundary_local(uc, vc, _SPMD.axis)
-    (pu, mu), (pv, mv) = _boundary_partner(uc, vc, "canon")
-    uo = torch.where(mu, pu, uc.reshape(pu.shape))
-    vo = torch.where(mv, pv, vc.reshape(pv.shape))
+    uo, vo = _boundary_partner(uc, vc, "canon")
     tracing.exchanged("canonicalize_cgrid_boundary", uo, vo)
-    return uo.reshape(uc.shape), vo.reshape(vc.shape)
+    return uo.view(uc.shape), vo.view(vc.shape)
 
 
 def average_dgrid_boundary(u, v):
@@ -839,13 +872,9 @@ def average_dgrid_boundary(u, v):
         from ..parallel import halo_spmd as _hs
 
         return _hs.average_dgrid_boundary_local(u, v, _SPMD.axis)
-    (pu, mu), (pv, mv) = _boundary_partner(u, v, "avg")
-    own_u = u.reshape(pu.shape)
-    own_v = v.reshape(pv.shape)
-    uo = torch.where(mu, 0.5 * (own_u + pu), own_u)
-    vo = torch.where(mv, 0.5 * (own_v + pv), own_v)
+    uo, vo = _boundary_partner(u, v, "avg")
     tracing.exchanged("average_dgrid_boundary", uo, vo)
-    return uo.reshape(u.shape), vo.reshape(v.shape)
+    return uo.view(u.shape), vo.view(v.shape)
 
 
 def extend_cells_one(field):

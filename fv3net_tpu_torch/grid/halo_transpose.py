@@ -25,6 +25,17 @@ D-grid cube corners) read nothing and contribute nothing.
 whose backward is that transpose and whose jvp is the exchange itself
 (it is linear), so ``torch.func.vjp`` takes the gathers and
 ``torch.func.jacfwd`` still works.
+
+The shared-boundary rewrites on the same path
+(``canonicalize_cgrid_boundary``, ``average_dgrid_boundary`` in
+``halo.py``) keep autograd's transpose and need no table here: they
+gather only the 12n or 24n boundary slots a level
+(``halo._boundary_gather``) and write them into a copy, so their
+backward is an ``index_fill`` of those slots and an ``index_add`` of one
+partner term onto each of as many distinct entries.
+A band-local transpose would not do for them: the canonicalisation routes
+each shared face to its owner, and a symmetrised transpose would break
+the dampers' dissipativity.
 """
 
 from __future__ import annotations

@@ -1599,3 +1599,54 @@ def test_replay_moves_exchange_counts(dev):
     run(st, phis, 2)
     assert tracing.COUNTS.since(snap) == {
         k: (2 * c, 2 * b) for k, (c, b) in eager.items()}
+
+
+def _c48_cell_stepper(dev, seed):
+    """The benchmark cell's C48 x 63 dt (hord 6, kord 10, ptop 64.247), from
+    bench.py's seeded state with seeded unit-normal winds besides, so that
+    the dampers and the boundary rewrites act."""
+    from fv3net_tpu_torch.dycore import hydro
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+
+    ptop = 64.247
+    run, _, _ = hydro.make_dycore_stepper(
+        CubedSphereGrid.make(48, halo=H), NZ, 900.0, hord=6, kord=10,
+        ptop=ptop, device=dev)
+    st = hydro.benchmark_state(48, NZ, ptop, dev, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = st._replace(
+        u=torch.randn(st.u.shape, generator=gen, device=dev),
+        v=torch.randn(st.v.shape, generator=gen, device=dev))
+    return run, st, torch.zeros((6, 48, 48), device=dev)
+
+
+def _scatter_ms_per_dt(run, st, phis, dts=3):
+    """Device ms a replayed dt of autograd's scatter-add
+    (``indexing_backward_kernel``), from a trace of `dts` replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(dts):
+            run(st, phis, 1)
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if "indexing_backward" in e.name) / 1e3 / dts
+
+
+def test_cell_dt_equals_the_full_pool_boundary_form(dev, monkeypatch):
+    """The replayed C48 dt with the boundary rewrites gathering only the
+    boundary slots equals, field by field and bit for bit, the dt built
+    and captured with the full-pool form (tests/test_torch_halo.py), and
+    leaves no scatter-add in the replay."""
+    from test_torch_halo import use_full_pool_form
+
+    run, st, phis = _c48_cell_stepper(dev, seed=20261018)
+    got = run(st, phis, 1)  # warm-up, capture, one replay
+    assert all(bool(torch.isfinite(x).all()) for x in got if x is not None)
+    assert _scatter_ms_per_dt(run, st, phis) <= 0.1
+    del run
+    use_full_pool_form(monkeypatch)
+    run_ref, _, _ = _c48_cell_stepper(dev, seed=20261018)
+    _assert_states_equal(got, run_ref(st, phis, 1), "full-pool form")
+    assert _scatter_ms_per_dt(run_ref, st, phis) > 1.0
