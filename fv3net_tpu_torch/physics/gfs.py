@@ -17,6 +17,10 @@ The default suite of the coupled step:
     6-category scheme of ``gfdl_mp.py`` (``microphysics_scheme="gfdl"``),
     with the four hydrometeors prognostic when ``mp_tracers`` is passed.
 
+Surface exchange with the PBL, deep with shallow convection, and the
+microphysics are the device spans ``physics.pbl``, ``physics.convection``
+and ``physics.microphysics`` (``tracing.span``; nothing on the CPU).
+
 Fields are [6, nz, n, n] (level 0 = top).  The JAX package's
 ``lax.scan`` recurrences over levels are Python loops over nz here, each
 step one [6, n, n] tensor operation.
@@ -38,6 +42,7 @@ from ..constants import (
     RVGAS,
 )
 from ..graphs import jit
+from ..tracing import span
 
 ZVIR = RVGAS / RDGAS - 1.0
 KARMAN = 0.4
@@ -409,66 +414,68 @@ def gfs_physics_step(
     lhf = torch.zeros(shape2d, **zeros2d)
     h_pbl = torch.zeros(shape2d, **zeros2d)
 
-    if cfg.do_surface or cfg.do_pbl:
-        cdm, cdh, ustar, qs_sfc, _ = surface_exchange(
-            t[:, -1], qv[:, -1], ua[:, -1], va[:, -1],
-            pe[:, -1], p[:, -1], z_mid[:, -1], tsfc, cfg,
-        )
-        rho_sfc = pe[:, -1] / (RDGAS * t[:, -1] * (1 + ZVIR * qv[:, -1]))
+    with span("physics.pbl", t):
+        if cfg.do_surface or cfg.do_pbl:
+            cdm, cdh, ustar, qs_sfc, _ = surface_exchange(
+                t[:, -1], qv[:, -1], ua[:, -1], va[:, -1],
+                pe[:, -1], p[:, -1], z_mid[:, -1], tsfc, cfg,
+            )
+            rho_sfc = pe[:, -1] / (RDGAS * t[:, -1] * (1 + ZVIR * qv[:, -1]))
 
-    if cfg.do_pbl:
-        th = t * (1.0e5 / p) ** (RDGAS / CP_AIR)
-        thv = th * (1.0 + ZVIR * qv)
-        h = pbl_height(thv, z_mid, ua, va, cfg)
-        h_pbl = h
-        z_if_int = z_mid[:, :-1] * 0.5 + z_mid[:, 1:] * 0.5
-        k_if = k_profile(z_if_int, h, ustar, cfg)
-        rho_if = 0.5 * (
-            p[:, :-1] / (RDGAS * t[:, :-1])
-            + p[:, 1:] / (RDGAS * t[:, 1:])
-        )
-        dz_if = 0.5 * (dz[:, :-1] + dz[:, 1:])
-        g_if = rho_if * k_if / dz_if
+        if cfg.do_pbl:
+            th = t * (1.0e5 / p) ** (RDGAS / CP_AIR)
+            thv = th * (1.0 + ZVIR * qv)
+            h = pbl_height(thv, z_mid, ua, va, cfg)
+            h_pbl = h
+            z_if_int = z_mid[:, :-1] * 0.5 + z_mid[:, 1:] * 0.5
+            k_if = k_profile(z_if_int, h, ustar, cfg)
+            rho_if = 0.5 * (
+                p[:, :-1] / (RDGAS * t[:, :-1])
+                + p[:, 1:] / (RDGAS * t[:, 1:])
+            )
+            dz_if = 0.5 * (dz[:, :-1] + dz[:, 1:])
+            g_if = rho_if * k_if / dz_if
 
-        if cfg.do_surface:
-            sfc_g_h = rho_sfc * cdh
-            sfc_g_m = rho_sfc * cdm
-        else:
-            sfc_g_h = sfc_g_m = torch.zeros(shape2d, **zeros2d)
+            if cfg.do_surface:
+                sfc_g_h = rho_sfc * cdh
+                sfc_g_m = rho_sfc * cdm
+            else:
+                sfc_g_h = sfc_g_m = torch.zeros(shape2d, **zeros2d)
 
-        # dry static energy (conserved under dry mixing)
-        s = CP_AIR * t + GRAV * z_mid
-        s_sfc = CP_AIR * tsfc
-        zero_sfc = torch.zeros(shape2d, **zeros2d)
-        s_new = diffuse_column(s, mass, g_if, dt, sfc_g_h, s_sfc)
-        qv_new = diffuse_column(qv, mass, g_if, dt, sfc_g_h, qs_sfc)
-        ua_new = diffuse_column(ua, mass, g_if, dt, sfc_g_m, zero_sfc)
-        va_new = diffuse_column(va, mass, g_if, dt, sfc_g_m, zero_sfc)
-        shf = sfc_g_h * (s_sfc - s_new[:, -1])
-        lhf = (
-            sfc_g_h * (qs_sfc - qv_new[:, -1])
-            * LATENT_HEAT_VAPORIZATION
-        )
-        t = (s_new - GRAV * z_mid) / CP_AIR
-        qv = qv_new
-        du_d, dv_d = _tendency_to_dgrid(ua_new - ua, va_new - va)
-        u_d = u_d + du_d
-        v_d = v_d + dv_d
+            # dry static energy (conserved under dry mixing)
+            s = CP_AIR * t + GRAV * z_mid
+            s_sfc = CP_AIR * tsfc
+            zero_sfc = torch.zeros(shape2d, **zeros2d)
+            s_new = diffuse_column(s, mass, g_if, dt, sfc_g_h, s_sfc)
+            qv_new = diffuse_column(qv, mass, g_if, dt, sfc_g_h, qs_sfc)
+            ua_new = diffuse_column(ua, mass, g_if, dt, sfc_g_m, zero_sfc)
+            va_new = diffuse_column(va, mass, g_if, dt, sfc_g_m, zero_sfc)
+            shf = sfc_g_h * (s_sfc - s_new[:, -1])
+            lhf = (
+                sfc_g_h * (qs_sfc - qv_new[:, -1])
+                * LATENT_HEAT_VAPORIZATION
+            )
+            t = (s_new - GRAV * z_mid) / CP_AIR
+            qv = qv_new
+            du_d, dv_d = _tendency_to_dgrid(ua_new - ua, va_new - va)
+            u_d = u_d + du_d
+            v_d = v_d + dv_d
 
     precip_conv = torch.zeros(shape2d, **zeros2d)
-    if cfg.do_convection:
-        if cfg.convection_scheme == "mass_flux":
-            from .convection import sas_mass_flux
+    with span("physics.convection", t):
+        if cfg.do_convection:
+            if cfg.convection_scheme == "mass_flux":
+                from .convection import sas_mass_flux
 
-            t, qv, precip_conv = sas_mass_flux(t, qv, p, pe, delp, dt)
-        else:
-            t, qv, precip_conv = betts_miller(t, qv, p, delp, dt, cfg)
+                t, qv, precip_conv = sas_mass_flux(t, qv, p, pe, delp, dt)
+            else:
+                t, qv, precip_conv = betts_miller(t, qv, p, delp, dt, cfg)
 
-    if cfg.do_shallow_convection:
-        from .gwd import shallow_convection
+        if cfg.do_shallow_convection:
+            from .gwd import shallow_convection
 
-        t, qv, sc_diags = shallow_convection(t, qv, p, delp, dt)
-        diags.update(sc_diags)
+            t, qv, sc_diags = shallow_convection(t, qv, p, delp, dt)
+            diags.update(sc_diags)
 
     if cfg.do_gwd and h_std is not None:
         from .gwd import gravity_wave_drag
@@ -484,49 +491,50 @@ def gfs_physics_step(
 
     precip_ls = torch.zeros(shape2d, **zeros2d)
     mp_out = None
-    if cfg.do_microphysics:
-        if cfg.microphysics_scheme == "gfdl":
-            from .gfdl_mp import gfdl_cloud_microphysics, liquid_fraction
+    with span("physics.microphysics", t):
+        if cfg.do_microphysics:
+            if cfg.microphysics_scheme == "gfdl":
+                from .gfdl_mp import gfdl_cloud_microphysics, liquid_fraction
 
-            if mp_tracers is not None:
-                # prognostic 6-species state: qc is cloud liquid, the
-                # hydrometeors persist (and advect) between steps
-                qi0, qr0, qs0, qg0 = mp_tracers
-                ql0 = qc
-            else:
-                # 2-tracer form: partition the combined condensate by
-                # temperature each step
-                fl = liquid_fraction(t)
-                ql0 = fl * qc
-                qi0 = (1.0 - fl) * qc
-                qr0 = qs0 = qg0 = torch.zeros_like(qc)
-            mp_state, mp_diags = gfdl_cloud_microphysics(
-                t, qv, ql0, qi0, qr0, qs0, qg0, p, delp, dz, dt,
-            )
-            t = mp_state["air_temperature"]
-            qv = mp_state["specific_humidity"]
-            if mp_tracers is not None:
-                qc = mp_state["cloud_water_mixing_ratio"]
-                mp_out = {k: mp_state[k] for k in MP_TRACER_NAMES}
-            else:
-                # fold all suspended condensate back into qc
-                # (water-conserving)
-                qc = (
-                    mp_state["cloud_water_mixing_ratio"]
-                    + mp_state["cloud_ice_mixing_ratio"]
-                    + mp_state["rain_mixing_ratio"]
-                    + mp_state["snow_mixing_ratio"]
-                    + mp_state["graupel_mixing_ratio"]
+                if mp_tracers is not None:
+                    # prognostic 6-species state: qc is cloud liquid, the
+                    # hydrometeors persist (and advect) between steps
+                    qi0, qr0, qs0, qg0 = mp_tracers
+                    ql0 = qc
+                else:
+                    # 2-tracer form: partition the combined condensate by
+                    # temperature each step
+                    fl = liquid_fraction(t)
+                    ql0 = fl * qc
+                    qi0 = (1.0 - fl) * qc
+                    qr0 = qs0 = qg0 = torch.zeros_like(qc)
+                mp_state, mp_diags = gfdl_cloud_microphysics(
+                    t, qv, ql0, qi0, qr0, qs0, qg0, p, delp, dz, dt,
                 )
-            diags.update({
-                k: mp_diags[k]
-                for k in ("rain_precipitation", "snow_precipitation",
-                          "graupel_precipitation")
-            })
-            precip_ls = mp_diags["total_precipitation_mp"]
-        else:
-            t, qv, qc = gscond(t, qv, qc, p, dt)
-            t, qv, qc, precip_ls = precpd(t, qv, qc, p, delp, dt, cfg)
+                t = mp_state["air_temperature"]
+                qv = mp_state["specific_humidity"]
+                if mp_tracers is not None:
+                    qc = mp_state["cloud_water_mixing_ratio"]
+                    mp_out = {k: mp_state[k] for k in MP_TRACER_NAMES}
+                else:
+                    # fold all suspended condensate back into qc
+                    # (water-conserving)
+                    qc = (
+                        mp_state["cloud_water_mixing_ratio"]
+                        + mp_state["cloud_ice_mixing_ratio"]
+                        + mp_state["rain_mixing_ratio"]
+                        + mp_state["snow_mixing_ratio"]
+                        + mp_state["graupel_mixing_ratio"]
+                    )
+                diags.update({
+                    k: mp_diags[k]
+                    for k in ("rain_precipitation", "snow_precipitation",
+                              "graupel_precipitation")
+                })
+                precip_ls = mp_diags["total_precipitation_mp"]
+            else:
+                t, qv, qc = gscond(t, qv, qc, p, dt)
+                t, qv, qc, precip_ls = precpd(t, qv, qc, p, delp, dt, cfg)
 
     state = {
         "air_temperature": t,

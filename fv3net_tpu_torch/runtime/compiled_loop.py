@@ -21,17 +21,25 @@ Per-substep semantics follow the reference's runtime/loop.py:
     MSE-conserving limiter -> add tendency -> mass-conserving set ->
     Monitor(python)
 
-The three stages are the device spans ``step.dynamics`` (around the
-dycore's own), ``step.physics`` and ``step.postphysics`` (with an ML
-model), in the step's graph too (``tracing.span``).
+The step is the device span ``step.coupled``; its three stages are
+``step.dynamics`` (around the dycore's own), ``step.physics`` (around
+``physics.radiation`` and the suite's ``physics.*``) and
+``step.postphysics`` (with an ML model, around ``postphysics.ml``, the
+model's ``pure_fn``), in the step's graph too (``tracing.span``).
 
 Host work per step is the cos-zenith-angle field (numpy, copied to the
-device once per step), the solar constant (a 0-d device tensor, so that
-a replayed graph reads each step's value) and the datetime advance.
+device once per step; on a CUDA model through pinned buffers taken in
+turn, so that the copy does not wait for the steps in flight), the
+solar constant (a 0-d device tensor, so that
+a replayed graph reads each step's value) and the datetime advance:
+the host spans ``loop.astronomy`` (the zenith angle and ``radupdate``)
+and ``loop.upload`` (the copies to the device, whose bytes
+``tracing.COUNTS`` tallies as ``loop.h2d``).
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 from typing import Mapping, Optional
 
@@ -40,7 +48,7 @@ import torch
 
 from ..constants import GRAV
 from ..graphs import Graphed, eager as all_eager
-from ..tracing import span
+from ..tracing import COUNTS, host_span, span
 from ..util.quantity import Quantity
 from ..utils.zenith import cos_zenith_angle
 from . import names
@@ -161,14 +169,16 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         temp = temperature(st)
         qv, qc = st.q[0], st.q[1]
         if rad is not None:
-            out = rad._core(
-                cosz, layer_pressure(st.delp), st.delp, temp, qv, tsfc,
-                solcon,
-            )
-            heating = (
-                out["shortwave_heating_rate"] + out["longwave_heating_rate"]
-            )
-            temp = temp + heating * dt
+            with span("physics.radiation", temp):
+                out = rad._core(
+                    cosz, layer_pressure(st.delp), st.delp, temp, qv, tsfc,
+                    solcon,
+                )
+                heating = (
+                    out["shortwave_heating_rate"]
+                    + out["longwave_heating_rate"]
+                )
+                temp = temp + heating * dt
             diags.update(out)
         t_b, q_b = temp, qv
         extra = []  # prognostic hydrometeors beyond (qv, qc)
@@ -236,7 +246,8 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         diags = {}
         temp = temperature(st)
         qv, qc = st.q[0], st.q[1]
-        preds = ml_model.pure_fn(ml_params, _ml_inputs(st, temp, qv))
+        with span("postphysics.ml", temp):
+            preds = ml_model.pure_fn(ml_params, _ml_inputs(st, temp, qv))
         tend = {}
         for k in APPLIED_TENDENCIES:
             if k not in preds:
@@ -263,11 +274,12 @@ def build_compiled_step(mdl, ml_model=None, split: bool = False):
         return st, diags
 
     def full_step(state, phis, tsfc, total_precip, cosz, solcon):
-        st, d1 = stage_dynamics(state, phis)
-        st, total_precip, precip_rate, d2 = stage_physics(
-            st, tsfc, total_precip, cosz, solcon
-        )
-        st, d3 = stage_postphysics(st)
+        with span("step.coupled", state.delp):
+            st, d1 = stage_dynamics(state, phis)
+            st, total_precip, precip_rate, d2 = stage_physics(
+                st, tsfc, total_precip, cosz, solcon
+            )
+            st, d3 = stage_postphysics(st)
         return st, total_precip, precip_rate, {**d1, **d2, **d3}
 
     stages = eager_stages = {
@@ -342,10 +354,50 @@ class CompiledTimeLoop:
         # constant surface fields staged to the device once: per-step
         # host work stays O(astronomy)
         self._tsfc = self._on_device(self.mdl.tsfc)
+        self._ring = {}  # shape -> pinned staging buffers (``_upload``)
         self.timer = Timer()
 
     def _on_device(self, a):
         return torch.as_tensor(a, dtype=self.mdl.dtype, device=self.mdl.device)
+
+    # pinned host buffers a CUDA model's uploads take turns over: more
+    # than the steps a caller keeps in flight, so the wait before reusing
+    # one is for a copy long done
+    STAGING = 4
+
+    def _upload(self, a):
+        """``_on_device`` in a step: the bytes of a host array copied to
+        the device are tallied as ``loop.h2d``.  On a CUDA model a host
+        array goes through a pinned staging buffer and a ``non_blocking``
+        copy: a copy from pageable memory waits for the stream, which
+        would drain the steps in flight every step."""
+        if isinstance(a, torch.Tensor):
+            return self._on_device(a)
+        if self.mdl.device.type != "cuda":
+            out = self._on_device(a)
+        else:
+            host = torch.as_tensor(a, dtype=self.mdl.dtype)
+            buf, copied = self._staging(host.shape)
+            copied.synchronize()
+            buf.copy_(host)
+            out = torch.empty(host.shape, dtype=host.dtype,
+                              device=self.mdl.device)
+            out.copy_(buf, non_blocking=True)
+            copied.record()
+        COUNTS.add("loop.h2d", out.device.type,
+                   out.numel() * out.element_size())
+        return out
+
+    def _staging(self, shape):
+        """The next (pinned buffer, event after its last copy) of
+        `shape`."""
+        ring = self._ring.get(shape)
+        if ring is None:
+            ring = self._ring[shape] = collections.deque(
+                (torch.empty(shape, dtype=self.mdl.dtype, pin_memory=True),
+                 torch.cuda.Event()) for _ in range(self.STAGING))
+        ring.rotate(-1)
+        return ring[-1]
 
     def _astronomy(self):
         """Solar inputs at the END time of the step: the eager loop
@@ -353,19 +405,23 @@ class CompiledTimeLoop:
         time + dt_atmos.  (cosz, solcon) on the model's device, solcon
         a 0-d tensor of the state's dtype."""
         mdl = self.mdl
-        t_rad = mdl.time + datetime.timedelta(seconds=mdl.config.dt_atmos)
-        if mdl._radiation is not None:
-            mdl._radiation.radupdate(t_rad)
-            solcon = float(mdl._radiation._solcon)
-        else:
-            solcon = 0.0
-        cosz = np.maximum(
-            cos_zenith_angle(t_rad, np.rad2deg(mdl.lon), np.rad2deg(mdl.lat)),
-            0.0,
-        )
-        return self._on_device(cosz), torch.full(
-            (), solcon, dtype=mdl.dtype, device=mdl.device
-        )
+        with host_span("loop.astronomy"):
+            t_rad = mdl.time + datetime.timedelta(
+                seconds=mdl.config.dt_atmos)
+            if mdl._radiation is not None:
+                mdl._radiation.radupdate(t_rad)
+                solcon = float(mdl._radiation._solcon)
+            else:
+                solcon = 0.0
+            cosz = np.maximum(
+                cos_zenith_angle(t_rad, np.rad2deg(mdl.lon),
+                                 np.rad2deg(mdl.lat)),
+                0.0,
+            )
+        with host_span("loop.upload"):
+            return self._upload(cosz), torch.full(
+                (), solcon, dtype=mdl.dtype, device=mdl.device
+            )
 
     def step(self) -> Mapping[str, Quantity]:
         """Advance one dt_atmos; returns the diagnostics mapping."""
@@ -374,7 +430,7 @@ class CompiledTimeLoop:
         with self.timer.clock("mainloop"):
             st, total_precip, precip_rate, diags = self._step_fn(
                 mdl.state, mdl.phis, self._tsfc,
-                self._on_device(mdl.total_precip), cosz, solcon,
+                self._upload(mdl.total_precip), cosz, solcon,
             )
         mdl.state = st
         mdl.total_precip = total_precip

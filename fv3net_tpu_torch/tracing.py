@@ -24,7 +24,10 @@ replay, so no host clock can enclose its stages.  Three parts:
   log exists raises.  It holds ``CAPACITY`` entries, overwritten
   oldest first.  ``device_spans()`` synchronises once, reads and
   decodes it; ``per_step()`` gives each span's self time (its duration
-  less its children's) in every ``dycore.dt``; ``dropped()`` counts the
+  less its children's) in every ``dycore.dt`` (or in every
+  ``step.coupled``, the coupled step of ``runtime/compiled_loop.py``,
+  whose stages hold the dt, gray radiation, the suite's PBL, convection
+  and microphysics, and the ML corrector); ``dropped()`` counts the
   entries a wrapped log lost; ``reset()`` empties it.
 * **The device trace's clock.**  The marks are device ops, so a
   ``torch.profiler`` trace holds them at their own time:
@@ -36,12 +39,15 @@ replay, so no host clock can enclose its stages.  Three parts:
   process-wide ``HOST`` timer (``Timer``; ``runtime.timing`` reports it
   under ``host:<name>``): the set-up's phases (``setup.grid``,
   ``setup.metrics``, ``setup.kernels``, ``graphs.warmup``,
-  ``graphs.capture``).  ``COUNTS`` tallies calls and bytes by name and
-  device type: the single-process exchanges of ``grid/halo.py``
-  (``EXCHANGES``) and the ``STEP`` spans that fired, the dts the bytes
-  are divided by.  A capture records what its body added and each
-  replay adds it again (``recorded``, as ``ops._build.COUNTED``'s
-  launches), so the tally costs nothing at replay.
+  ``graphs.capture``) and the coupled loop's host work a step
+  (``loop.astronomy``, ``loop.upload``).  ``COUNTS`` tallies calls and
+  bytes by name and device type: the single-process exchanges of
+  ``grid/halo.py`` (``EXCHANGES``), the ``STEP`` spans that fired, the
+  dts the bytes are divided by, and the bytes the coupled loop copies
+  from the host to the device a step (``loop.h2d``).  A capture records
+  what its body added and each replay adds it again (``recorded``, as
+  ``ops._build.COUNTED``'s launches), so the tally costs nothing at
+  replay.
 """
 
 from __future__ import annotations
@@ -63,11 +69,14 @@ SPANS = (
     "dycore.dt", "dycore.c_sw", "dycore.d_sw", "dycore.riem_solver",
     "dycore.damping", "dycore.tracer_2d", "dycore.remap",
     "step.dynamics", "step.physics", "step.postphysics",
+    "step.coupled", "physics.radiation", "physics.pbl",
+    "physics.convection", "physics.microphysics", "postphysics.ml",
 )
 _INDEX = {name: i for i, name in enumerate(SPANS)}
 # the span of one dycore dt: the steps of per_step, counted in COUNTS
 STEP = "dycore.dt"
 # log entries, (id, ns) of 16 bytes each: 1 MiB, ~1200 dts of 54 marks
+# or ~900 coupled steps of 72
 CAPACITY = 65536
 # the writer of one mark by device type, (log, mark id) -> None: spans
 # fire on tensors of these types only (ops._build gives the card's)

@@ -188,6 +188,10 @@ class ModelConfig:
     do_radiation: bool = True  # gray radiation inside the gfs suite
     # "zhao_carr" | "gfdl" (GFSPhysicsConfig.microphysics_scheme)
     microphysics_scheme: str = "zhao_carr"
+    # "betts_miller" | "mass_flux" (GFSPhysicsConfig.convection_scheme;
+    # the JAX package's ModelConfig has no such field and always runs
+    # Betts-Miller)
+    convection_scheme: str = "betts_miller"
     # carry ice/rain/snow/graupel as advected dycore tracers (the
     # reference's in-dycore GFDL MP over the full tracer set)
     prognostic_mp_tracers: bool = False
@@ -398,7 +402,8 @@ class _Model:
             from .physics.gfs import GFSPhysicsConfig
 
             self.gfs_config = GFSPhysicsConfig(
-                microphysics_scheme=self.config.microphysics_scheme
+                microphysics_scheme=self.config.microphysics_scheme,
+                convection_scheme=self.config.convection_scheme,
             )
             if self.config.do_radiation:
                 from .physics.radiation import RadiationDriver

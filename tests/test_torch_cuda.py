@@ -1380,6 +1380,52 @@ def test_compiled_loop_replays_and_keeps_diagnostics(dev, tmp_path):
         assert torch.equal(q.data, kept[k]), k
 
 
+def test_compiled_loop_upload_waits_for_no_step(dev, tmp_path):
+    """The loop copies cos zenith to the card from a pinned buffer without
+    waiting for the stream (a copy from pageable memory waits, draining
+    the steps in flight each step): an upload issued behind a long device
+    op returns while the op runs; and three replayed steps equal, bit for
+    bit, three whose cos zenith is copied from pageable memory."""
+    from fv3net_tpu_torch import fit
+    from fv3net_tpu_torch.runtime import compiled_loop, coupled_bench
+
+    wrapper = _init_cuda(dev, physics_suite="gfs", do_radiation=True,
+                         hydrostatic=False)
+    _moist_state(wrapper, seed=5)
+    mdl = wrapper.get_model()
+    model = fit.load(coupled_bench.train_dense_artifact(
+        str(tmp_path / "dense"), NZ, dev))
+    loop = compiled_loop.CompiledTimeLoop(wrapper, ml_model=model)
+    start = (type(mdl.state)(*(None if x is None else x.clone()
+                               for x in mdl.state)),
+             mdl.total_precip.clone(), mdl.time)
+    loop.step()  # warm-up and capture
+    torch.cuda.synchronize()
+
+    host = np.random.RandomState(0).rand(6, n, n)
+    torch.cuda._sleep(1 << 30)
+    got = loop._upload(host)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert torch.equal(got, loop._on_device(host))
+
+    def three_steps():
+        st, tp, t = start
+        mdl.state = type(st)(*(None if x is None else x.clone() for x in st))
+        mdl.total_precip, mdl.time = tp.clone(), t
+        for _ in range(3):
+            loop.step()
+        torch.cuda.synchronize()
+        return {k: x.clone() for k, x in mdl.state._asdict().items()
+                if x is not None}
+
+    pinned = three_steps()
+    loop._upload = loop._on_device  # the pageable copy
+    pageable = three_steps()
+    for k, x in pinned.items():
+        assert torch.equal(x, pageable[k]), k
+
+
 # --- the last jitted entry points: the local mesh, the SW run, ppm_remap ---
 
 # a shard's launches in one dt of the face mesh (chip_smoke's

@@ -21,7 +21,13 @@ for the CPU (in ``tracing.WRITERS``) appends what the kernel appends,
   that records its body's counts once and adds them at each replay);
 - ``host_span`` feeds ``tracing.HOST`` (the grid and metrics builds
   too), and ``timing_report`` reports the host spans and the log's
-  device spans, without totals where the log wrapped.
+  device spans, without totals where the log wrapped;
+- the coupled step's spans: the names before them keep their mark ids,
+  they do nothing on CPU tensors without a writer, and one C12 coupled
+  step (SAS, prognostic GFDL, gray radiation, a dense corrector) writes
+  72 marks nested as the step nests them, whose self times tile
+  ``step.coupled``, with the loop's host spans and its ``loop.h2d``
+  bytes; on the card (``-m cuda``) the same of replayed steps.
 
 The card's marks themselves: tests/test_torch_cuda.py.
 """
@@ -403,3 +409,131 @@ def test_timing_report_of_a_wrapped_log(marks, monkeypatch):
     assert tracing.dropped() == 0
     _dts(1)
     assert timing_report(tracing.Timer())["device:dycore.dt"]["count"] == 1
+
+
+# --- the coupled step --------------------------------------------------------
+
+# the names before the coupled step's: their mark ids are 2i and 2i + 1
+OLD_SPANS = (
+    "dycore.dt", "dycore.c_sw", "dycore.d_sw", "dycore.riem_solver",
+    "dycore.damping", "dycore.tracer_2d", "dycore.remap",
+    "step.dynamics", "step.physics", "step.postphysics",
+)
+COUPLED_SPANS = ("step.coupled", "physics.radiation", "physics.pbl",
+                 "physics.convection", "physics.microphysics",
+                 "postphysics.ml")
+# one coupled step: 54 marks of the dt and 18 of the coupled spans
+COUPLED_MARKS = 72
+
+
+def test_old_span_names_keep_their_mark_ids():
+    assert tracing.SPANS[:len(OLD_SPANS)] == OLD_SPANS
+    assert tracing.SPANS[len(OLD_SPANS):] == COUPLED_SPANS
+
+
+def test_coupled_spans_do_nothing_on_cpu_tensors(monkeypatch):
+    monkeypatch.setattr(tracing, "_log", None)
+    monkeypatch.delitem(tracing.WRITERS, "cpu", raising=False)
+    x = torch.zeros(3)
+    for name in COUPLED_SPANS:
+        with tracing.span(name, x):
+            pass
+    assert tracing._log is None and tracing.entries() == []
+
+
+def _coupled_loop(device, nz, tmp_path):
+    """A CompiledTimeLoop of the coupled configuration (GFS suite with SAS
+    and prognostic GFDL microphysics, gray radiation, nonhydrostatic) at
+    C12 x nz in float32 with a small dense corrector, from a moist state
+    in which the suite's convection fires."""
+    from fv3net_tpu_torch import fit, wrapper
+    from fv3net_tpu_torch.runtime.compiled_loop import CompiledTimeLoop
+    from fv3net_tpu_torch.runtime.coupled_bench import train_dense_artifact
+
+    path = train_dense_artifact(str(tmp_path), nz, device, depth=1,
+                                width=8)
+    wrapper.initialize(wrapper.ModelConfig(
+        npx=n + 1, npz=nz, physics_suite="gfs", microphysics_scheme="gfdl",
+        prognostic_mp_tracers=True, convection_scheme="mass_flux",
+        do_radiation=True, hydrostatic=False, hord=6, kord=10,
+        ptop=64.247), device=device)
+    mdl = wrapper.get_model()
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    q = mdl.state.q.clone()
+    q[0] = 5e-3 * (1.0 + torch.rand(q[0].shape, generator=gen)).to(device)
+    mdl.state = mdl.state._replace(
+        pt=mdl.state.pt + torch.randn(mdl.state.pt.shape,
+                                      generator=gen).to(device), q=q)
+    return CompiledTimeLoop(wrapper, fit.load(path, device)), mdl
+
+
+def _assert_coupled_spans(spans):
+    """One coupled step's spans, in order of their begin, nested as the
+    step nests them."""
+    names = [s.name for s in spans]
+    assert names.count("step.coupled") == 1 and names[0] == "step.coupled"
+    top = [s.name for s in spans if s.parent == 0]
+    assert top == ["step.dynamics", "step.physics", "step.postphysics"]
+    for stage, inner in (
+            ("step.dynamics", ["dycore.dt"]),
+            ("step.physics", ["physics.radiation", "physics.pbl",
+                              "physics.convection",
+                              "physics.microphysics"]),
+            ("step.postphysics", ["postphysics.ml"])):
+        i = names.index(stage)
+        assert [s.name for s in spans if s.parent == i] == inner
+    assert names.count("dycore.d_sw") == 6
+
+
+def test_coupled_step_writes_its_spans(marks, monkeypatch, tmp_path):
+    loop, mdl = _coupled_loop("cpu", NZ, tmp_path)
+    monkeypatch.setattr(tracing, "HOST", tracing.Timer())
+    before = tracing.COUNTS.snapshot()
+    loop.step()
+    assert len(tracing.entries()) == COUPLED_MARKS
+    spans = tracing.device_spans("step.coupled")
+    _assert_coupled_spans(spans)
+    steps = tracing.per_step("step.coupled")
+    assert all(len(v) == 1 for v in steps.values())
+    assert sum(v[0] for v in steps.values()) == pytest.approx(
+        spans[0].ms, rel=1e-12)
+    # the loop's host work: one sample of each span, and the cos-zenith
+    # field's bytes (the accumulated precipitation lives on the device)
+    assert {k: len(v) for k, v in tracing.HOST.times.items()} == {
+        "loop.astronomy": 1, "loop.upload": 1}
+    added = tracing.COUNTS.since(before)
+    assert added[("loop.h2d", "cpu")] == (1, 6 * n * n * 4)
+    assert added[("dycore.dt", "cpu")] == (1, 0)
+
+
+@pytest.mark.cuda
+def test_replayed_coupled_step_writes_its_spans(tmp_path):
+    """On the card: replayed coupled C12x63 steps write 72 marks each,
+    nested as the step nests them; the stages' and the step's self times
+    sum to the step's span within 0.5%; the tally counts the cos-zenith
+    upload of every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    loop, mdl = _coupled_loop(torch.device("cuda"), 63, tmp_path)
+    loop.step()  # warm-up, capture, one replay
+    torch.cuda.synchronize()
+    tracing.reset()
+    before = tracing.COUNTS.snapshot()
+    for _ in range(3):
+        loop.step()
+    ids = [i for i, _ in tracing.entries()]
+    assert len(ids) == 3 * COUPLED_MARKS
+    assert ids[:COUPLED_MARKS] == ids[COUPLED_MARKS:2 * COUPLED_MARKS]
+    spans = tracing.device_spans("step.coupled")
+    starts = [k for k, s in enumerate(spans) if s.name == "step.coupled"]
+    assert len(starts) == 3
+    first = spans[:starts[1]]
+    _assert_coupled_spans(first)
+    steps = tracing.per_step("step.coupled")
+    outer = [s.ms for s in spans if s.name == "step.coupled"]
+    for k in range(3):
+        assert sum(v[k] for v in steps.values()) == pytest.approx(
+            outer[k], rel=5e-3)
+    added = tracing.COUNTS.since(before)
+    assert added[("loop.h2d", "cuda")] == (3, 3 * 6 * n * n * 4)
+    assert torch.isfinite(mdl.state.pt).all()
