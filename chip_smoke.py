@@ -33,6 +33,10 @@ Phases (any failure raises and the script exits non-zero):
      and on one face against its plain version; K1, K2, K4 and K5 at the
      shard shapes of phases 24-25 (one face [1, 63, ...] of C48, three
      faces' 24 x 24 tiles [3, 63, ...]) against their plain versions;
+     the fused C-grid half-stage (ops/cuda_c_sw.py, one count and three
+     launches a call) against its torch chain at C12, C48 and C192 (uc
+     and vc within C_SW_RTOL of the chain's largest value), timed as
+     the kernels are;
   4. slice parity: one dt at C12 x 63 f32 on CUDA (kernels) against the
      same dt on the CPU (plain torch) in f32 and float64, every state
      field (see F32_FACTOR), with the fused transport off and on;
@@ -385,8 +389,10 @@ graphs: the wrappers' launch counters move by the launches each replay
 makes.
 Launch counts are read per path: K7/K8 on the probe path, K1-K5 on the
 C48 main path, on the coupled C48 path and on the nudged, ML-corrected,
-emulated and series paths, K6 on the C192 and C384 paths, K1, K3, K4 and K5 on the
-prognostic path, K5 on the C384 -> C48 coarsening path, K1 and K3 on the
+emulated and series paths, K6 on the C192 and C384 paths, K1, K3 and K5 on the
+prognostic path, the fused C-grid half-stage ("c_sw_half") on every
+single-process dycore path (none on the meshes, whose half-stage is its
+torch chain, with K4), K5 on the C384 -> C48 coarsening path, K1 and K3 on the
 shallow-water path (a step at C48 and at C192, "sw"), K1-K5 in every rank
 or shard of the multi-rank paths ("spmd face C48", "spmd tiled C48",
 "local face C48", "local tiled C48": a rank's or a shard's launches a
@@ -429,7 +435,13 @@ from fv3net_tpu_torch.emulation import gscond
 from fv3net_tpu_torch.grid import CubedSphereGrid, halo_exchange
 from fv3net_tpu_torch.grid import halo as halo_mod
 from fv3net_tpu_torch.kernel_times import _halo_padded
-from fv3net_tpu_torch.ops import _build, advection, cuda_column, remap
+from fv3net_tpu_torch.ops import (
+    _build,
+    advection,
+    cuda_c_sw,
+    cuda_column,
+    remap,
+)
 from fv3net_tpu_torch.ops.cuda_filter import (
     del4_filter_cuda,
     del4_filter_pair_cuda,
@@ -467,19 +479,23 @@ META = {
                      "tools/probe_pallas.py:13"),
     "probe_stencil": ("fv3net_tpu_torch/csrc/probe.cu",
                       "tools/probe_pallas.py:34"),
+    "c_sw_half": ("fv3net_tpu_torch/csrc/c_sw.cu",
+                  "none: the torch chain of "
+                  "fv3net_tpu_torch/dycore/hydro.py::_c_sw_half_chain"),
 }
 if _build.COUNTED.keys() != META.keys():
     raise SystemExit(f"kernel wrappers {sorted(_build.COUNTED)} against "
                      f"the sources named here {sorted(META)}")
 WRAPPERS = {k: _build.COUNTED[k] for k in META}
 # launches per dt on the C48 main path (fused transport off): 5 transports
-# x 6 substeps + 1 tracer, 1 vertical solve, 4 filters and 2 column chains
-# per substep, and 6 remaps (pt, u, v, w, delz via sv, the tracer stack)
+# x 6 substeps + 1 tracer, 1 vertical solve, 4 filters, 1 column chain
+# and 1 fused C-grid half-stage (its own column chain folded in) per
+# substep, and 6 remaps (pt, u, v, w, delz via sv, the tracer stack)
 LAUNCHES_PER_DT = {
     "fv_tp_2d": 31, "sim1_solver": 6, "del4_filter": 24,
     "del4_filter_pair": 0,
-    "column_pressures": 12, "ppm_remap": 6, "fv_tp_2d_multi5": 0,
-    "probe_affine": 0, "probe_stencil": 0,
+    "column_pressures": 6, "ppm_remap": 6, "fv_tp_2d_multi5": 0,
+    "probe_affine": 0, "probe_stencil": 0, "c_sw_half": 6,
 }
 # ... on the C192 path (fused transport on): the five substep transports
 # are one fused launch, K1 runs only for the tracer
@@ -487,13 +503,15 @@ LAUNCHES_PER_DT_FUSED = dict(LAUNCHES_PER_DT, fv_tp_2d=1, fv_tp_2d_multi5=6)
 # kernels that run on the n x n interior (the others on the padded lattice)
 INTERIOR = ("sim1_solver", "ppm_remap")
 # each wrapper's device function, by the name a profiler trace gives it
-# (csrc/*.cu); K6's call launches two (transport3, then transport2)
+# (csrc/*.cu); K6's call launches two (transport3, then transport2); the
+# C-grid half-stage's call launches three, each counted and timed
 TRACE_NAMES = {
     "fv_tp_2d": "tp2d<", "sim1_solver": "sim1_kernel",
     "del4_filter": "del4<false>", "del4_filter_pair": "del4<true>",
     "column_pressures": "column_kernel", "ppm_remap": "remap_kernel",
     "fv_tp_2d_multi5": "transport3<", "probe_affine": "affine_kernel",
     "probe_stencil": "stencil_kernel",
+    "c_sw_half": ("csw_cwinds", "csw_half_columns", "csw_wind_update"),
 }
 # eager and replayed dts (and coupled steps) timed in turns at C48: the C48
 # steps spread 15-75% between dts on a shared host (PERF.md section 2)
@@ -546,13 +564,13 @@ LAUNCHES_COUPLED = dict(LAUNCHES_PER_DT, fv_tp_2d=32)
 COUPLED_HELD_STEPS = 3  # replayed coupled steps held against eager ones
 # ... on the prognostic path (hydrostatic, two tracers): per dt three
 # transports a substep (delp, pt, vorticity) and one a tracer, two
-# filters a substep, one column chain a substep (the C-grid half-stage;
-# the substep core keeps the plain chain, which gives the interface
-# Exner function) and four remaps (pt, u, v, the tracer stack); no
-# vertical solve or fused transport
+# filters a substep, the fused C-grid half-stage a substep (the substep
+# core keeps the plain column chain, which gives the interface Exner
+# function) and four remaps (pt, u, v, the tracer stack); no vertical
+# solve, K4 or fused transport
 LAUNCHES_PROGNOSTIC = dict(
     LAUNCHES_PER_DT, fv_tp_2d=20, sim1_solver=0, del4_filter=12,
-    column_pressures=6, ppm_remap=4,
+    column_pressures=0, ppm_remap=4,
 )
 # ... and with one tracer (phase 10's hydrostatic dt)
 LAUNCHES_HYDRO_1TR = dict(LAUNCHES_PROGNOSTIC, fv_tp_2d=19)
@@ -622,6 +640,16 @@ OPS_COLUMN_LEVEL = 12  # prefix sum, pow and log at the interface, pi, pm
 OPS_REMAP_LEVEL = 74  # edge spline sweeps (14) and limiter walk (60)
 OPS_REMAP_PAIR = 27  # one overlapping (source, target) layer pair
 OPS_REMAP_TARGET = 8  # constant extensions and the division
+# the fused C-grid half-stage, a cell level: the two own C winds (14), the
+# upwind half step of delp and pt and the cell KE (45), the column chain
+# (19) and the two wind updates with the cell's vorticity (46)
+OPS_C_SW_CELL = 124
+# fused C-grid half-stage against its torch chain: max|fused - chain| <=
+# C_SW_RTOL * max|chain| for uc and vc (the same float32 operations in
+# the same order, bit for bit with torch 2.11's kernels; room for a torch
+# build that rounds a scalar division otherwise, which the geopotential
+# carries to the winds as a few 1e-6 of their magnitude)
+C_SW_RTOL = 1e-5
 
 
 def say(*args):
@@ -1253,6 +1281,45 @@ def check_shards(rng, dev):
             f"plain versions' tolerances")
 
 
+def check_c_sw(rng, n, dev, stats):
+    """The fused C-grid half-stage against its torch chain, both on the
+    card, from the benchmark state with seeded winds of ~10 m/s and
+    seeded terrain (phis), at C<n> x 63: uc and vc within C_SW_RTOL of
+    the chain's largest value on every slot."""
+    from fv3net_tpu_torch.dycore import hydro
+
+    m = sw.SWMetrics.make(CubedSphereGrid.make(n, halo=H), device=dev)
+    st = benchmark_state(n, NZ, PTOP, dev, seed=n)
+
+    def t(*shape, scale):
+        return torch.as_tensor(
+            (scale * rng.randn(*shape)).astype(np.float32), device=dev)
+
+    st = st._replace(u=t(*st.u.shape, scale=10.0),
+                     v=t(*st.v.shape, scale=10.0))
+    phis = torch.as_tensor((2e4 * rng.rand(6, n, n)).astype(np.float32),
+                           device=dev)
+    exch = hydro._exchanges(st, H)
+    dt2 = 0.5 * DT_ATMOS / 6
+
+    def fused():
+        return cuda_c_sw.c_sw_half_cuda(m, dt2, PTOP, phis, *exch)
+
+    def chain():
+        return hydro._c_sw_half_chain(st, m, dt2, PTOP, phis, *exch)
+
+    got, want = fused(), chain()
+    errs = [check_close(f"c_sw_half n={n} {name}", g, w, 0.0,
+                        C_SW_RTOL * float(w.abs().max()))
+            for name, g, w in zip(("uc", "vc"), got, want)]
+    say(f"c_sw_half n={n}: max|fused - chain| uc {errs[0]:.3e}, vc "
+        f"{errs[1]:.3e} (of max {float(want[0].abs().max()):.3e}, "
+        f"{float(want[1].abs().max()):.3e})")
+    ins = list(exch) + [phis] + [getattr(m, k) for k, _ in cuda_c_sw.METRICS]
+    record(stats, "c_sw_half", n + 2 * H, max(errs), fused, chain, ins,
+           got, OPS_C_SW_CELL * st.delp.numel())
+
+
 def phase_kernels():
     rng = np.random.RandomState(0)
     stats = {}
@@ -1264,6 +1331,7 @@ def phase_kernels():
         check_column(rng, N, "cuda", stats)
         check_remap(rng, n, "cuda", stats)
         check_multi5(rng, N, "cuda", stats)
+        check_c_sw(rng, n, "cuda", stats)
         torch.cuda.empty_cache()
     check_shards(np.random.RandomState(1), "cuda")
     return stats
@@ -1604,9 +1672,10 @@ def ab_ms(tag, eager, replay, s0, n):
 
 def trace_replay(tag, step, expected, union=False):
     """One replayed step under torch.profiler: each kernel's device
-    launches, found by its device function's name (TRACE_NAMES), must be
-    the wrappers' counts `expected`; returns (device busy ms, {kernel:
-    (launches, device ms)}).  Busy is the sum of the device ops' times,
+    launches, found by its device functions' names (TRACE_NAMES), must be
+    the wrappers' counts `expected`, each of a call's device functions
+    as many times; returns (device busy ms, {kernel: (launches, device
+    ms of all its device functions)}).  Busy is the sum of the device ops' times,
     or with `union` the time covered by at least one of them (ops of
     concurrent streams, a local mesh's shards, counted once)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1629,10 +1698,15 @@ def trace_replay(tag, step, expected, union=False):
             f"{covered / 1e3:.3f} ms")
         busy = covered / 1e3
     seen = {}
-    for k, pat in TRACE_NAMES.items():
-        hits = [e for e in ops if pat in e.name]
-        seen[k] = (len(hits),
-                   sum(e.time_range.elapsed_us() for e in hits) / 1e3)
+    for k, pats in TRACE_NAMES.items():
+        pats = (pats,) if isinstance(pats, str) else pats
+        hits = [[e for e in ops if p in e.name] for p in pats]
+        counts = tuple(len(h) for h in hits)
+        # device functions launched unequally read as their tuple of
+        # counts, which no expected count equals
+        seen[k] = (counts[0] if len(set(counts)) == 1 else counts,
+                   sum(e.time_range.elapsed_us() for h in hits for e in h)
+                   / 1e3)
     second = sum(1 for e in ops if "transport2<" in e.name)
     say(f"{tag} trace of one replay: {len(ops)} device ops, busy "
         f"{busy:.3f} ms; kernels (launches, device ms) "
@@ -4748,8 +4822,9 @@ LAUNCHES_SW = dict({k: 0 for k in WRAPPERS}, fv_tp_2d=2, del4_filter=1)
 # runs two D stages a substep (a hord-1 half stage without dissipation,
 # then the full one): 5 + 5 transports, 2 vertical solves, 4 filters, 2
 # column chains; midpoint=False one D stage and no C half-stage
-LAUNCHES_C_HALF_FALSE = dict(LAUNCHES_PER_DT, fv_tp_2d=61, sim1_solver=12)
-LAUNCHES_FORWARD_BACKWARD = dict(LAUNCHES_PER_DT, column_pressures=6)
+LAUNCHES_C_HALF_FALSE = dict(LAUNCHES_PER_DT, fv_tp_2d=61, sim1_solver=12,
+                             column_pressures=12, c_sw_half=0)
+LAUNCHES_FORWARD_BACKWARD = dict(LAUNCHES_PER_DT, c_sw_half=0)
 # (d)'s substep schemes: make_dycore_stepper's flags, and a patch of
 # dyn_substep for the one it does not expose (substep_scheme)
 SCHEMES = {
@@ -5065,10 +5140,13 @@ SPMD_DIST_TIMEOUT_S = 300  # every exchange and collective
 # factor of their difference (autograd's atomic scatter-add in div_damp's
 # transpose makes the single-process card dt irreproducible in f32)
 SPMD_SPREAD_FACTOR = 4.0
+# (a mesh's exchanges are not the single-process tables: the C-grid
+# half-stage takes its torch chain there, and K4 runs in it)
 LAUNCHES_SPMD_FACE = dict(LAUNCHES_PER_DT, del4_filter=0,
-                          del4_filter_pair=24)
+                          del4_filter_pair=24, column_pressures=12,
+                          c_sw_half=0)
 # on tiles the filter takes its plain transpose form (sw.scalar_filter)
-LAUNCHES_SPMD_TILED = dict(LAUNCHES_PER_DT, del4_filter=0)
+LAUNCHES_SPMD_TILED = dict(LAUNCHES_SPMD_FACE, del4_filter_pair=0)
 # the same meshes as the shards of this process (parallel.mesh.LocalMesh):
 # the JAX package's form, one process driving a mesh, whose run is one
 # replayed CUDA graph a dt here

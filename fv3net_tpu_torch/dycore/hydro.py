@@ -26,14 +26,15 @@ kernel when ``ops.advection.set_fused_transport(True)``), the vertical
 solve (ops/cuda_sim1.py), the del-4 filters (ops/cuda_filter.py), the
 nonhydrostatic column pressure chains (ops/cuda_column.py) and the
 vertical remap (ops/cuda_remap.py).  The hydrostatic branch runs K1
-(three transports a substep), K3, K4 (once a substep, in the C-grid
-half-stage) and K5: its substep core's pressure chain keeps the
-interface Exner function, which K4 does not return, and takes the plain
-form, as the JAX package's does.  The substep has the JAX package's
-three schemes (``dyn_substep``): the c_sw/d_sw default, the legacy
-two-stage midpoint (c_half=False) and plain forward-backward
-(midpoint=False).  On CPU tensors every piece runs its plain torch
-form.
+(three transports a substep), K3 and K5: its substep core's pressure
+chain keeps the interface Exner function, which K4 does not return, and
+takes the plain form, as the JAX package's does.  In both branches the
+C-grid half-stage runs as three fused kernels (ops/cuda_c_sw.py, K4's
+column chain folded in) where its exchanges are the single-process
+ones.  The substep has the JAX package's three schemes
+(``dyn_substep``): the c_sw/d_sw default, the legacy two-stage midpoint
+(c_half=False) and plain forward-backward (midpoint=False).  On CPU
+tensors every piece runs its plain torch form.
 
 FV3's routine clocks are device spans (``tracing.span``; nothing on
 CPU tensors or in a mesh): ``dycore.dt`` around the dt; in each
@@ -67,6 +68,7 @@ from ..grid.halo import (
     extend_cells_one,
     halo_exchange,
     halo_exchange_dgrid,
+    spmd_active,
 )
 from ..ops.advection import (
     _fused5_enabled,
@@ -75,6 +77,7 @@ from ..ops.advection import (
     ppm_flux,
     transports5,
 )
+from ..ops import cuda_c_sw
 from ..ops.cuda_column import column_pressures, exner_chain
 from ..ops.remap import remap_levels
 from ..tracing import span
@@ -280,7 +283,30 @@ def _c_sw_half_3d(state: DycoreState, m: SWMetrics, dt2: float,
     field), producing time-centered ADVECTIVE winds for the full D
     stage.  The half-stage PGF is hydrostatic even in nonhydrostatic
     runs.
+
+    Face-level CUDA tensors outside a mesh take the fused kernels
+    (ops/cuda_c_sw.py, ``_c_sw_fused``); everything else
+    ``_c_sw_half_chain``, the kernels' plain version.
     """
+    if _c_sw_fused(state.delp, m):
+        return cuda_c_sw.c_sw_half_cuda(m, dt2, ptop, phis, up, vp, dpx,
+                                        dpy, ptx, pty)
+    return _c_sw_half_chain(state, m, dt2, ptop, phis, up, vp, dpx, dpy,
+                            ptx, pty)
+
+
+def _c_sw_fused(x: torch.Tensor, m: SWMetrics) -> bool:
+    """Whether the C half-stage of `x`'s step takes the fused kernels: a
+    CUDA tensor, the single-process exchanges whose tables the kernels
+    read (no ``grid.halo.spmd_mode``) and metrics of whole faces."""
+    return x.is_cuda and not spmd_active() and m.edge_w is None
+
+
+def _c_sw_half_chain(state: DycoreState, m: SWMetrics, dt2: float,
+                     ptop: float, phis, up, vp, dpx, dpy, ptx, pty):
+    """``_c_sw_half_3d`` as a chain of torch operations: its form on the
+    CPU, on the meshes and on tiles, and the fused kernels' plain
+    version."""
     uc, vc, vc_on_x, uc_on_y = padded_cgrid_winds(
         state.u, state.v, m, up, vp
     )

@@ -607,6 +607,59 @@ def scalar_gather_flat(n: int, h: int, nz: int, fill: str,
 
 
 @lru_cache(maxsize=None)
+def cgrid_canon_gather_flat(n: int, h: int, device: torch.device):
+    """The tables of ``canonicalize_cgrid_boundary`` followed by
+    ``halo_exchange_cgrid``, composed, for the four padded lattices of
+    the C half-stage: uc fill x cropped to [N, N], vc fill y cropped to
+    [N, N], vc fill x and uc fill y (N = n + 2h).
+
+    Returns (src int32, coef float32), each [4, 6, N, N]: slot (o, f, J,
+    I) of lattice o holds coef times the stored own value of C face
+    src = ((kind * 6 + g) * N + J') * N + I', an x-face (kind 0: uc of
+    face g at padded (J', I'), J' in [h, h+n), I' in [h, h+n]) or a
+    y-face (kind 1: vc, J' in [h, h+n], I' in [h, h+n)).  The coefficient
+    is the exchange's sign times the canonicalisation's (each +-1 or 0),
+    so the product equals the two chained products bit for bit.  A
+    kernel computes each slot's own face where it needs it, and no
+    exchanged copy is written."""
+    N, nu = n + 2 * h, n * (n + 1)
+    ia, ca, ma, ib, cb, mb = _cgrid_boundary_canon_tables(n)
+    # the canonical pool: slot P of the stored pair [uc (6 faces); vc (6
+    # faces)] holds canon_coef[P] * own[canon_src[P]]
+    canon_src = np.arange(12 * nu, dtype=np.int64)
+    canon_coef = np.ones(12 * nu)
+    for part, idx, coef, rep in ((0, ia, ca, ma), (1, ib, cb, mb)):
+        rep = np.asarray(rep).reshape(-1)
+        sl = slice(part * 6 * nu, (part + 1) * 6 * nu)
+        canon_src[sl][rep] = np.asarray(idx).reshape(-1)[rep]
+        canon_coef[sl][rep] = np.asarray(coef).reshape(-1)[rep]
+
+    def padded_code(p):
+        """Pool index -> the own face's padded code."""
+        kind = (p >= 6 * nu).astype(np.int64)
+        q = p - kind * 6 * nu
+        g, r = q // nu, q % nu
+        row_len = np.where(kind == 0, n + 1, n)
+        J, I = r // row_len + h, r % row_len + h
+        return ((kind * 6 + g) * N + J) * N + I
+
+    src, coef = [], []
+    tables = {fill: _cgrid_tables(n, h, fill) for fill in ("x", "y")}
+    for fill, which in (("x", 0), ("y", 1), ("x", 1), ("y", 0)):
+        flat, sign = tables[fill][which]
+        crop = np.s_[:, :, :N] if which == 0 else np.s_[:, :N, :]
+        flat, sign = np.asarray(flat)[crop], np.asarray(sign)[crop]
+        src.append(padded_code(canon_src[flat]))
+        coef.append(sign * canon_coef[flat])
+    src = np.stack(src)
+    if src.max() >= 2 ** 31:
+        raise ValueError(f"C{n} with halo {h} does not fit int32 codes")
+    return (torch.as_tensor(src.astype(np.int32), device=device),
+            torch.as_tensor(np.stack(coef).astype(np.float32),
+                            device=device))
+
+
+@lru_cache(maxsize=None)
 def _staggered_gather(kind: str, n: int, h: int, fill: str,
                       device: torch.device, dtype: torch.dtype):
     """(face, pos, sign) gather tensors for both outputs of a D- or

@@ -50,6 +50,7 @@ SIGNATURES = {
     "fv3_del4_pair": [_P] * 5 + [_I] * 5 + [_F] + [_P],
     "fv3_remap": [_P] * 6 + [_I] * 7 + [_P],
     "fv3_tp2d_multi5": [_PP] * 2 + [_I] * 4 + [_P],
+    "fv3_c_sw_half": [_PP] * 2 + [_I] * 3 + [_F] * 5 + [_P],
     "fv3_probe_affine": [_P] * 2 + [_L] * 3 + [_I] + [_P],
     "fv3_probe_stencil": [_P] * 2 + [_L] + [_I] * 4 + [_P],
     "fv3_probe_resident": [_I],

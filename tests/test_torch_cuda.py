@@ -1236,11 +1236,12 @@ def test_multiband_radiation_on_card_matches_cpu(dev):
 # --- the captured steps (fv3net_tpu_torch.graphs) ---------------------------
 
 # launches of one C12 x 63 nonhydrostatic dt (chip_smoke.LAUNCHES_PER_DT):
-# 5 transports x 6 substeps + 1 tracer, a vertical solve, 4 filters and 2
-# column chains a substep, 6 remaps
+# 5 transports x 6 substeps + 1 tracer, a vertical solve, 4 filters, a
+# column chain and the fused C-grid half-stage a substep, 6 remaps
 DT_LAUNCHES = {"fv_tp_2d_cuda": 31, "sim1_solver_cuda": 6,
-               "del4_filter_cuda": 24, "column_pressures_cuda": 12,
-               "ppm_remap_cuda": 6, "fv_tp_2d_multi5_cuda": 0}
+               "del4_filter_cuda": 24, "column_pressures_cuda": 6,
+               "ppm_remap_cuda": 6, "fv_tp_2d_multi5_cuda": 0,
+               "c_sw_half_cuda": 6}
 
 
 def _c12_stepper(dev, **flags):
@@ -1433,10 +1434,10 @@ def test_compiled_loop_upload_waits_for_no_step(dev, tmp_path):
 SHARD_LAUNCHES = {
     (6, 1, 1): {"fv_tp_2d": 31, "sim1_solver": 6, "del4_filter": 0,
                 "del4_filter_pair": 24, "column_pressures": 12,
-                "ppm_remap": 6},
+                "ppm_remap": 6, "c_sw_half": 0},
     (2, 2, 2): {"fv_tp_2d": 31, "sim1_solver": 6, "del4_filter": 0,
                 "del4_filter_pair": 0, "column_pressures": 12,
-                "ppm_remap": 6},
+                "ppm_remap": 6, "c_sw_half": 0},
 }
 
 
@@ -1601,12 +1602,17 @@ def test_marked_replay_equals_eager_and_writes_54_marks(dev):
 def test_stage_spans_tile_the_dt(dev):
     """Over 20 replayed C48 dts, each timed by CUDA events: the stages'
     and the dt's self times sum to the dt's span, and the span is within
-    2% of the event time (which adds the graph's copy-in and clone-out)."""
+    2% of the event time (which adds the graph's copy-in and clone-out).
+    A replay is in flight when the first timed dt is enqueued, as for
+    every later one, so that no event pair holds the host's dispatch
+    onto an idle device: without it the first dt on an H100 read 24.74 ms
+    of span against 25.27 ms of events, 2.1% of the dt."""
     from fv3net_tpu_torch import tracing
 
     run, st, phis = _c48_stepper(dev)
     run(st, phis, 1)
     torch.cuda.synchronize()
+    run(st, phis, 1)
     tracing.reset()
     events = []
     for _ in range(20):
@@ -1696,3 +1702,100 @@ def test_cell_dt_equals_the_full_pool_boundary_form(dev, monkeypatch):
     run_ref, _, _ = _c48_cell_stepper(dev, seed=20261018)
     _assert_states_equal(got, run_ref(st, phis, 1), "full-pool form")
     assert _scatter_ms_per_dt(run_ref, st, phis) > 1.0
+
+
+# --- the fused C-grid half-stage (ops/cuda_c_sw.py, csrc/c_sw.cu) -----------
+
+
+def _c_sw_inputs(dev, width, nonhydro, terrain):
+    """Inputs of ``_c_sw_half_3d`` at C<width> x 63: the benchmark state
+    (nonhydrostatic, the cell's ptop) or the hydrostatic rest state with
+    pt noise (ptop 300), seeded winds of ~10 m/s, phis None or seeded
+    terrain, and the substep's shared exchanges."""
+    from fv3net_tpu_torch.dycore import hydro
+    from fv3net_tpu_torch.dycore.sw import SWMetrics
+    from fv3net_tpu_torch.grid import CubedSphereGrid
+
+    m = SWMetrics.make(CubedSphereGrid.make(width, halo=H), device=dev)
+    rng = np.random.RandomState(width + 2 * nonhydro + terrain)
+    if nonhydro:
+        ptop = 64.247
+        st = hydro.benchmark_state(width, NZ, ptop, dev, seed=width)
+    else:
+        ptop = 300.0
+        st = hydro.rest_state(width, NZ, ptop, device=dev)
+        st = st._replace(pt=st.pt + _t(rng.randn(*st.pt.shape), dev))
+    st = st._replace(u=_t(10.0 * rng.randn(*st.u.shape), dev),
+                     v=_t(10.0 * rng.randn(*st.v.shape), dev))
+    phis = (_t(2e4 * rng.rand(6, width, width), dev) if terrain else None)
+    return st, m, ptop, phis, hydro._exchanges(st, H)
+
+
+@pytest.mark.parametrize("terrain", [False, True])
+@pytest.mark.parametrize("nonhydro", [True, False])
+@pytest.mark.parametrize("width", [12, 48])
+def test_c_sw_half_kernels_match_the_torch_chain(dev, width, nonhydro,
+                                                 terrain):
+    """The fused half-stage (one count, three launches) against the torch
+    chain on the same inputs on the card: uc and vc on every slot of
+    their padded lattices within 1e-5 of the chain's largest value.  The
+    tolerance: the kernels repeat the chain's float32 operations in its
+    order (equal bit for bit with torch 2.11's kernels on the H100), but
+    torch's own kernels may round a scalar division or a product and sum
+    otherwise in another build, and the geopotential carries one ulp of
+    the column's pressures to the winds as up to a few 1e-6 of their
+    magnitude."""
+    from fv3net_tpu_torch.dycore import hydro
+    from fv3net_tpu_torch.ops import cuda_c_sw
+
+    st, m, ptop, phis, exch = _c_sw_inputs(dev, width, nonhydro, terrain)
+    before = cuda_c_sw.c_sw_half_cuda.launches
+    got = hydro._c_sw_half_3d(st, m, 75.0, ptop, phis, *exch)
+    assert cuda_c_sw.c_sw_half_cuda.launches == before + 1
+    want = hydro._c_sw_half_chain(st, m, 75.0, ptop, phis, *exch)
+    assert cuda_c_sw.c_sw_half_cuda.launches == before + 1
+    for name, g, w in zip(("uc", "vc"), got, want):
+        assert g.shape == w.shape == (6, NZ, width + 2 * H, width + 2 * H)
+        assert bool(torch.isfinite(g).all()), name
+        rel = float((g - w).abs().max() / w.abs().max())
+        assert rel <= 1e-5, (name, rel)
+
+
+def test_c_sw_half_wrapper_reads_nothing_on_the_host(dev):
+    """After the first call (the tables staged), a call makes no host read
+    and no host array into a tensor (tests/torch_parity.py), and gives the
+    same bits; a float64 operand is refused."""
+    from fv3net_tpu_torch.ops import cuda_c_sw
+    from torch_parity import NoHostRead
+
+    st, m, ptop, phis, exch = _c_sw_inputs(dev, 12, True, True)
+    first = cuda_c_sw.c_sw_half_cuda(m, 75.0, ptop, phis, *exch)
+    with NoHostRead(scalars=True):
+        again = cuda_c_sw.c_sw_half_cuda(m, 75.0, ptop, phis, *exch)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_c_sw.c_sw_half_cuda(m, 75.0, ptop, phis,
+                                 *(x.double() for x in exch))
+
+
+def test_c_sw_half_in_the_replayed_c48_cell_dt(dev):
+    """The benchmark cell's C48 x 63 dt: ``COUNTED["c_sw_half"]`` moves by
+    6 a dt, eager and replayed (the warm-up and the capture count none),
+    and the replayed dt equals its eager call bit for bit."""
+    from fv3net_tpu_torch.ops import cuda_c_sw
+
+    def count():
+        return cuda_c_sw.c_sw_half_cuda.launches
+
+    run, st, phis = _c48_cell_stepper(dev, seed=2718281829)
+    c0 = count()
+    eager = run.one_dt(st, phis)
+    assert count() - c0 == 6
+    replayed = run(st, phis, 1)  # warm-up, capture, one replay
+    assert count() - c0 == 12
+    assert all(bool(torch.isfinite(x).all()) for x in replayed
+               if x is not None)
+    _assert_states_equal(replayed, eager, "replay")
+    run(st, phis, 2)
+    assert count() - c0 == 24

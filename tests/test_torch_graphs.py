@@ -125,10 +125,12 @@ def _remat_pair():
 
 def test_every_kernel_wrapper_registers_its_counter():
     """The registry a replay moves (ops._build.COUNTED) holds each
-    wrapper of K1-K8 under its name, its counter an int."""
+    wrapper of K1-K8 and of the fused C-grid half-stage under its name,
+    its counter an int."""
     from fv3net_tpu_torch import probe
     from fv3net_tpu_torch.ops import (
-        _build, cuda_column, cuda_filter, cuda_remap, cuda_sim1, cuda_tp,
+        _build, cuda_c_sw, cuda_column, cuda_filter, cuda_remap, cuda_sim1,
+        cuda_tp,
     )
 
     assert _build.COUNTED == {
@@ -141,6 +143,7 @@ def test_every_kernel_wrapper_registers_its_counter():
         "ppm_remap": cuda_remap.ppm_remap_cuda,
         "probe_affine": probe.affine_cuda,
         "probe_stencil": probe.stencil_cuda,
+        "c_sw_half": cuda_c_sw.c_sw_half_cuda,
     }
     assert all(isinstance(w.launches, int) for w in _build.COUNTED.values())
 

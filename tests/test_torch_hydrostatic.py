@@ -75,7 +75,8 @@ def test_hydrostatic_branch_reaches_no_nonhydrostatic_kernel(
     core never calls the column pressure chain (K4): each is replaced by
     a function that raises.  The C-grid half-stage does call K4's chain,
     once a substep, as the JAX package's half-stage does (its gate has no
-    hydrostatic condition).  The dt still equals the JAX dt."""
+    hydrostatic condition): on the CPU the half-stage is its torch chain,
+    ``_c_sw_half_chain``.  The dt still equals the JAX dt."""
     import sys
 
     def forbidden(name):
@@ -90,7 +91,7 @@ def test_hydrostatic_branch_reaches_no_nonhydrostatic_kernel(
 
     def watched(*args, **kwargs):
         caller = sys._getframe(1).f_code.co_name
-        if caller != "_c_sw_half_3d":
+        if caller != "_c_sw_half_chain":
             raise AssertionError(f"{caller} reached column_pressures")
         callers.append(caller)
         return column_pressures(*args, **kwargs)

@@ -34,8 +34,8 @@ def test_kernel_modules_import_without_toolchain():
     assert _build._lib is None  # nothing was built or loaded at import
     assert _build.CSRC.is_dir()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "column.cu", "filter.cu", "mark.cu", "probe.cu", "remap.cu",
-        "sim1.cu", "tp2d.cu", "tp2d_multi5.cu",
+        "c_sw.cu", "column.cu", "filter.cu", "mark.cu", "probe.cu",
+        "remap.cu", "sim1.cu", "tp2d.cu", "tp2d_multi5.cu",
     ]
     # every C entry point the wrappers call has its argument types
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
